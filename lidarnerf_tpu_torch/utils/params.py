@@ -1,0 +1,68 @@
+"""Weight bridge between the JAX package's flax parameters and the port's state_dict.
+
+The flax tree is the `state["model"]` a JAX checkpoint holds
+(lidarnerf_tpu/nerf/trainer.py:837): nested dicts of numpy arrays,
+`{"params": {"hash_table": [L*B, 128], "<net>": {"Dense_i": {"kernel": [in, out]}}}}`.
+The port's NeRFNetwork keeps the table as is and stores each `Dense_i/kernel`
+transposed as `<net>.layers.i.weight` [out, in], the torch `nn.Linear` layout.
+"""
+
+import os
+import pickle
+
+import numpy as np
+import torch
+
+_NETS = ("sigma_net", "color_net", "lidar_color_net")
+_FOREIGN = ("jax", "jaxlib", "flax", "optax", "orbax", "lidarnerf_tpu")
+
+
+def params_from_jax(tree) -> dict:
+    """Flax parameter tree (numpy leaves) -> NeRFNetwork state_dict (float32 CPU tensors)."""
+    p = tree.get("params", tree)
+    unknown = set(p) - {"hash_table", *_NETS}
+    if unknown:
+        raise ValueError(f"parameters with no home in the port: {sorted(unknown)}")
+    sd = {"hash_table": torch.from_numpy(np.array(p["hash_table"], dtype=np.float32))}
+    for net in _NETS:
+        for name, layer in p[net].items():
+            i = int(name.removeprefix("Dense_"))
+            kernel = np.array(layer["kernel"], dtype=np.float32)
+            sd[f"{net}.layers.{i}.weight"] = torch.from_numpy(kernel.T.copy())
+    return sd
+
+
+def params_to_jax(state_dict) -> dict:
+    """NeRFNetwork state_dict -> flax parameter tree with numpy leaves."""
+    p = {"hash_table": state_dict["hash_table"].detach().cpu().numpy()}
+    for key, value in state_dict.items():
+        net, _, rest = key.partition(".layers.")
+        if net in _NETS:
+            i = int(rest.removesuffix(".weight"))
+            p.setdefault(net, {})[f"Dense_{i}"] = {"kernel": value.detach().cpu().numpy().T.copy()}
+    return {"params": p}
+
+
+class _NumpyOnlyUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] in _FOREIGN:
+            raise ValueError(
+                f"the checkpoint holds a {module}.{name} object, which needs the "
+                "JAX package to unpickle; save its trees with jax.device_get "
+                "(numpy leaves) to load them here"
+            )
+        return super().find_class(module, name)
+
+
+def load_jax_checkpoint(path) -> dict:
+    """Model parameters (flax tree, numpy leaves) of a JAX pickle checkpoint.
+
+    Reads the `.ckpt` pickle the JAX trainer writes without importing JAX;
+    raises if unpickling would need a JAX, flax or optax class. Unpickle
+    only files this system wrote: unpickling can run code.
+    """
+    if os.path.isdir(path):
+        raise NotImplementedError(f"{path} is an orbax checkpoint; only pickle checkpoints load here")
+    with open(path, "rb") as f:
+        state = _NumpyOnlyUnpickler(f).load()
+    return state.get("model", state)

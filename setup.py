@@ -17,8 +17,11 @@ setup(
     name="lidarnerf_tpu",
     version=read_version(),
     description="TPU-native (JAX/XLA/Pallas) LiDAR novel-view-synthesis framework",
-    packages=find_packages(include=["lidarnerf_tpu", "lidarnerf_tpu.*", "lidarnvs"]),
-    package_data={"lidarnerf_tpu.native": ["*.cpp"]},
+    packages=find_packages(
+        include=["lidarnerf_tpu", "lidarnerf_tpu.*", "lidarnvs",
+                 "lidarnerf_tpu_torch", "lidarnerf_tpu_torch.*"]
+    ),
+    package_data={"lidarnerf_tpu.native": ["*.cpp"], "lidarnerf_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
