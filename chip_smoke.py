@@ -3,15 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the ported path from `lidarnerf_tpu_torch/csrc`,
-holds each against its plain PyTorch version on the card at the main path's
-shapes, then drives the main path — full-pano LiDAR rendering through
-`PanoRenderer` at the full width of the KITTI-360 model (16-level 2^19
+Builds every CUDA kernel of the ported paths from `lidarnerf_tpu_torch/csrc`
+(the block-hash forward B1 and backward B2), holds each against its plain
+PyTorch version on the card at the main paths' shapes, then drives the two
+main paths at the full width of the KITTI-360 model (16-level 2^19
 block-hash grid, width-64 bf16 MLPs, 768 + 64 samples, 4096-ray chunks,
-66 x 1030 panos) with weights made from a seed — and checks that the path
-went through the kernels and that its output is right. Prints one JSON line
-of per-kernel numbers and ends with a JSON status line. Exits non-zero, with
-no result, when there is no GPU or when any phase fails.
+66 x 1030 panos):
+  - serving: full-pano LiDAR rendering through `PanoRenderer`, with weights
+    made from a seed;
+  - training: `Trainer` on the synthetic KITTI-360-format drive in
+    `data_synth_drive60/` for three epochs (patch 1, patch [2, 8], patch 1),
+    from the port's seeded init, then a render of a training frame from the
+    trained weights.
+It checks that each path went through the kernels and that its output is
+right, and profiles one render chunk and one training step. Prints one JSON
+line of per-kernel numbers and ends with a JSON status line. Exits non-zero,
+with no result, when there is no GPU or when any phase fails.
 """
 
 import json
@@ -33,9 +40,31 @@ FULL = SimpleNamespace(
     max_ray_batch=4096, fp16=True, alpha_r=1.0,
 )
 N_PANOS = 2
+DATA = "data_synth_drive60"  # 60 train frames of a synthetic KITTI-360-format drive
+TRAIN_EPOCHS = 3  # 60 steps each: patch 1, patch [2, 8], patch 1
+TRAIN_OPT = dict(  # configs/kitti360_1908.txt under the -L CLI defaults (main_lidarnerf.py)
+    alpha_d=1000.0, alpha_r=1.0, alpha_i=10.0, alpha_grad_norm=1.0, alpha_spatial=0.1,
+    alpha_tv=1.0, alpha_grad=100.0, depth_loss="l1", depth_grad_loss="l1",
+    intensity_loss="mse", raydrop_loss="mse", spatial_smooth=False, grad_norm_smooth=False,
+    tv_loss=False, grad_loss=True, sobel_grad=False, num_rays_lidar=4096, lr=1e-2,
+    iters=30000, patch_size_lidar=1, change_patch_size_lidar=[2, 8],
+    change_patch_size_epoch=2, seed=SEED,
+)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_ATOL = 1e-5  # fp32, the same products, 8 corners summed in another order
+# B2 vs its plain version, entry by entry: |k - p| <= BWD_RTOL * S + BWD_ATOL with
+# S the plain version on |g|: the trilinear weights are non-negative, so S is
+# the sum of the absolute terms of each entry, a bound on any summation order
+BWD_RTOL, BWD_ATOL = 1e-5, 1e-7
+# one fp32 training step on the GPU (kernels, atomics) vs the CPU (plain
+# versions), same weights and draws: the loss, and each gradient relative to
+# its tensor's largest entry. The sums over samples and the table's duplicate
+# rows run in another order; the LiDAR head reads the degree-12 frequency
+# encoding of the directions, whose sin(2^11 d) carries the two libms' ulp
+# differences in the trig into its input at ~1e-4
+TRAIN_REF_LOSS_RTOL = 1e-4
+TRAIN_REF_GRAD_TOL = {"lidar_color_net": 5e-3, "default": 1e-3}
 # fp32 GPU vs fp32 CPU render of the same rays: the log-transmittance is an
 # exclusive cumsum of 768 terms of up to ~35 in size, taken in another order
 # on each device, which moves the weights by up to ~1e-3 relative
@@ -139,6 +168,15 @@ def drive_poses(n):
     return poses
 
 
+def synth_drive():
+    """The training set: KITTI360Dataset on data_synth_drive60 with its scene constants."""
+    from lidarnerf_tpu_torch.dataset.kitti360 import KITTI360Dataset
+
+    with open(f"{DATA}/scene_constants.json") as f:
+        c = json.load(f)
+    return KITTI360Dataset(DATA, split="train", scale=c["scale"], offset=c["offset"])
+
+
 def block_hash_phase(spec):
     """B1 vs its plain version on the coarse queries of one real chunk and on
     uniform ones; returns the kernel's `kernels` entry (launches filled later)."""
@@ -208,6 +246,86 @@ def block_hash_phase(spec):
     }
 
 
+def training_chunk_queries(ds, dev, generator):
+    """The perturbed coarse queries of one 4096-ray training chunk of frame 0,
+    as the training step forms them."""
+    from lidarnerf_tpu_torch.dataset.base import rays_from_indices, sample_ray_indices
+    from lidarnerf_tpu_torch.ops.sampling import stratified_z_vals
+
+    poses, _ = ds.device_arrays(dev)
+    n = FULL.max_ray_batch
+    inds = sample_ray_indices(ds.H_lidar, ds.W_lidar, n, 1, generator, dev)
+    o, d = rays_from_indices(poses[0], inds, ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
+    near = torch.full((n, 1), ds.scale, device=dev)
+    z = stratified_z_vals(near, near * 81.0, FULL.num_steps, perturb=True, generator=generator)
+    xyz = torch.clamp(o[:, None] + d[:, None] * z[..., None], -FULL.bound, FULL.bound)
+    return ((xyz + FULL.bound) / (2 * FULL.bound)).reshape(-1, 3).contiguous()
+
+
+def block_hash_bwd_phase(spec, ds):
+    """B2 vs its plain version on the coarse queries of one real training chunk
+    and on uniform ones; returns the kernel's `kernels` entry."""
+    from lidarnerf_tpu_torch.ops import block_hash_cuda
+    from lidarnerf_tpu_torch.ops.block_hash import encode_bwd_plain, level_indices_and_weights
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    coarse = training_chunk_queries(ds, dev, gen)
+    Q, L = coarse.shape[0], spec.num_levels
+    uniform = torch.rand((Q, 3), generator=gen, device=dev) * 1.1 - 0.05
+    g = torch.randn((Q, spec.output_dim), generator=gen, device=dev)
+
+    max_err = 0.0
+    for name, x in (("training chunk", coarse), ("uniform", uniform)):
+        out = block_hash_cuda.block_hash_bwd(x, g, spec)
+        again = block_hash_cuda.block_hash_bwd(x, g, spec)
+        torch.cuda.synchronize()
+        ref = encode_bwd_plain(x, g, spec)
+        err = (out - ref).abs()
+        slack = BWD_RTOL * encode_bwd_plain(x, g.abs(), spec) + BWD_ATOL
+        worst = (err / slack).max().item()
+        rerun = (out - again).abs().max().item()
+        log(f"block_hash_bwd vs plain ({name}, Q={Q}): max_abs_err={err.max().item():.3e} "
+            f"(largest entry {ref.abs().max().item():.3e}), worst err / (1e-5 S + 1e-7) = "
+            f"{worst:.3f}; two runs differ by up to {rerun:.3e} (fp32 atomics)")
+        if not worst <= 1.0:
+            raise AssertionError(f"block_hash_bwd disagrees with its plain version ({name})")
+        max_err = max(max_err, err.max().item())
+        del out, again, ref, err, slack
+
+    inside = ~((coarse < 0) | (coarse > 1)).any(-1)
+    rows = [level_indices_and_weights(coarse[inside], lv, li, spec)[0]
+            for li, lv in enumerate(spec.levels)]
+    n_rows = torch.unique(torch.cat(rows)).numel()
+    # x and g read once, the whole [L*B, 128] gradient written once
+    bytes_moved = Q * 12 + Q * 2 * L * 4 + spec.table_rows * 128 * 4
+    flops = Q * L * 80  # cell, hash and weights, 8 corners x (weight, 2 products, 2 adds)
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations"
+
+    ms = cuda_ms(lambda: block_hash_cuda.block_hash_bwd(coarse, g, spec), reps=10)
+    plain_ms = cuda_ms(lambda: encode_bwd_plain(coarse, g, spec), reps=1, batches=3, warmup=1)
+    n_fine = FULL.max_ray_batch * FULL.upsample_steps
+    fine_ms = cuda_ms(lambda: block_hash_cuda.block_hash_bwd(coarse[:n_fine], g[:n_fine], spec),
+                      reps=10)
+    log(f"block_hash_bwd coarse call Q={Q}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by}: {bytes_moved / 1e6:.1f} MB; the chunk touches "
+        f"{n_rows} table rows); fine-call shape Q={n_fine}: {fine_ms:.4f} ms")
+    return {
+        "name": "block_hash_bwd",
+        "route": "cuda",
+        "source": "lidarnerf_tpu_torch/csrc/block_hash_bwd.cu",
+        "replaces": "lidarnerf_tpu/ops/block_hash_pallas.py:387",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this gradient
+    }
+
+
 def reference_phase(params):
     """fp32 render of a small pano on the GPU (kernel path) vs on the CPU (plain path)."""
     from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
@@ -229,14 +347,15 @@ def slice_phase(renderer):
     near, far = FULL.scale, FULL.scale * renderer.cfg.far_mult
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    block_hash_cuda.launches = 0
+    block_hash_cuda.launches = block_hash_cuda.bwd_launches = 0
     times = []
     frames = []
     for pose in drive_poses(N_PANOS):
         t0 = time.perf_counter()
         frames.append(renderer.render_frame(pose, H, W, INTRINSICS))  # ends on the host
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = {"block_hash_fwd": block_hash_cuda.launches}
+    launches = {"block_hash_fwd": block_hash_cuda.launches,
+                "block_hash_bwd": block_hash_cuda.bwd_launches}
     peak = torch.cuda.max_memory_allocated()
 
     chunks = -(-H * W // FULL.max_ray_batch)
@@ -254,10 +373,9 @@ def slice_phase(renderer):
         log(f"pano: depth in [{depth.min():.5f}, {depth.max():.5f}] (near {near:.5f}, "
             f"far {far:.5f}), raydrop mean {raydrop.mean():.4f}, intensity mean "
             f"{intensity.mean():.4f}")
-    if launches["block_hash_fwd"] != 2 * chunks * N_PANOS:
-        raise AssertionError(
-            f"block_hash_fwd launched {launches['block_hash_fwd']} times, "
-            f"expected {2 * chunks * N_PANOS}")
+    if launches != {"block_hash_fwd": 2 * chunks * N_PANOS, "block_hash_bwd": 0}:
+        raise AssertionError(f"serving launches {launches}, expected "
+                             f"{2 * chunks * N_PANOS} block_hash_fwd and no block_hash_bwd")
     rays = H * W
     log(f"slice on {gpu_line()}: {N_PANOS} panos of {H}x{W} rays, {FULL.num_steps}+{FULL.upsample_steps} "
         f"samples, chunk {FULL.max_ray_batch}: ms/pano {', '.join(f'{t:.1f}' for t in times)}; "
@@ -266,18 +384,166 @@ def slice_phase(renderer):
     return launches
 
 
-def profile_phase(renderer, top=12):
-    """Device time by operator for one chunk of the main path (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def train_opt(ds, **kw):
+    """Trainer options: the full-width KITTI-360 training config on `ds`."""
+    return SimpleNamespace(**{
+        **vars(FULL), **TRAIN_OPT, "scale": ds.scale, "min_near_lidar": ds.scale,
+        "min_near": ds.scale, "H_lidar": ds.H_lidar, "W_lidar": ds.W_lidar,
+        "intrinsics_lidar": ds.intrinsics_lidar, **kw,
+    })
 
-    pose = drive_poses(1)[0]
-    h, w = 4, FULL.max_ray_batch // 4  # exactly one chunk of rays
-    renderer.render_frame(pose, h, w, INTRINSICS)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+def new_model(opt, fp16):
+    from lidarnerf_tpu_torch.models.network import NeRFNetwork
+
+    return NeRFNetwork(
+        encoding=opt.encoding, desired_resolution=opt.desired_resolution,
+        log2_hashmap_size=opt.log2_hashmap_size, num_layers=opt.num_layers,
+        hidden_dim=opt.hidden_dim, geo_feat_dim=opt.geo_feat_dim, bound=opt.bound,
+        compute_dtype=torch.bfloat16 if fp16 else torch.float32,
+        generator=torch.Generator().manual_seed(SEED),
+    )
+
+
+def train_reference_phase(ds):
+    """One fp32 training step of a small config on the GPU (kernels) vs the CPU
+    (plain versions), from the same weights with the same draws.
+
+    The small field's finest level has 64 cells a side: at the full width's
+    32768, the devices' one-ulp differences in sample positions (trig,
+    sums) move samples across block seams, which routes their gradient to
+    other table rows, and the comparison would measure that, not the kernels.
+    """
+    from lidarnerf_tpu_torch.dataset.base import sample_ray_indices
+    from lidarnerf_tpu_torch.models.network import NeRFNetwork
+    from lidarnerf_tpu_torch.models.renderer import RenderConfig
+    from lidarnerf_tpu_torch.nerf.train_step import TrainConfig, make_train_step
+
+    n, T, S, patch = 64, 64, 8, [2, 8]
+    opt = train_opt(ds, num_rays_lidar=n)
+    cfg = TrainConfig(**{k: getattr(opt, k) for k in TrainConfig.__dataclass_fields__
+                         if hasattr(opt, k)})
+    rcfg = RenderConfig(num_steps=T, upsample_steps=S, min_near_lidar=ds.scale,
+                        min_near=ds.scale)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    draws = {"inds": sample_ray_indices(ds.H_lidar, ds.W_lidar, n, patch, gen),
+             "noise": torch.rand((n, T), generator=gen), "u": torch.rand((n, S), generator=gen)}
+    results = {}
+    for dev in ("cuda", "cpu"):
+        net = NeRFNetwork(num_levels=4, log2_hashmap_size=14, desired_resolution=64,
+                          hidden_dim=32, generator=torch.Generator().manual_seed(SEED))
+        step = make_train_step(net, cfg, rcfg, patch_size=patch, device=dev)
+        poses, images = ds.device_arrays(dev)
+        vi = torch.zeros((len(ds), 1), dtype=torch.long, device=dev)
+        vc = torch.full((len(ds),), ds.H_lidar * ds.W_lidar, device=dev)
+        m = step(poses, images, vi, vc, 3, draws={k: v.to(dev) for k, v in draws.items()})
+        grads = {k: p.grad.cpu() for k, p in net.named_parameters() if p.grad is not None}
+        results[dev] = (float(m["loss"]), m["skipped_nonfinite"], grads)
+    (loss_g, skip_g, grads_g), (loss_c, skip_c, grads_c) = results["cuda"], results["cpu"]
+    log(f"train reference: fp32 step of {n} rays, {T}+{S} samples, patch {patch}, 4-level "
+        f"2^14 table: loss GPU {loss_g:.6f} CPU {loss_c:.6f}")
+    if skip_g or skip_c or grads_g.keys() != grads_c.keys():
+        raise AssertionError("train reference: a step was skipped or the gradients differ in kind")
+    failed = []
+    for k, ref in grads_c.items():
+        peak = ref.abs().max().item()
+        rel = (grads_g[k] - ref).abs().max().item() / peak
+        tol = TRAIN_REF_GRAD_TOL["lidar_color_net" if k.startswith("lidar_color_net")
+                                 else "default"]
+        log(f"  grad {k}: max |GPU - CPU| / max |CPU| = {rel:.3e} (tol {tol})")
+        if not (peak > 0 and rel <= tol):
+            failed.append(k)
+    np.testing.assert_allclose(loss_g, loss_c, rtol=TRAIN_REF_LOSS_RTOL)
+    if failed:
+        raise AssertionError(f"train reference: the gradients of {failed} disagree")
+
+
+def train_slice_phase(ds):
+    """The training path: Trainer at full width on the synthetic drive.
+
+    Returns (trainer, initial state_dict on the host, launch counts)."""
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+    from lidarnerf_tpu_torch.ops import block_hash_cuda
+
+    opt = train_opt(ds)
+    model = new_model(opt, fp16=FULL.fp16)
+    init_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer("chip_smoke", opt, model, ema_decay=0.95)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_hash_cuda.launches = block_hash_cuda.bwd_launches = 0
+    epoch_s = []
+    for epoch in range(1, TRAIN_EPOCHS + 1):
         t0 = time.perf_counter()
-        renderer.render_frame(pose, h, w, INTRINSICS)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        trainer.train(ds, None, max_epochs=epoch)  # ends on the host (loss fetch)
+        epoch_s.append(time.perf_counter() - t0)
+    launches = {"block_hash_fwd": block_hash_cuda.launches,
+                "block_hash_bwd": block_hash_cuda.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    losses, steps = trainer.stats["step_loss"], trainer.global_step
+    if steps != TRAIN_EPOCHS * len(ds) or len(losses) != steps:
+        raise AssertionError(f"trained {steps} steps, expected {TRAIN_EPOCHS * len(ds)}")
+    if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
+        raise AssertionError("a training loss was non-finite or a step was skipped")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    log(f"train: loss mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+        f"({100 * (1 - last / first):.1f}% lower); per-epoch mean {trainer.stats['loss']}")
+    if not last <= 0.75 * first:
+        raise AssertionError("training lowered the loss by less than 25%")
+    for name, count in launches.items():
+        if count != 2 * steps:
+            raise AssertionError(f"{name} launched {count} times in {steps} steps, "
+                                 f"expected {2 * steps}")
+    n, samples = opt.num_rays_lidar, opt.num_steps + opt.upsample_steps
+    per_step = [1e3 * t / len(ds) for t in epoch_s]
+    warm = per_step[-1]  # epoch 3: patch 1, warm
+    log(f"train slice on {gpu_line()}: {steps} steps of {n} rays, {opt.num_steps}+"
+        f"{opt.upsample_steps} samples, {trainer.model.block_spec.num_levels}-level "
+        f"2^{opt.log2_hashmap_size} table, bf16 MLPs; ms/step by epoch "
+        f"(patch 1, [2, 8], 1): {', '.join(f'{t:.2f}' for t in per_step)}; warm "
+        f"{warm:.2f} ms/step = {n / warm * 1e3:.0f} rays/s = "
+        f"{n * samples / warm / 1e3:.1f}M composited ray-samples/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    return trainer, init_sd, launches
+
+
+def train_to_serve_phase(ds, trainer, init_sd):
+    """Render training frame 0 from the trained and from the initial weights
+    through PanoRenderer; the trained field must fit the frame's depth better."""
+    from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
+    from lidarnerf_tpu_torch.ops import block_hash_cuda
+    from lidarnerf_tpu_torch.utils.params import params_to_jax
+
+    opt = train_opt(ds)
+    gt = ds.images_lidar[0]
+    hit = gt[..., 0] == 1.0
+    block_hash_cuda.launches = block_hash_cuda.bwd_launches = 0
+    maes = {}
+    for name, sd in (("initial", init_sd), ("trained", trainer.model.state_dict())):
+        renderer = PanoRenderer(opt, params_to_jax(sd))
+        _, _, depth = renderer.render_frame(ds.poses_lidar[0], ds.H_lidar, ds.W_lidar,
+                                            ds.intrinsics_lidar)
+        if depth.shape != (ds.H_lidar, ds.W_lidar) or not np.isfinite(depth).all():
+            raise AssertionError(f"the {name} render is not a finite pano")
+        maes[name] = float(np.abs(depth - gt[..., 2])[hit].mean())
+    launches = {"block_hash_fwd": block_hash_cuda.launches,
+                "block_hash_bwd": block_hash_cuda.bwd_launches}
+    chunks = -(-ds.H_lidar * ds.W_lidar // FULL.max_ray_batch)
+    log(f"train-to-serve: depth MAE on the {int(hit.sum())} returning rays of frame 0: "
+        f"initial {maes['initial']:.5f}, trained {maes['trained']:.5f} (scaled units; "
+        f"{maes['trained'] / ds.scale:.3f} m); launches {launches}")
+    if not maes["trained"] < maes["initial"]:
+        raise AssertionError("the trained field renders its training frame no better")
+    if launches != {"block_hash_fwd": 2 * 2 * chunks, "block_hash_bwd": 0}:
+        raise AssertionError(f"train-to-serve launches {launches}, expected "
+                             f"{2 * 2 * chunks} block_hash_fwd")
+    return launches
+
+
+def profile_summary(prof, wall_ms, what, top):
+    """Device time of `prof` by kernel and by operator, and the device's idle share."""
+    from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -288,12 +554,49 @@ def profile_phase(renderer, top=12):
     kernels = [e for e in averages if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     ops = [e for e in averages if e.device_type == DeviceType.CPU and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    log(f"profile of one {FULL.max_ray_batch}-ray chunk: device busy {busy_ms:.2f} ms "
-        f"of {wall_ms:.2f} ms wall under the profiler")
+    log(f"profile of {what}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall under "
+        f"the profiler (idle {100 * max(0.0, 1 - busy_ms / wall_ms):.1f}%)")
     for title, events in (("kernels", kernels), ("operators", ops)):
         log(f" by {title}:")
         for e in sorted(events, key=dev_us, reverse=True)[:top]:
             log(f"  {dev_us(e) / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:100]}")
+
+
+def profile_train_step(ds, trainer, top=15):
+    """Device time by kernel and operator of one full-width training step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidarnerf_tpu_torch.nerf.train_step import make_train_step
+
+    step = make_train_step(trainer.model, trainer.train_cfg, trainer.render_cfg,
+                           optimizer=trainer.optimizer)
+    poses, images = ds.device_arrays("cuda")
+    vi = torch.zeros((len(ds), 1), dtype=torch.long, device="cuda")
+    vc = torch.full((len(ds),), ds.H_lidar * ds.W_lidar, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    step(poses, images, vi, vc, 0, generator=gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(poses, images, vi, vc, 1, generator=gen)  # ends on the host (update guard)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_summary(prof, wall_ms, f"one {trainer.train_cfg.num_rays_lidar}-ray training step",
+                    top)
+
+
+def profile_phase(renderer, top=12):
+    """Device time by operator for one chunk of the serving path (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pose = drive_poses(1)[0]
+    h, w = 4, FULL.max_ray_batch // 4  # exactly one chunk of rays
+    renderer.render_frame(pose, h, w, INTRINSICS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        renderer.render_frame(pose, h, w, INTRINSICS)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_summary(prof, wall_ms, f"one {FULL.max_ray_batch}-ray render chunk", top)
 
 
 def main():
@@ -310,7 +613,7 @@ def main():
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    libs = cuda_lib.build([block_hash_cuda.SOURCE])
+    libs = cuda_lib.build(block_hash_cuda.SOURCES)  # one nvcc per source, in parallel
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         report = lib.with_suffix(".log")
@@ -319,21 +622,33 @@ def main():
 
     spec = make_block_hash_spec(log2_hashmap_size=FULL.log2_hashmap_size,
                                 desired_resolution=FULL.desired_resolution)
-    kernels = [block_hash_phase(spec)]
+    ds = synth_drive()
+    kernels = [block_hash_phase(spec), block_hash_bwd_phase(spec, ds)]
+
+    # serving
     params = flax_layout_params(SEED, FULL)
     reference_phase(params)
     renderer = PanoRenderer(FULL, params)
-    launches = slice_phase(renderer)
+    paths = {"serving": slice_phase(renderer)}
     profile_phase(renderer)
+    del renderer
+
+    # training
+    trainer, init_sd, paths["training"] = train_slice_phase(ds)
+    paths["train-to-serve"] = train_to_serve_phase(ds, trainer, init_sd)
+    profile_train_step(ds, trainer)
+    train_reference_phase(ds)
+
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())
         if not k["launches"]:
-            raise AssertionError(f"{k['name']} was not launched on the main path")
+            raise AssertionError(f"{k['name']} was not launched on the main paths")
+    log(f"launches by path: {paths}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
+    # every phase runs on the current device only
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
 
 

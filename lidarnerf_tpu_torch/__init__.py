@@ -11,7 +11,10 @@ PyTorch version of the same function. A CUDA tensor always takes the kernel,
 a CPU tensor the plain version (`ops/dispatch.py`).
 
 Ported so far: full-pano LiDAR inference rendering (`nerf/infer.PanoRenderer`)
-with the block-hash forward kernel (`csrc/block_hash_fwd.cu`).
+with the block-hash forward kernel (`csrc/block_hash_fwd.cu`), and training
+(`nerf/train_step.make_train_step`, `nerf/trainer.Trainer`,
+`dataset/kitti360.KITTI360Dataset`) with the block-hash backward kernel
+(`csrc/block_hash_bwd.cu`) for the table gradient.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,8 @@
-"""LiDAR pano ray generation (counterpart of lidarnerf_tpu/dataset/base.py:22-42,72-114).
+"""LiDAR pano ray generation and training pixel sampling
+(counterpart of lidarnerf_tpu/dataset/base.py:22-114).
 
 All trig runs in float32, as the reference pins ray generation to fp32.
+Random draws come from an explicit `torch.Generator`, or are injected.
 """
 
 import math
@@ -33,6 +35,42 @@ def lidar_ray_dirs(H, W, intrinsics, device=None):
     return _pixel_dirs(i.reshape(-1), j.reshape(-1), intrinsics, H, W)
 
 
+def patch_dims(patch_size):
+    if isinstance(patch_size, int):
+        return patch_size, patch_size
+    if len(patch_size) == 1:
+        return patch_size[0], patch_size[0]
+    return tuple(patch_size)
+
+
+def sample_ray_indices(H, W, N, patch_size, generator=None, device=None, corners=None):
+    """Flat pixel indices for one training step, [N] int64.
+
+    With a patch (px, py) > 1: N // (px*py) random top-left corners in
+    [0, H - px) x [0, W - py), each expanded to a px x py block in the JAX
+    package's order (row offset slowest); otherwise N independent random
+    pixels (duplicates allowed).
+
+    Args:
+        generator: the `torch.Generator` the draws come from.
+        corners: optional (ix, iy) [N // (px*py)] injected corner draws.
+    """
+    px, py = patch_dims(patch_size)
+    if px > 1 or py > 1:
+        num_patch = N // (px * py)
+        if corners is None:
+            ix = torch.randint(0, H - px, (num_patch,), generator=generator, device=device)
+            iy = torch.randint(0, W - py, (num_patch,), generator=generator, device=device)
+        else:
+            ix, iy = (torch.as_tensor(c, device=device).long() for c in corners)
+        pi, pj = torch.meshgrid(torch.arange(px, device=ix.device),
+                                torch.arange(py, device=ix.device), indexing="ij")
+        rows = (ix[:, None] + pi.reshape(1, -1)).reshape(-1)
+        cols = (iy[:, None] + pj.reshape(1, -1)).reshape(-1)
+        return rows * W + cols
+    return torch.randint(0, H * W, (N,), generator=generator, device=device)
+
+
 def rays_from_indices(pose, inds, H, W, intrinsics):
     """World-frame rays for flat pixel indices under a lidar2world pose.
 
@@ -50,24 +88,27 @@ def rays_from_indices(pose, inds, H, W, intrinsics):
     return rays_o, rays_d
 
 
-def get_lidar_rays(poses, intrinsics, H, W, N=-1):
-    """All H*W rays of each pose, row-major.
+def get_lidar_rays(poses, intrinsics, H, W, N=-1, patch_size=1, generator=None):
+    """Rays of each pose: all H*W row-major (N = -1), or N sampled pixels.
 
     Args:
         poses: [B, 4, 4] lidar2world (tensor; its device is the rays' device).
-        N: must be -1 (every pixel); random ray sampling comes with training.
+        N: rays per pose, -1 for every pixel; the sampled pixels
+            (`sample_ray_indices`, one draw shared by all poses) otherwise.
+        generator: the `torch.Generator` the sampled pixels come from.
 
     Returns:
         dict(rays_o [B, N, 3], rays_d [B, N, 3], inds [B, N])
     """
-    if N > 0:
-        raise NotImplementedError("random ray sampling comes with the training slice")
     poses = poses.float()
-    inds = torch.arange(H * W, device=poses.device)
+    if N > 0:
+        inds = sample_ray_indices(H, W, min(N, H * W), patch_size, generator, poses.device)
+    else:
+        inds = torch.arange(H * W, device=poses.device)
     ro, rd = zip(*(rays_from_indices(p, inds, H, W, intrinsics) for p in poses))
     B = poses.shape[0]
     return {
         "rays_o": torch.stack(ro),
         "rays_d": torch.stack(rd),
-        "inds": inds.expand(B, H * W),
+        "inds": inds.expand(B, inds.shape[0]),
     }

@@ -1,15 +1,18 @@
-"""LiDAR volume renderer for inference (counterpart of lidarnerf_tpu/models/renderer.py:34-220).
+"""LiDAR volume renderer (counterpart of lidarnerf_tpu/models/renderer.py:34-220).
 
 - LiDAR rays: near = min_near_lidar, far = far_mult * min_near_lidar;
-- num_steps stratified samples, no perturb; xyz clipped to the AABB;
-- one round of deterministic inverse-CDF upsampling on the coarse weights;
+- num_steps stratified samples, jittered when training; xyz clipped to the AABB;
+- one round of inverse-CDF upsampling on the detached coarse weights,
+  deterministic at inference, with uniform draws when training;
 - order-free merged compositing of the coarse and fine lists;
 - depth = sum(w * z), image = sum(w * color), colors zeroed where w <= 1e-4.
 
-`render_rays_staged` renders a full pano in fixed `chunk`-ray blocks. Both
-entry points are inference (`train=False` in the JAX package): no
-randomness, so the port agrees with the JAX package value for value on the
-same parameters. RGB mode and the background sphere are not ported yet.
+`render_rays` with `train=True` is the training render; its randomness (the
+stratified jitter and the `u` of the inverse CDF) is injected or drawn from
+a `torch.Generator`, so tests can feed the JAX package's draws.
+`render_rays_staged` renders a full pano in fixed `chunk`-ray blocks, for
+inference only. RGB mode, the background sphere and occupancy-prior
+sampling (`--fast`) are not ported yet.
 """
 
 from dataclasses import dataclass
@@ -46,12 +49,18 @@ def near_far_from_aabb(rays_o, rays_d, aabb_min, aabb_max, min_near):
     return near[..., None], far[..., None]
 
 
-def render_rays(network, rays_o, rays_d, cfg: RenderConfig):
+def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generator=None,
+                noise=None, u=None):
     """Render a flat batch of LiDAR rays.
 
     Args:
         network: NeRFNetwork on the rays' device.
         rays_o, rays_d: [N, 3] float32.
+        train: jitter the stratified samples and draw the inverse-CDF `u`
+            uniformly (`perturb=train`, `det=not train` in the JAX package).
+        generator: the `torch.Generator` the training draws come from.
+        noise: optional [N, num_steps] uniform [0, 1) jitter draws.
+        u: optional [N, upsample_steps] uniform [0, 1) inverse-CDF draws.
 
     Returns:
         dict(depth [N], image [N, 2] = (raydrop, intensity), weights_sum [N])
@@ -67,7 +76,8 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig):
 
     nears = torch.full((N, 1), cfg.min_near_lidar, dtype=torch.float32, device=dev)
     fars = torch.full((N, 1), cfg.min_near_lidar * cfg.far_mult, dtype=torch.float32, device=dev)
-    z_vals = stratified_z_vals(nears, fars, cfg.num_steps)
+    z_vals = stratified_z_vals(nears, fars, cfg.num_steps, perturb=train, noise=noise,
+                               generator=generator)
     sample_dist = (fars - nears) / cfg.num_steps  # [N, 1]
 
     def query_density(z):
@@ -86,7 +96,8 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig):
     if cfg.upsample_steps > 0:
         w_coarse = composite_weights(sigmas.detach(), z_vals, sample_dist, cfg.density_scale)
         z_mid = z_vals[..., :-1] + 0.5 * (z_vals[..., 1:] - z_vals[..., :-1])  # [N, T-1]
-        new_z = sample_pdf(z_mid, w_coarse[:, 1:-1], cfg.upsample_steps, det=True)
+        new_z = sample_pdf(z_mid, w_coarse[:, 1:-1], cfg.upsample_steps, det=not train, u=u,
+                           generator=generator)
         new_z = torch.sort(new_z.detach(), dim=-1).values
         new_sigmas, new_geo = query_density(new_z)
 

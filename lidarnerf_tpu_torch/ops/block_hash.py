@@ -6,13 +6,13 @@ a query's 8 trilinear corners always lie in one row. Coarse levels index
 blocks densely, fine levels hash the block coordinate with the prime-XOR of
 instant-ngp into 2^log2_hashmap_size / 64 blocks per level.
 
-`block_hash_encode` is the entry point: a CUDA tensor goes through the
-hand-written kernel (`block_hash_cuda.py`, `csrc/block_hash_fwd.cu`), a CPU
-tensor through `encode_plain` below, the counterpart of `_encode_xla`. The
-plain version is also the kernel's oracle on the card.
-
-This slice is forward-only on CUDA: the table gradient needs the backward
-kernel, which comes with the training slice.
+`block_hash_encode` is the entry point, an autograd Function on both
+devices. A CUDA tensor goes through the hand-written kernels
+(`block_hash_cuda.py`): the forward `csrc/block_hash_fwd.cu` and, for the
+table gradient, the backward `csrc/block_hash_bwd.cu`. A CPU tensor goes
+through their plain versions below: `encode_plain`, the counterpart of
+`_encode_xla`, and `encode_bwd_plain`, the counterpart of the XLA branch of
+`_encode_bwd`. The plain versions are also the kernels' oracles on the card.
 """
 
 from dataclasses import dataclass
@@ -185,26 +185,64 @@ def encode_plain(x, table, spec: BlockHashSpec):
     return torch.where(_out_of_range(x), 0.0, out)
 
 
+def encode_bwd_plain(x, g, spec: BlockHashSpec):
+    """Plain table gradient: [Q, 3] points, [Q, 2L] feature grads -> [L*B, 128] float32.
+
+    The XLA branch of the JAX package's `_encode_bwd` (block_hash.py:268-300):
+    grads of out-of-range queries are zeroed, then per level each query's
+    lane weights times its two feature grads are scatter-added, duplicates
+    summed, into a zero table.
+    """
+    g = torch.where(_out_of_range(x), 0.0, g.float())
+    grad = torch.zeros((spec.table_rows, ROW_WIDTH), dtype=torch.float32, device=x.device)
+    for li, level in enumerate(spec.levels):
+        rows_idx, w12 = level_indices_and_weights(x, level, li, spec)
+        # lane j holds channel j & 1 -> [g0, g1, g0, g1, ...]
+        g_lane = g[:, 2 * li : 2 * li + 2].repeat(1, ROW_WIDTH // LEVEL_DIM)
+        grad.index_add_(0, rows_idx, lane_weight_row(w12) * g_lane)
+    return grad
+
+
 # ------------------------------------------------------------- public entry
+
+
+class BlockHashEncode(torch.autograd.Function):
+    """Features of [Q, 3] points, differentiable w.r.t. the table only.
+
+    CUDA tensors run kernels B1 (forward) and B2 (backward); CPU tensors run
+    `encode_plain` and `encode_bwd_plain`. The points get no gradient: the
+    JAX package's VJP returns zeros there and nothing upstream needs it.
+    """
+
+    @staticmethod
+    def forward(ctx, x, table, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(x)
+        if dispatch.uses_kernel(x):
+            from lidarnerf_tpu_torch.ops.block_hash_cuda import block_hash_fwd
+
+            return block_hash_fwd(x, table, spec)
+        return encode_plain(x, table, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[1]:
+            return None, None, None
+        (x,) = ctx.saved_tensors
+        g = g.float().contiguous()
+        if dispatch.uses_kernel(x):
+            from lidarnerf_tpu_torch.ops.block_hash_cuda import block_hash_bwd
+
+            return None, block_hash_bwd(x, g, ctx.spec), None
+        return None, encode_bwd_plain(x, g, ctx.spec), None
 
 
 def block_hash_encode(x01, table, spec: BlockHashSpec):
     """Encode [..., 3] points in [0, 1] -> [..., num_levels * 2] features.
 
-    CUDA tensors run the forward kernel; CPU tensors run `encode_plain`.
+    CUDA tensors run the kernels; CPU tensors run the plain versions.
     """
     prefix = x01.shape[:-1]
-    x = x01.reshape(-1, 3)
-    if dispatch.uses_kernel(x):
-        if table.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the block-hash table gradient on CUDA needs the backward "
-                "kernel, which comes with the training slice; run under "
-                "torch.no_grad() or detach the table"
-            )
-        from lidarnerf_tpu_torch.ops.block_hash_cuda import block_hash_fwd
-
-        out = block_hash_fwd(x.float().contiguous(), table, spec)
-    else:
-        out = encode_plain(x, table, spec)
+    x = x01.reshape(-1, 3).float().contiguous()
+    out = BlockHashEncode.apply(x, table, spec)
     return out.reshape(*prefix, spec.output_dim)

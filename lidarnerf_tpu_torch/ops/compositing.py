@@ -11,7 +11,8 @@ import torch
 _LOG_EPS = -34.538776394910684
 
 
-def _excl_cumsum(x):
+def exclusive_cumsum(x):
+    """Sum of the earlier entries along the last axis (0 at the first)."""
     c = torch.cumsum(x, dim=-1)
     return torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], dim=-1)
 
@@ -33,7 +34,7 @@ def composite_weights(sigmas, z_vals, sample_dist, density_scale=1.0):
     deltas = torch.cat([deltas, sample_dist.expand_as(deltas[..., :1])], dim=-1)
     x = deltas * density_scale * sigmas
     alphas = 1.0 - torch.exp(-x)
-    return alphas * torch.exp(_excl_cumsum(_log_trans(x)))
+    return alphas * torch.exp(exclusive_cumsum(_log_trans(x)))
 
 
 def merged_composite_weights(zA, sigA, zB, sigB, sample_dist, density_scale=1.0):
@@ -79,6 +80,6 @@ def merged_composite_weights(zA, sigA, zB, sigB, sample_dist, density_scale=1.0)
     # B[j]: own exclusive cumsum + every A at or before it
     crossB_at_A = torch.where(zB[:, None, :] < zA[:, :, None], lB[:, None, :], 0.0).sum(-1)
     crossA_at_B = torch.where(zA[:, None, :] <= zB[:, :, None], lA[:, None, :], 0.0).sum(-1)
-    wA = aA * torch.exp(_excl_cumsum(lA) + crossB_at_A)
-    wB = aB * torch.exp(_excl_cumsum(lB) + crossA_at_B)
+    wA = aA * torch.exp(exclusive_cumsum(lA) + crossB_at_A)
+    wB = aB * torch.exp(exclusive_cumsum(lB) + crossA_at_B)
     return wA, wB

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels (plain C interface, bound with ctypes).
 
 Each `csrc/*.cu` file is compiled by `nvcc` for sm_90a into a shared library
-under `lidarnerf_tpu_torch/_build/`, named by a hash of its source and flags,
-so an edited source is rebuilt and an unchanged one is reused. Nothing is
+under `lidarnerf_tpu_torch/_build/`, named by a hash of its source, every
+`csrc/*.cuh` header and the flags, so an edited source or shared header is
+rebuilt and an unchanged one is reused. Nothing is
 built when this module is imported: `load` builds at first use, and `build`
 compiles several sources at once (one `nvcc` each, all started together).
 The compiler's report (`-Xptxas -v`: registers, spills) is kept beside each
@@ -40,8 +41,11 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{src.stem}_{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build(sources) -> dict:

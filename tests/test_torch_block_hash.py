@@ -127,3 +127,61 @@ def test_plain_encode_table_grad_matches_jax():
     (tbh.block_hash_encode(torch.from_numpy(x), t, spec) * torch.from_numpy(g)).sum().backward()
     # scatter-adds of up to hundreds of duplicate rows in another order
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def _xla_table_grad(x, g, spec_j):
+    """The XLA branch of `_encode_bwd` (block_hash.py:268-300), through jax.vjp."""
+    table0 = jnp.zeros((spec_j.table_rows, 128), jnp.float32)
+    _, vjp = jax.vjp(lambda t: bh.block_hash_encode(jnp.asarray(x), t, spec_j, False), table0)
+    return np.asarray(vjp(jnp.asarray(g))[0])
+
+
+@pytest.mark.parametrize("ray_coherent", [True, False], ids=["rays", "uniform"])
+def test_encode_bwd_plain_matches_xla_encode_bwd(ray_coherent):
+    spec_j = bh.make_block_hash_spec(**SMALL)
+    spec = tbh.make_block_hash_spec(**SMALL)
+    x = _inputs(5000, 3, ray_coherent)
+    outside = ((x < 0) | (x > 1)).any(-1)
+    assert outside.any() and not outside.all()
+    g = np.random.RandomState(8).randn(5000, spec.output_dim).astype(np.float32)
+    ref = _xla_table_grad(x, g, spec_j)
+    out = tbh.encode_bwd_plain(torch.from_numpy(x), torch.from_numpy(g), spec)
+    assert out.shape == (spec.table_rows, 128) and out.dtype == torch.float32
+    if ray_coherent:  # samples along rays pile hundreds of duplicates onto coarse rows
+        assert np.abs(ref).max() > 10
+    # fp32 both sides, the duplicates summed in another order: ~1e-6 of the
+    # largest entry
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+
+
+def test_encode_bwd_plain_matches_pallas_bwd_win_interpret():
+    """A second oracle: the windowed B2 variant computes the same function and,
+    unlike B2 itself, has an interpret mode."""
+    spec_j = bh.make_block_hash_spec(**SMALL)
+    spec = tbh.make_block_hash_spec(**SMALL)
+    x = _inputs(3000, 9, ray_coherent=True).clip(0.0, 1.0)
+    g = np.random.RandomState(10).randn(3000, spec.output_dim).astype(np.float32)
+    rows, lf, _ = bhp.prep_inputs_padded(jnp.asarray(x), spec_j)
+    flags = bhp.pack_win_flags(rows, spec_j.num_levels, lf.shape[-1])
+    ref = np.asarray(bhp._bwd_win_from_prep(rows, lf, flags, jnp.asarray(g), spec_j,
+                                            interpret=True))
+    out = tbh.encode_bwd_plain(torch.from_numpy(x), torch.from_numpy(g), spec).numpy()
+    # the kernel broadcasts the lane weights through a split-bf16 product
+    # (~2^-17 of each term) and sums windows in a tree: 1e-4 of the largest entry
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
+
+
+def test_autograd_function_table_grad_equals_encode_bwd_plain():
+    spec = tbh.make_block_hash_spec(**SMALL)
+    x = torch.from_numpy(_inputs(2000, 11, ray_coherent=False))
+    g = torch.from_numpy(np.random.RandomState(12).randn(2000, spec.output_dim).astype(np.float32))
+    table = torch.from_numpy(_table(spec, 13)).requires_grad_(True)
+    out = tbh.block_hash_encode(x.reshape(40, 50, 3), table, spec)
+    assert out.shape == (40, 50, spec.output_dim)
+    (out.reshape(2000, -1) * g).sum().backward()
+    # the Function's CPU backward is encode_bwd_plain itself: equal to the bit
+    np.testing.assert_array_equal(table.grad.numpy(), tbh.encode_bwd_plain(x, g, spec).numpy())
+    # the forward is encode_plain
+    with torch.no_grad():
+        np.testing.assert_array_equal(out.reshape(2000, -1).numpy(),
+                                      tbh.encode_plain(x, table, spec).numpy())

@@ -56,11 +56,46 @@ def test_block_hash_kernel_matches_plain(require_cuda, spec_name, coherent):
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
 
 
+def _assert_bwd_close(out, x, g, spec):
+    """|kernel - plain| <= 1e-5 * S + 1e-7, S = encode_bwd_plain(x, |g|).
+
+    The trilinear weights are non-negative, so S is the sum of the absolute
+    terms of each entry: a bound on the rounding of any summation order.
+    """
+    ref = block_hash.encode_bwd_plain(x, g, spec)
+    S = block_hash.encode_bwd_plain(x, g.abs(), spec)
+    bad = (out - ref).abs() > 1e-5 * S + 1e-7
+    assert not bad.any(), f"{int(bad.sum())} entries off; max err {(out - ref).abs().max()}"
+
+
 def test_block_hash_kernel_empty_and_no_grad_guard(require_cuda):
+    """The table gradient of block_hash_encode launches B2 once and matches its
+    plain version; an empty batch launches nothing."""
     spec = block_hash.make_block_hash_spec(**SPECS["small"])
     table = torch.zeros(spec.table_rows, 128, device="cuda", requires_grad=True)
-    x = torch.rand(7, 3, device="cuda")
-    with pytest.raises(NotImplementedError):
-        block_hash.block_hash_encode(x, table, spec)
+    x = _points(3000, 2, coherent=True)
+    g = torch.randn(3000, spec.output_dim, device="cuda")
+    fwd0, bwd0 = block_hash_cuda.launches, block_hash_cuda.bwd_launches
+    (block_hash.block_hash_encode(x, table, spec) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (block_hash_cuda.launches, block_hash_cuda.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+    _assert_bwd_close(table.grad, x, g, spec)
     with torch.no_grad():
         assert block_hash.block_hash_encode(x[:0], table, spec).shape == (0, spec.output_dim)
+    empty = block_hash_cuda.block_hash_bwd(x[:0], g[:0], spec)
+    assert empty.shape == (spec.table_rows, 128) and not empty.any()
+    assert (block_hash_cuda.launches, block_hash_cuda.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+
+
+@pytest.mark.parametrize("coherent", [True, False], ids=["rays", "uniform"])
+@pytest.mark.parametrize("spec_name", list(SPECS))
+def test_block_hash_bwd_kernel_matches_plain(require_cuda, spec_name, coherent):
+    spec = block_hash.make_block_hash_spec(**SPECS[spec_name])
+    x = _points(20000, 3, coherent)
+    g = torch.randn(20000, spec.output_dim, generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    before = block_hash_cuda.bwd_launches
+    out = block_hash_cuda.block_hash_bwd(x, g, spec)
+    torch.cuda.synchronize()
+    assert block_hash_cuda.bwd_launches == before + 1
+    _assert_bwd_close(out, x, g, spec)

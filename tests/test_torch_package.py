@@ -6,6 +6,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,7 +15,10 @@ import torch
 import jax.numpy as jnp
 
 import lidarnerf_tpu_torch
+from lidarnerf_tpu_torch.models.renderer import RenderConfig
 from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
+from lidarnerf_tpu_torch.nerf.train_step import TrainConfig, make_train_step
+from lidarnerf_tpu_torch.nerf.trainer import Trainer
 from lidarnerf_tpu_torch.ops import block_hash, block_hash_cuda, cuda_lib, dispatch
 from lidarnerf_tpu_torch.utils.params import load_jax_checkpoint, params_to_jax
 from lidarnerf_tpu_torch.models.network import NeRFNetwork
@@ -44,8 +48,6 @@ def test_port_imports_no_jax():
 
 
 def _tiny_opt():
-    from types import SimpleNamespace
-
     return SimpleNamespace(
         encoding="blockhash", desired_resolution=64, log2_hashmap_size=10,
         num_layers=2, hidden_dim=8, geo_feat_dim=15, bound=1.0, scale=0.01,
@@ -63,6 +65,20 @@ def test_entry_points_do_not_default_to_cpu(monkeypatch):
         dispatch.resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PanoRenderer(opt, params)
+    net = NeRFNetwork(desired_resolution=64, log2_hashmap_size=10, hidden_dim=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(net, TrainConfig(), RenderConfig())
+    train_opt = SimpleNamespace(
+        alpha_d=1e3, alpha_r=1.0, alpha_i=1.0, alpha_grad_norm=1.0, alpha_spatial=0.1,
+        alpha_tv=1.0, alpha_grad=100.0, depth_loss="l1", depth_grad_loss="l1",
+        intensity_loss="mse", raydrop_loss="mse", spatial_smooth=False, grad_norm_smooth=False,
+        tv_loss=False, grad_loss=False, sobel_grad=False, scale=0.01, num_rays_lidar=16,
+        lr=1e-2, iters=100, num_steps=8, upsample_steps=4, min_near_lidar=0.01, min_near=0.01,
+        bound=1.0,
+    )
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer("t", train_opt, net)
+    assert Trainer("t", train_opt, net, device="cpu", mute=True).device.type == "cpu"
     # asked for explicitly, the CPU runs
     r = PanoRenderer(opt, params, device="cpu")
     raydrop, intensity, depth = r.render_frame(np.eye(4), 2, 8, (2.0, 26.9))
@@ -70,37 +86,63 @@ def test_entry_points_do_not_default_to_cpu(monkeypatch):
 
 
 def test_cuda_table_gradient_not_ported_and_no_fallback(monkeypatch):
-    """Checked through a monkeypatched kernel choice, so it runs without a GPU."""
+    """The table gradient on the kernel path goes through the kernel wrappers
+    (B1 forward, B2 backward) and never falls back to the plain versions.
+
+    Checked through a monkeypatched kernel choice, so it runs without a GPU:
+    the wrappers take CUDA tensors only and raise on the CPU tensors here.
+    """
     spec = block_hash.make_block_hash_spec(num_levels=2, log2_hashmap_size=10,
                                            desired_resolution=64)
     x = torch.rand(10, 3)
     table = torch.zeros(spec.table_rows, 128, requires_grad=True)
+    fwd0, bwd0 = block_hash_cuda.launches, block_hash_cuda.bwd_launches
     monkeypatch.setattr(dispatch, "uses_kernel", lambda t: True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="block_hash_fwd takes CUDA tensors"):
         block_hash.block_hash_encode(x, table, spec)
-    # without a gradient the call goes to the kernel's wrapper, which takes
-    # CUDA tensors only and never falls back to the plain version
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+    with torch.no_grad(), pytest.raises(ValueError, match="block_hash_fwd takes CUDA tensors"):
         block_hash.block_hash_encode(x, table, spec)
+    # a forward on the plain path, then a backward on the kernel path: the
+    # backward goes to B2's wrapper
+    kernel_path = iter([False, True])
+    monkeypatch.setattr(dispatch, "uses_kernel", lambda t: next(kernel_path))
+    out = block_hash.block_hash_encode(x, table, spec)
+    with pytest.raises(ValueError, match="block_hash_bwd takes CUDA tensors"):
+        out.sum().backward()
+    assert table.grad is None
+    assert (block_hash_cuda.launches, block_hash_cuda.bwd_launches) == (fwd0, bwd0)
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
     spec = block_hash.make_block_hash_spec(num_levels=2, log2_hashmap_size=10)
-    before = block_hash_cuda.launches
+    before = block_hash_cuda.launches, block_hash_cuda.bwd_launches
     with pytest.raises(ValueError, match="CUDA tensors"):
         block_hash_cuda.block_hash_fwd(torch.rand(4, 3), torch.zeros(spec.table_rows, 128), spec)
-    assert block_hash_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        block_hash_cuda.block_hash_bwd(torch.rand(4, 3), torch.zeros(4, spec.output_dim), spec)
+    assert (block_hash_cuda.launches, block_hash_cuda.bwd_launches) == before
 
 
-def test_kernel_source_and_build_naming():
-    src = (cuda_lib.CSRC_DIR / block_hash_cuda.SOURCE).read_text()
-    assert int(re.search(r"#define MAX_LEVELS (\d+)", src).group(1)) == block_hash_cuda.MAX_LEVELS
-    assert 'extern "C" int block_hash_fwd(' in src
-    lib = cuda_lib.library_path(block_hash_cuda.SOURCE)
-    assert lib.parent == cuda_lib.BUILD_DIR and lib == cuda_lib.library_path(block_hash_cuda.SOURCE)
+def test_kernel_source_and_build_naming(tmp_path, monkeypatch):
+    header = (cuda_lib.CSRC_DIR / block_hash_cuda.HEADER).read_text()
+    assert int(re.search(r"#define MAX_LEVELS (\d+)", header).group(1)) == block_hash_cuda.MAX_LEVELS
+    for source, name in zip(block_hash_cuda.SOURCES, ("block_hash_fwd", "block_hash_bwd")):
+        src = (cuda_lib.CSRC_DIR / source).read_text()
+        assert f'extern "C" int {name}(' in src
+        assert f'#include "{block_hash_cuda.HEADER}"' in src
+        lib = cuda_lib.library_path(source)
+        assert lib.parent == cuda_lib.BUILD_DIR and lib == cuda_lib.library_path(source)
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
     gitignore = (REPO / ".gitignore").read_text().split()
     assert "lidarnerf_tpu_torch/_build/" in gitignore
+    # an edit of the shared header renames (so rebuilds) both kernels' libraries
+    for f in cuda_lib.CSRC_DIR.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(cuda_lib, "CSRC_DIR", tmp_path)
+    before = [cuda_lib.library_path(s) for s in block_hash_cuda.SOURCES]
+    (tmp_path / block_hash_cuda.HEADER).write_text(header + "\n// edited\n")
+    after = [cuda_lib.library_path(s) for s in block_hash_cuda.SOURCES]
+    assert all(a != b for a, b in zip(after, before))
 
 
 def test_checkpoint_with_jax_objects_is_refused(tmp_path):
