@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the ported paths from `lidarnerf_tpu_torch/csrc`
-(the block-hash forward B1 and backward B2), holds each against its plain
-PyTorch version on the card at the main paths' shapes, then drives the two
+(the block-hash forward B1 and backward B2, and their run-collapsing
+variants: segmented B3a/B3b and windowed B4a/B4b), holds each against its
+plain PyTorch version on the card at the main paths' shapes, then drives the
 main paths at the full width of the KITTI-360 model (16-level 2^19
 block-hash grid, width-64 bf16 MLPs, 768 + 64 samples, 4096-ray chunks,
 66 x 1030 panos):
@@ -14,14 +15,18 @@ block-hash grid, width-64 bf16 MLPs, 768 + 64 samples, 4096-ray chunks,
   - training: `Trainer` on the synthetic KITTI-360-format drive in
     `data_synth_drive60/` for three epochs (patch 1, patch [2, 8], patch 1),
     from the port's seeded init, then a render of a training frame from the
-    trained weights.
-It checks that each path went through the kernels and that its output is
-right, and profiles one render chunk and one training step. Prints one JSON
-line of per-kernel numbers and ends with a JSON status line. Exits non-zero,
-with no result, when there is no GPU or when any phase fails.
+    trained weights;
+  - serving-seg, serving-win, training-seg, training-win: one pano and one
+    60-step epoch under each variant switch (`LIDARNERF_SEG_KERNELS=1`,
+    `LIDARNERF_WIN_KERNELS=1`), held against the default variant.
+It checks that each path went through its kernels and that its output is
+right, and profiles one render chunk and one training step per variant.
+Prints one JSON line of per-kernel numbers and ends with a JSON status line.
+Exits non-zero, with no result, when there is no GPU or when any phase fails.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -69,10 +74,34 @@ TRAIN_REF_GRAD_TOL = {"lidar_color_net": 5e-3, "default": 1e-3}
 # exclusive cumsum of 768 terms of up to ~35 in size, taken in another order
 # on each device, which moves the weights by up to ~1e-3 relative
 REF_RTOL, REF_ATOL = 1e-3, 1e-5
+VARIANT_ENV = {"seg": "LIDARNERF_SEG_KERNELS", "win": "LIDARNERF_WIN_KERNELS"}
+# the variant kernels: name -> (variant, source, TPU kernel it replaces)
+VARIANT_KERNELS = {
+    "block_hash_seg_fwd": ("seg", "block_hash_seg_fwd.cu", "block_hash_pallas.py:479"),
+    "block_hash_seg_bwd": ("seg", "block_hash_seg_bwd.cu", "block_hash_pallas.py:592"),
+    "block_hash_win_fwd": ("win", "block_hash_win_fwd.cu", "block_hash_pallas.py:875"),
+    "block_hash_win_bwd": ("win", "block_hash_win_bwd.cu", "block_hash_pallas.py:958"),
+}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def set_variant(variant):
+    """Set the block-hash variant switches as `variant` ("default", "seg" or "win") needs."""
+    for name in VARIANT_ENV.values():
+        os.environ.pop(name, None)
+    if variant != "default":
+        os.environ[VARIANT_ENV[variant]] = "1"
+
+
+def only_launches(counts, expected):
+    """Raise unless `counts` (block_hash_cuda.launch_counts()) holds exactly
+    `expected` launches and none of any other kernel."""
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
 
 
 def gpu_line():
@@ -177,15 +206,44 @@ def synth_drive():
     return KITTI360Dataset(DATA, split="train", scale=c["scale"], offset=c["offset"])
 
 
-def block_hash_phase(spec):
-    """B1 vs its plain version on the coarse queries of one real chunk and on
-    uniform ones; returns the kernel's `kernels` entry (launches filled later)."""
+def touched_rows(x, spec):
+    """The number of distinct table rows the in-range queries of x touch."""
+    from lidarnerf_tpu_torch.ops.block_hash import level_indices_and_weights
+
+    inside = ~((x < 0) | (x > 1)).any(-1)
+    rows = [level_indices_and_weights(x[inside], lv, li, spec)[0]
+            for li, lv in enumerate(spec.levels)]
+    return torch.unique(torch.cat(rows)).numel()
+
+
+def bound_of(bytes_moved, flops):
+    """(least ms, "bytes" or "operations") at the H100's memory and fp32 rates."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fwd_bound(x, spec, n_rows):
+    """B1's function (also B3a's, B4a's): x read once, the features written
+    once, each touched 512-byte table row read once; ~60 flops per query-level."""
+    Q, L = x.shape[0], spec.num_levels
+    bytes_moved = Q * 12 + Q * 2 * L * 4 + n_rows * 512
+    return (*bound_of(bytes_moved, Q * L * 60), bytes_moved)
+
+
+def bwd_bound(x, spec):
+    """B2's function (also B3b's, B4b's): x and g read once, the whole
+    [L*B, 128] gradient written once; ~80 flops per query-level (cell, hash
+    and weights, 8 corners x (weight, 2 products, 2 adds))."""
+    Q, L = x.shape[0], spec.num_levels
+    bytes_moved = Q * 12 + Q * 2 * L * 4 + spec.table_rows * 128 * 4
+    return (*bound_of(bytes_moved, Q * L * 80), bytes_moved)
+
+
+def serving_chunk_queries(dev):
+    """The coarse queries of the first 4096-ray chunk of a served pano."""
     from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
-    from lidarnerf_tpu_torch.ops import block_hash_cuda
-    from lidarnerf_tpu_torch.ops.block_hash import encode_plain, level_indices_and_weights
     from lidarnerf_tpu_torch.ops.sampling import stratified_z_vals
 
-    dev = torch.device("cuda")
     pose = torch.from_numpy(drive_poses(1)[0]).to(dev)
     rays = get_lidar_rays(pose[None], INTRINSICS, H, W)
     o = rays["rays_o"][0, : FULL.max_ray_batch]
@@ -193,7 +251,17 @@ def block_hash_phase(spec):
     near = torch.full((o.shape[0], 1), FULL.scale, device=dev)
     z = stratified_z_vals(near, near * 81.0, FULL.num_steps)
     xyz = torch.clamp(o[:, None] + d[:, None] * z[..., None], -FULL.bound, FULL.bound)
-    coarse = ((xyz + FULL.bound) / (2 * FULL.bound)).reshape(-1, 3).contiguous()
+    return ((xyz + FULL.bound) / (2 * FULL.bound)).reshape(-1, 3).contiguous()
+
+
+def block_hash_phase(spec):
+    """B1 vs its plain version on the coarse queries of one real chunk and on
+    uniform ones; returns the kernel's `kernels` entry (launches filled later)."""
+    from lidarnerf_tpu_torch.ops import block_hash_cuda
+    from lidarnerf_tpu_torch.ops.block_hash import encode_plain
+
+    dev = torch.device("cuda")
+    coarse = serving_chunk_queries(dev)
     Q = coarse.shape[0]
     g = torch.Generator(device=dev).manual_seed(SEED)
     uniform = torch.rand((Q, 3), generator=g, device=dev) * 1.1 - 0.05
@@ -213,16 +281,8 @@ def block_hash_phase(spec):
         max_err = max(max_err, err)
         del out, ref
 
-    L = spec.num_levels
-    rows = []
-    inside = ~((coarse < 0) | (coarse > 1)).any(-1)
-    for li, level in enumerate(spec.levels):
-        rows.append(level_indices_and_weights(coarse[inside], level, li, spec)[0])
-    n_rows = torch.unique(torch.cat(rows)).numel()
-    bytes_moved = Q * 12 + Q * 2 * L * 4 + n_rows * 512
-    flops = Q * L * 60  # scale/floor/frac per axis, 8 corners x 2 channels, weights
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations"
+    n_rows = touched_rows(coarse, spec)
+    bound_ms, bound_by, bytes_moved = fwd_bound(coarse, spec, n_rows)
 
     ms = cuda_ms(lambda: block_hash_cuda.block_hash_fwd(coarse, table, spec), reps=10)
     plain_ms = cuda_ms(lambda: encode_plain(coarse, table, spec), reps=1, batches=3, warmup=1)
@@ -266,12 +326,12 @@ def block_hash_bwd_phase(spec, ds):
     """B2 vs its plain version on the coarse queries of one real training chunk
     and on uniform ones; returns the kernel's `kernels` entry."""
     from lidarnerf_tpu_torch.ops import block_hash_cuda
-    from lidarnerf_tpu_torch.ops.block_hash import encode_bwd_plain, level_indices_and_weights
+    from lidarnerf_tpu_torch.ops.block_hash import encode_bwd_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     coarse = training_chunk_queries(ds, dev, gen)
-    Q, L = coarse.shape[0], spec.num_levels
+    Q = coarse.shape[0]
     uniform = torch.rand((Q, 3), generator=gen, device=dev) * 1.1 - 0.05
     g = torch.randn((Q, spec.output_dim), generator=gen, device=dev)
 
@@ -293,15 +353,8 @@ def block_hash_bwd_phase(spec, ds):
         max_err = max(max_err, err.max().item())
         del out, again, ref, err, slack
 
-    inside = ~((coarse < 0) | (coarse > 1)).any(-1)
-    rows = [level_indices_and_weights(coarse[inside], lv, li, spec)[0]
-            for li, lv in enumerate(spec.levels)]
-    n_rows = torch.unique(torch.cat(rows)).numel()
-    # x and g read once, the whole [L*B, 128] gradient written once
-    bytes_moved = Q * 12 + Q * 2 * L * 4 + spec.table_rows * 128 * 4
-    flops = Q * L * 80  # cell, hash and weights, 8 corners x (weight, 2 products, 2 adds)
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations"
+    n_rows = touched_rows(coarse, spec)
+    bound_ms, bound_by, bytes_moved = bwd_bound(coarse, spec)
 
     ms = cuda_ms(lambda: block_hash_cuda.block_hash_bwd(coarse, g, spec), reps=10)
     plain_ms = cuda_ms(lambda: encode_bwd_plain(coarse, g, spec), reps=1, batches=3, warmup=1)
@@ -340,48 +393,53 @@ def reference_phase(params):
         np.testing.assert_allclose(a, b, rtol=REF_RTOL, atol=REF_ATOL)
 
 
+def check_pano(frame, near, far):
+    """A served pano is finite, [H, W], raydrop and intensity in [0, 1], depth in [near, far]."""
+    raydrop, intensity, depth = frame
+    for name, a in (("raydrop", raydrop), ("intensity", intensity), ("depth", depth)):
+        if a.shape != (H, W) or not np.isfinite(a).all():
+            raise AssertionError(f"{name} pano is not a finite {H}x{W} array")
+    if not (raydrop.min() >= 0 and raydrop.max() <= 1 and intensity.min() >= 0
+            and intensity.max() <= 1):
+        raise AssertionError("raydrop/intensity outside [0, 1]")
+    # depth = sum(w z) with z in [near, far]; the seeded field is dense
+    # enough that every ray's weights sum to nearly 1, so depth >= near
+    if not (near <= depth.min() and depth.max() <= far):
+        raise AssertionError(f"depth outside [near, far]: {depth.min()} {depth.max()}")
+    log(f"pano: depth in [{depth.min():.5f}, {depth.max():.5f}] (near {near:.5f}, "
+        f"far {far:.5f}), raydrop mean {raydrop.mean():.4f}, intensity mean "
+        f"{intensity.mean():.4f}")
+
+
 def slice_phase(renderer):
-    """The main path: full-width panos through PanoRenderer; returns launch counts."""
+    """The main path: full-width panos through PanoRenderer.
+
+    Returns (launch counts, the first pano)."""
     from lidarnerf_tpu_torch.ops import block_hash_cuda
 
     near, far = FULL.scale, FULL.scale * renderer.cfg.far_mult
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    block_hash_cuda.launches = block_hash_cuda.bwd_launches = 0
+    block_hash_cuda.reset_counts()
     times = []
     frames = []
     for pose in drive_poses(N_PANOS):
         t0 = time.perf_counter()
         frames.append(renderer.render_frame(pose, H, W, INTRINSICS))  # ends on the host
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = {"block_hash_fwd": block_hash_cuda.launches,
-                "block_hash_bwd": block_hash_cuda.bwd_launches}
+    launches = block_hash_cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     chunks = -(-H * W // FULL.max_ray_batch)
-    for raydrop, intensity, depth in frames:
-        for name, a in (("raydrop", raydrop), ("intensity", intensity), ("depth", depth)):
-            if a.shape != (H, W) or not np.isfinite(a).all():
-                raise AssertionError(f"{name} pano is not a finite {H}x{W} array")
-        if not (raydrop.min() >= 0 and raydrop.max() <= 1 and intensity.min() >= 0
-                and intensity.max() <= 1):
-            raise AssertionError("raydrop/intensity outside [0, 1]")
-        # depth = sum(w z) with z in [near, far]; the seeded field is dense
-        # enough that every ray's weights sum to nearly 1, so depth >= near
-        if not (near <= depth.min() and depth.max() <= far):
-            raise AssertionError(f"depth outside [near, far]: {depth.min()} {depth.max()}")
-        log(f"pano: depth in [{depth.min():.5f}, {depth.max():.5f}] (near {near:.5f}, "
-            f"far {far:.5f}), raydrop mean {raydrop.mean():.4f}, intensity mean "
-            f"{intensity.mean():.4f}")
-    if launches != {"block_hash_fwd": 2 * chunks * N_PANOS, "block_hash_bwd": 0}:
-        raise AssertionError(f"serving launches {launches}, expected "
-                             f"{2 * chunks * N_PANOS} block_hash_fwd and no block_hash_bwd")
+    for frame in frames:
+        check_pano(frame, near, far)
+    only_launches(launches, {"block_hash_fwd": 2 * chunks * N_PANOS})
     rays = H * W
     log(f"slice on {gpu_line()}: {N_PANOS} panos of {H}x{W} rays, {FULL.num_steps}+{FULL.upsample_steps} "
         f"samples, chunk {FULL.max_ray_batch}: ms/pano {', '.join(f'{t:.1f}' for t in times)}; "
         f"rays/s (last pano) {rays / (times[-1] / 1e3):.0f}; peak memory "
         f"{peak / 2**30:.2f} GiB; block_hash_fwd launches {launches['block_hash_fwd']}")
-    return launches
+    return launches, frames[0]
 
 
 def train_opt(ds, **kw):
@@ -405,9 +463,10 @@ def new_model(opt, fp16):
     )
 
 
-def train_reference_phase(ds):
-    """One fp32 training step of a small config on the GPU (kernels) vs the CPU
-    (plain versions), from the same weights with the same draws.
+def train_reference_phase(ds, variant="default"):
+    """One fp32 training step of a small config on the GPU (the variant's
+    kernels) vs the CPU (its plain versions), from the same weights with the
+    same draws.
 
     The small field's finest level has 64 cells a side: at the full width's
     32768, the devices' one-ulp differences in sample positions (trig,
@@ -429,6 +488,7 @@ def train_reference_phase(ds):
     draws = {"inds": sample_ray_indices(ds.H_lidar, ds.W_lidar, n, patch, gen),
              "noise": torch.rand((n, T), generator=gen), "u": torch.rand((n, S), generator=gen)}
     results = {}
+    set_variant(variant)
     for dev in ("cuda", "cpu"):
         net = NeRFNetwork(num_levels=4, log2_hashmap_size=14, desired_resolution=64,
                           hidden_dim=32, generator=torch.Generator().manual_seed(SEED))
@@ -439,9 +499,10 @@ def train_reference_phase(ds):
         m = step(poses, images, vi, vc, 3, draws={k: v.to(dev) for k, v in draws.items()})
         grads = {k: p.grad.cpu() for k, p in net.named_parameters() if p.grad is not None}
         results[dev] = (float(m["loss"]), m["skipped_nonfinite"], grads)
+    set_variant("default")
     (loss_g, skip_g, grads_g), (loss_c, skip_c, grads_c) = results["cuda"], results["cpu"]
-    log(f"train reference: fp32 step of {n} rays, {T}+{S} samples, patch {patch}, 4-level "
-        f"2^14 table: loss GPU {loss_g:.6f} CPU {loss_c:.6f}")
+    log(f"train reference ({variant} variant): fp32 step of {n} rays, {T}+{S} samples, patch "
+        f"{patch}, 4-level 2^14 table: loss GPU {loss_g:.6f} CPU {loss_c:.6f}")
     if skip_g or skip_c or grads_g.keys() != grads_c.keys():
         raise AssertionError("train reference: a step was skipped or the gradients differ in kind")
     failed = []
@@ -471,14 +532,13 @@ def train_slice_phase(ds):
     trainer = Trainer("chip_smoke", opt, model, ema_decay=0.95)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    block_hash_cuda.launches = block_hash_cuda.bwd_launches = 0
+    block_hash_cuda.reset_counts()
     epoch_s = []
     for epoch in range(1, TRAIN_EPOCHS + 1):
         t0 = time.perf_counter()
         trainer.train(ds, None, max_epochs=epoch)  # ends on the host (loss fetch)
         epoch_s.append(time.perf_counter() - t0)
-    launches = {"block_hash_fwd": block_hash_cuda.launches,
-                "block_hash_bwd": block_hash_cuda.bwd_launches}
+    launches = block_hash_cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     losses, steps = trainer.stats["step_loss"], trainer.global_step
@@ -491,10 +551,7 @@ def train_slice_phase(ds):
         f"({100 * (1 - last / first):.1f}% lower); per-epoch mean {trainer.stats['loss']}")
     if not last <= 0.75 * first:
         raise AssertionError("training lowered the loss by less than 25%")
-    for name, count in launches.items():
-        if count != 2 * steps:
-            raise AssertionError(f"{name} launched {count} times in {steps} steps, "
-                                 f"expected {2 * steps}")
+    only_launches(launches, {"block_hash_fwd": 2 * steps, "block_hash_bwd": 2 * steps})
     n, samples = opt.num_rays_lidar, opt.num_steps + opt.upsample_steps
     per_step = [1e3 * t / len(ds) for t in epoch_s]
     warm = per_step[-1]  # epoch 3: patch 1, warm
@@ -518,7 +575,7 @@ def train_to_serve_phase(ds, trainer, init_sd):
     opt = train_opt(ds)
     gt = ds.images_lidar[0]
     hit = gt[..., 0] == 1.0
-    block_hash_cuda.launches = block_hash_cuda.bwd_launches = 0
+    block_hash_cuda.reset_counts()
     maes = {}
     for name, sd in (("initial", init_sd), ("trained", trainer.model.state_dict())):
         renderer = PanoRenderer(opt, params_to_jax(sd))
@@ -527,17 +584,14 @@ def train_to_serve_phase(ds, trainer, init_sd):
         if depth.shape != (ds.H_lidar, ds.W_lidar) or not np.isfinite(depth).all():
             raise AssertionError(f"the {name} render is not a finite pano")
         maes[name] = float(np.abs(depth - gt[..., 2])[hit].mean())
-    launches = {"block_hash_fwd": block_hash_cuda.launches,
-                "block_hash_bwd": block_hash_cuda.bwd_launches}
+    launches = block_hash_cuda.launch_counts()
     chunks = -(-ds.H_lidar * ds.W_lidar // FULL.max_ray_batch)
     log(f"train-to-serve: depth MAE on the {int(hit.sum())} returning rays of frame 0: "
         f"initial {maes['initial']:.5f}, trained {maes['trained']:.5f} (scaled units; "
         f"{maes['trained'] / ds.scale:.3f} m); launches {launches}")
     if not maes["trained"] < maes["initial"]:
         raise AssertionError("the trained field renders its training frame no better")
-    if launches != {"block_hash_fwd": 2 * 2 * chunks, "block_hash_bwd": 0}:
-        raise AssertionError(f"train-to-serve launches {launches}, expected "
-                             f"{2 * 2 * chunks} block_hash_fwd")
+    only_launches(launches, {"block_hash_fwd": 2 * 2 * chunks})
     return launches
 
 
@@ -560,13 +614,16 @@ def profile_summary(prof, wall_ms, what, top):
         log(f" by {title}:")
         for e in sorted(events, key=dev_us, reverse=True)[:top]:
             log(f"  {dev_us(e) / 1e3:8.3f} ms  {e.count:5d}x  {e.key[:100]}")
+    return {e.key: dev_us(e) / 1e3 for e in kernels}
 
 
 def profile_train_step(ds, trainer, top=15):
-    """Device time by kernel and operator of one full-width training step."""
+    """Device time by kernel and operator of one full-width training step;
+    returns {kernel: device ms}."""
     from torch.profiler import ProfilerActivity, profile
 
     from lidarnerf_tpu_torch.nerf.train_step import make_train_step
+    from lidarnerf_tpu_torch.ops.block_hash import kernel_variant
 
     step = make_train_step(trainer.model, trainer.train_cfg, trainer.render_cfg,
                            optimizer=trainer.optimizer)
@@ -581,8 +638,13 @@ def profile_train_step(ds, trainer, top=15):
         step(poses, images, vi, vc, 1, generator=gen)  # ends on the host (update guard)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    profile_summary(prof, wall_ms, f"one {trainer.train_cfg.num_rays_lidar}-ray training step",
-                    top)
+    return profile_summary(prof, wall_ms, f"one {trainer.train_cfg.num_rays_lidar}-ray training "
+                           f"step ({kernel_variant()} variant)", top)
+
+
+def kernel_ms(profiled, name):
+    """Device ms of kernel `name` (a CUDA function name) in a profile's {kernel: ms}."""
+    return sum(ms for key, ms in profiled.items() if key.startswith(name + "_kernel"))
 
 
 def profile_phase(renderer, top=12):
@@ -599,6 +661,230 @@ def profile_phase(renderer, top=12):
     profile_summary(prof, wall_ms, f"one {FULL.max_ray_batch}-ray render chunk", top)
 
 
+def run_structure_phase(spec, ds):
+    """The run structure of the training chunk that the seg and win kernels
+    exploit: per level, the mean run of equal consecutive rows, the share of
+    4096-query chunks that seg walks by runs, and the share of win's windows
+    that are uniform."""
+    from lidarnerf_tpu_torch.ops import block_hash as bh
+
+    dev = torch.device("cuda")
+    x = training_chunk_queries(ds, dev, torch.Generator(device=dev).manual_seed(SEED + 2))
+    L = spec.num_levels
+    rows = bh.level_rows_padded(x, spec)
+    Qp = rows.numel() // L
+    _, nseg = bh.seg_next(rows, L, Qp)
+    nseg = nseg.view(L, -1)
+    flags = bh.pack_win_flags(rows, L, Qp).view(L, -1)
+    log(f"run structure of the training chunk (Q={x.shape[0]}): level, scale, mean run, "
+        f"share of chunks seg walks, win window, share of windows uniform")
+    for li, lv in enumerate(spec.levels):
+        w = bh.win_of_level(lv.scale)
+        walked = float((nseg[li] <= bh.CHUNK // bh.NSEG_DIV).float().mean()) \
+            if lv.scale <= bh.SEG_SCALE_MAX else 0.0
+        uniform = float(((flags[li].view(-1, w)[:, -1] & bh.WIN_BIT[w]) != 0)
+                        .float().mean()) if w > 1 else 0.0
+        log(f"  level {li:2d} scale {lv.scale:8.1f}: mean run {Qp / float(nseg[li].sum()):7.2f}, "
+            f"seg walks {100 * walked:5.1f}%, w={w} uniform {100 * uniform:5.1f}%")
+
+
+def variant_kernel_phase(spec, ds, variant):
+    """The variant's forward (B3a or B4a) and backward (B3b or B4b) against B1
+    and B2 and against the plain versions, on the coarse queries of a served
+    chunk and of a training chunk and on uniform ones; returns their two
+    `kernels` entries (launches filled later)."""
+    from lidarnerf_tpu_torch.ops import block_hash as bh
+    from lidarnerf_tpu_torch.ops import block_hash_cuda as bhc
+
+    dev = torch.device("cuda")
+    fwd, bwd = bhc.FWD[variant], bhc.BWD[variant]
+    serving = serving_chunk_queries(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    training = training_chunk_queries(ds, dev, gen)  # the B2 phase's chunk
+    Q = training.shape[0]
+    uniform = torch.rand((Q, 3), generator=gen, device=dev) * 1.1 - 0.05
+    g = torch.randn((Q, spec.output_dim), generator=gen, device=dev)
+    table = torch.randn((spec.table_rows, 128), generator=gen, device=dev)
+
+    fwd_err = 0.0
+    for name, x in (("serving chunk", serving), ("training chunk", training), ("uniform", uniform)):
+        out = fwd(x, table, spec)
+        b1 = bhc.block_hash_fwd(x, table, spec)
+        torch.cuda.synchronize()
+        same = torch.equal(out, b1)
+        err = (out - bh.encode_plain(x, table, spec)).abs().max().item()
+        log(f"{fwd.__name__} ({name}, Q={x.shape[0]}): equal to block_hash_fwd bit for bit: "
+            f"{same}; vs plain max_abs_err={err:.3e} (tol abs {KERNEL_ATOL})")
+        if not (same and err <= KERNEL_ATOL):
+            raise AssertionError(f"{fwd.__name__} disagrees with B1 or its plain version ({name})")
+        fwd_err = max(fwd_err, err)
+        del out, b1
+
+    bwd_err = 0.0
+    for name, x in (("training chunk", training), ("uniform", uniform)):
+        out = bwd(x, g, spec)
+        again = bwd(x, g, spec)
+        torch.cuda.synchronize()
+        slack = BWD_RTOL * bh.encode_bwd_plain(x, g.abs(), spec) + BWD_ATOL
+        ref = bh.encode_bwd_plain(x, g, spec)
+        worst = ((out - ref).abs() / slack).max().item()
+        err = (out - ref).abs().max().item()
+        del ref
+        own = bh.ENCODE_BWD_PLAIN[variant](x, g, spec)
+        worst_own = ((out - own).abs() / slack).max().item()
+        rerun = (out - again).abs().max().item()
+        log(f"{bwd.__name__} ({name}, Q={Q}): max_abs_err vs encode_bwd_plain {err:.3e} "
+            f"(largest entry {own.abs().max().item():.3e}); worst err / (1e-5 S + 1e-7): "
+            f"{worst:.3f} vs encode_bwd_plain, {worst_own:.3f} vs its own plain version; "
+            f"two runs differ by up to {rerun:.3e} (fp32 atomics)")
+        if not (worst <= 1.0 and worst_own <= 1.0):
+            raise AssertionError(f"{bwd.__name__} disagrees with a plain version ({name})")
+        bwd_err = max(bwd_err, err)
+        del out, again, own, slack
+
+    n_fine = FULL.max_ray_batch * FULL.upsample_steps
+    # in turns with B1/B2 on the same inputs: base, variant, variant, base
+    b1 = [cuda_ms(lambda: bhc.block_hash_fwd(serving, table, spec), reps=10)]
+    f_ms = [cuda_ms(lambda: fwd(serving, table, spec), reps=10) for _ in range(2)]
+    b1.append(cuda_ms(lambda: bhc.block_hash_fwd(serving, table, spec), reps=10))
+    f_fine = cuda_ms(lambda: fwd(serving[:n_fine], table, spec), reps=10)
+    f_plain = cuda_ms(lambda: bh.encode_plain(serving, table, spec), reps=1, batches=3, warmup=1)
+    b2 = [cuda_ms(lambda: bhc.block_hash_bwd(training, g, spec), reps=10)]
+    b_ms = [cuda_ms(lambda: bwd(training, g, spec), reps=10) for _ in range(2)]
+    b2.append(cuda_ms(lambda: bhc.block_hash_bwd(training, g, spec), reps=10))
+    b_fine = cuda_ms(lambda: bwd(training[:n_fine], g[:n_fine], spec), reps=10)
+    b_plain = cuda_ms(lambda: bh.ENCODE_BWD_PLAIN[variant](training, g, spec), reps=1,
+                      batches=3, warmup=1)
+    if variant == "seg":
+        per_query_layout_phase(spec, serving, table, training, g)
+    f_bound, f_by, f_bytes = fwd_bound(serving, spec, touched_rows(serving, spec))
+    b_bound, b_by, b_bytes = bwd_bound(training, spec)
+    log(f"{fwd.__name__} coarse call Q={serving.shape[0]}: {f_ms[0]:.4f} / {f_ms[1]:.4f} ms "
+        f"(block_hash_fwd before and after: {b1[0]:.4f} / {b1[1]:.4f} ms; plain {f_plain:.3f} ms; "
+        f"bound {f_bound:.4f} ms by {f_by}: {f_bytes / 1e6:.1f} MB); fine-call shape Q={n_fine}: "
+        f"{f_fine:.4f} ms; run structure found in the kernel, no device prep")
+    log(f"{bwd.__name__} coarse call Q={Q}: {b_ms[0]:.4f} / {b_ms[1]:.4f} ms "
+        f"(block_hash_bwd before and after: {b2[0]:.4f} / {b2[1]:.4f} ms; own plain version "
+        f"{b_plain:.3f} ms; bound {b_bound:.4f} ms by {b_by}: {b_bytes / 1e6:.1f} MB); "
+        f"fine-call shape Q={n_fine}: {b_fine:.4f} ms; no device prep")
+    entries = []
+    for k, err, ms, plain, bound, by in ((fwd.__name__, fwd_err, f_ms[0], f_plain, f_bound, f_by),
+                                         (bwd.__name__, bwd_err, b_ms[0], b_plain, b_bound, b_by)):
+        _, source, replaces = VARIANT_KERNELS[k]
+        entries.append({
+            "name": k, "route": "cuda", "source": f"lidarnerf_tpu_torch/csrc/{source}",
+            "replaces": f"lidarnerf_tpu/ops/{replaces}", "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,  # no single PyTorch call computes this encoder or gradient
+        })
+    return entries
+
+
+def per_query_layout_phase(spec, serving, table, training, g):
+    """The seg kernels with no level walking runs: B1's and B2's per-query
+    work in the seg kernels' (level, 4096-query chunk) layout, timed to part
+    the layout's cost from the run walking's. A measurement only: it calls
+    the C entry points directly, with every level's run mode 0."""
+    import ctypes
+
+    from lidarnerf_tpu_torch.ops import block_hash_cuda as bhc
+
+    L = spec.num_levels
+    arrays = (*bhc._level_arrays(spec), (ctypes.c_int * L)())  # run modes all 0
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for name, source, x, other, out in (
+        ("block_hash_seg_fwd", bhc.SEG_FWD_SOURCE, serving, table,
+         torch.empty((serving.shape[0], spec.output_dim), device=serving.device)),
+        ("block_hash_seg_bwd", bhc.SEG_BWD_SOURCE, training, g,
+         torch.zeros((spec.table_rows, 128), device=training.device)),  # accumulates over calls
+    ):
+        fn = bhc._kernel(source, name, runs=True)
+
+        def call():
+            err = fn(x.data_ptr(), other.data_ptr(), out.data_ptr(), x.shape[0], L,
+                     spec.blocks_per_level, *arrays, stream)
+            if err:
+                raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+        times[name] = cuda_ms(call, reps=10)
+    log(f"seg kernels with every level per-query (the (level, chunk) layout alone, coarse "
+        f"calls): block_hash_seg_fwd {times['block_hash_seg_fwd']:.4f} ms, block_hash_seg_bwd "
+        f"{times['block_hash_seg_bwd']:.4f} ms (no zero fill)")
+
+
+def variant_serving_phase(renderer, variant, default_frame):
+    """The serving path under a variant switch: one full-width pano, which
+    must equal the default variant's pano of the same pose. Returns the
+    launch counts."""
+    from lidarnerf_tpu_torch.ops import block_hash_cuda
+
+    pose = drive_poses(1)[0]  # the default path's first pose
+    set_variant(variant)
+    renderer.render_frame(pose, 4, 8, INTRINSICS)  # loads the variant's kernel
+    torch.cuda.synchronize()
+    block_hash_cuda.reset_counts()
+    t0 = time.perf_counter()
+    frame = renderer.render_frame(pose, H, W, INTRINSICS)  # ends on the host
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = block_hash_cuda.launch_counts()
+    set_variant("default")
+
+    check_pano(frame, FULL.scale, FULL.scale * renderer.cfg.far_mult)
+    chunks = -(-H * W // FULL.max_ray_batch)
+    only_launches(launches, {f"block_hash_{variant}_fwd": 2 * chunks})
+    names = ("raydrop", "intensity", "depth")
+    equal = all(np.array_equal(a, b) for a, b in zip(frame, default_frame))
+    gaps = ", ".join(f"{n} {float(np.abs(a - b).max()):.3e}"
+                     for n, a, b in zip(names, frame, default_frame))
+    log(f"serving-{variant} on {gpu_line()}: one {H}x{W} pano in {ms:.1f} ms; equal to the "
+        f"default variant's pano bit for bit: {equal} (max gaps: {gaps}); launches "
+        f"{launches[f'block_hash_{variant}_fwd']} block_hash_{variant}_fwd")
+    if not equal:  # the forward kernels are bit-exact; bound whatever else moved
+        for a, b in zip(frame, default_frame):
+            np.testing.assert_allclose(a, b, rtol=REF_RTOL, atol=REF_ATOL)
+    return launches
+
+
+def variant_train_phase(ds, variant, default_epoch_loss):
+    """The training path under a variant switch: one 60-step patch-1 epoch
+    from the default path's seeded init and frame order. Returns (launch
+    counts, ms/step, the variant backward's device ms in one profiled step)."""
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+    from lidarnerf_tpu_torch.ops import block_hash_cuda
+
+    set_variant(variant)
+    opt = train_opt(ds)
+    trainer = Trainer("chip_smoke", opt, new_model(opt, fp16=FULL.fp16), ema_decay=0.95)
+    torch.cuda.synchronize()
+    block_hash_cuda.reset_counts()
+    t0 = time.perf_counter()
+    trainer.train(ds, None, max_epochs=1)  # ends on the host (loss fetch)
+    epoch_s = time.perf_counter() - t0
+    launches = block_hash_cuda.launch_counts()
+
+    losses, steps = trainer.stats["step_loss"], trainer.global_step
+    if steps != len(ds) or len(losses) != steps:
+        raise AssertionError(f"training-{variant}: {steps} steps, expected {len(ds)}")
+    if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
+        raise AssertionError(f"training-{variant}: a loss was non-finite or a step was skipped")
+    only_launches(launches, {f"block_hash_{variant}_fwd": 2 * steps,
+                             f"block_hash_{variant}_bwd": 2 * steps})
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    step_ms = 1e3 * epoch_s / steps
+    profiled = profile_train_step(ds, trainer, top=6)
+    bwd_ms = kernel_ms(profiled, f"block_hash_{variant}_bwd")
+    set_variant("default")
+    log(f"training-{variant} on {gpu_line()}: {steps} steps, {step_ms:.2f} ms/step; loss mean of "
+        f"the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+        f"({100 * (1 - last / first):.1f}% lower); epoch mean {trainer.stats['loss'][0]:.4f} "
+        f"(default variant's first epoch {default_epoch_loss:.4f}); block_hash_{variant}_bwd "
+        f"{bwd_ms:.3f} ms of device time per step; launches {launches}")
+    if not last <= 0.75 * first:
+        raise AssertionError(f"training-{variant} lowered the loss by less than 25%")
+    return launches, step_ms, bwd_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -607,6 +893,7 @@ def main():
     from lidarnerf_tpu_torch.ops.block_hash import make_block_hash_spec
     from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
 
+    set_variant("default")  # the default paths first; each variant phase sets its switch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"gpu: {gpu_line()}")
@@ -624,20 +911,36 @@ def main():
                                 desired_resolution=FULL.desired_resolution)
     ds = synth_drive()
     kernels = [block_hash_phase(spec), block_hash_bwd_phase(spec, ds)]
+    run_structure_phase(spec, ds)
+    for variant in VARIANT_ENV:
+        kernels += variant_kernel_phase(spec, ds, variant)
 
     # serving
     params = flax_layout_params(SEED, FULL)
     reference_phase(params)
     renderer = PanoRenderer(FULL, params)
-    paths = {"serving": slice_phase(renderer)}
+    paths = {}
+    paths["serving"], default_frame = slice_phase(renderer)
     profile_phase(renderer)
+    for variant in VARIANT_ENV:
+        paths[f"serving-{variant}"] = variant_serving_phase(renderer, variant, default_frame)
     del renderer
 
     # training
     trainer, init_sd, paths["training"] = train_slice_phase(ds)
     paths["train-to-serve"] = train_to_serve_phase(ds, trainer, init_sd)
-    profile_train_step(ds, trainer)
-    train_reference_phase(ds)
+    b2_ms = kernel_ms(profile_train_step(ds, trainer), "block_hash_bwd")
+    default_epoch_loss = trainer.stats["loss"][0]
+    del trainer, init_sd
+    summary = [f"default: block_hash_bwd {b2_ms:.3f} ms"]
+    for variant in VARIANT_ENV:
+        paths[f"training-{variant}"], step_ms, bwd_ms = variant_train_phase(
+            ds, variant, default_epoch_loss)
+        summary.append(f"{variant}: {step_ms:.2f} ms/step, block_hash_{variant}_bwd {bwd_ms:.3f} ms")
+    log(f"table-gradient kernel device ms per training step on {gpu_line()}: "
+        + "; ".join(summary))
+    for variant in ("default", *VARIANT_ENV):
+        train_reference_phase(ds, variant)
 
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())

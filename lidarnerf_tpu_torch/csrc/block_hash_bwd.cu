@@ -24,9 +24,10 @@
 // one-hot matmul for the dense levels, the split-bf16 lane broadcast) have
 // no place here. What this design leaves on the table: ray-coherent queries
 // hit the same rows at the coarse levels, and same-address atomics
-// serialise there; combining equal rows within a warp before the atomic is
-// the next step. fp32 atomics add in an order that changes from run to run,
-// so the result is not bitwise reproducible.
+// serialise there; the seg and win variants (block_hash_seg_bwd.cu,
+// block_hash_win_bwd.cu) sum a run's terms before the atomic. fp32 atomics
+// add in an order that changes from run to run, so the result is not
+// bitwise reproducible.
 
 #include "block_hash_common.cuh"
 
@@ -39,24 +40,10 @@ block_hash_bwd_kernel(const float* __restrict__ x, const float2* __restrict__ g,
   const long long q = t / L;
   const int l = (int)(t - q * L);
 
-  const float p[3] = {__ldg(x + 3 * q), __ldg(x + 3 * q + 1), __ldg(x + 3 * q + 2)};
+  float p[3];
+  load_point(x, q, p);
   if (outside_unit_cube(p)) return;
-  const float2 gv = __ldg(g + t);  // g[q, 2l : 2l+2], t = q * L + l
-  const Cell c = locate(p, l, B, lv);
-  float2* corner = grad + c.corner0;
-#pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const float wxy = __fmul_rn(c.wx[dx], c.wy[dy]);
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const float w = __fmul_rn(wxy, c.wz[dz]);
-        atomicAdd(corner + corner_offset(dx, dy, dz),
-                  make_float2(__fmul_rn(w, gv.x), __fmul_rn(w, gv.y)));
-      }
-    }
-  }
+  scatter_query(locate(p, l, B, lv), __ldg(g + t), grad);  // g[q, 2l : 2l+2], t = q * L + l
 }
 
 // Plain C entry point, as block_hash_fwd's. `grad` must hold L*B*128 zeros.

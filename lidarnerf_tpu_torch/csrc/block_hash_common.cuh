@@ -1,7 +1,10 @@
-// Block-hash grid indexing shared by the forward (block_hash_fwd.cu) and
-// backward (block_hash_bwd.cu) kernels, so both pick the same cell, block
-// row and trilinear weights for a query. The plain PyTorch version of the
-// same indexing is lidarnerf_tpu_torch/ops/block_hash.py::level_indices_and_weights.
+// Block-hash grid indexing and per-query arithmetic shared by every
+// block-hash kernel (forward B1 block_hash_fwd.cu, backward B2
+// block_hash_bwd.cu, and their run-collapsing variants B3a/B3b
+// block_hash_seg_*.cu, B4a/B4b block_hash_win_*.cu), so all pick the same
+// cell, block row and trilinear weights for a query, and the forwards sum a
+// cell's corners in one order. The plain PyTorch version of the same
+// indexing is lidarnerf_tpu_torch/ops/block_hash.py::level_indices_and_weights.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,31 +12,41 @@
 
 #define MAX_LEVELS 32
 #define THREADS 256
+#define WARPS (THREADS / 32)
+#define FULL_MASK 0xffffffffu
+// the run structure of the seg and win kernels (ops/block_hash.py CHUNK, NSEG_DIV)
+#define CHUNK 4096
+#define NSEG_DIV 5
 
 struct Levels {
   float scale[MAX_LEVELS];
   int max_cell[MAX_LEVELS];
   int blocks_axis[MAX_LEVELS];
   int dense[MAX_LEVELS];
+  int runs[MAX_LEVELS];  // seg: 1 if the level walks runs; win: its window size
 };
 
-// Copies the host's per-level arrays into the by-value kernel argument.
-// Returns false on a level count the kernels do not take.
+// Copies the host's per-level arrays into the by-value kernel argument;
+// `runs` may be null (B1, B2). Returns false on a level count the kernels
+// do not take.
 static inline bool fill_levels(Levels* lv, int L, const float* scale, const int* max_cell,
-                               const int* blocks_axis, const int* dense) {
+                               const int* blocks_axis, const int* dense,
+                               const int* runs = nullptr) {
   if (L < 1 || L > MAX_LEVELS) return false;
   for (int l = 0; l < L; ++l) {
     lv->scale[l] = scale[l];
     lv->max_cell[l] = max_cell[l];
     lv->blocks_axis[l] = blocks_axis[l];
     lv->dense[l] = dense[l];
+    lv->runs[l] = runs ? runs[l] : 0;
   }
   return true;
 }
 
 // A query's place at one level: the flat index of its first corner float2
 // in the table (row * 64 + the cell's corner offset within the block row)
-// and the per-axis weights of the cell's two corners.
+// and the per-axis weights of the cell's two corners. The offset is below
+// 64, so corner0 >> 6 is the table row and corner0 & 63 the offset.
 struct Cell {
   size_t corner0;  // ((l * B + row) * 64 + (loc_x * 4 + loc_y) * 4 + loc_z)
   float wx[2], wy[2], wz[2];
@@ -81,4 +94,122 @@ __device__ __forceinline__ Cell locate(const float p[3], int l, uint32_t B, cons
 // Offset of corner (dx, dy, dz) of the cell from its first corner, in float2s.
 __device__ __forceinline__ int corner_offset(int dx, int dy, int dz) {
   return (dx * 4 + dy) * 4 + dz;
+}
+
+__device__ __forceinline__ void load_point(const float* __restrict__ x, long long q, float p[3]) {
+  p[0] = __ldg(x + 3 * q);
+  p[1] = __ldg(x + 3 * q + 1);
+  p[2] = __ldg(x + 3 * q + 2);
+}
+
+// The two features of a query: the trilinear sum of its cell's 8 corner
+// float2s, corner(k) returning the corner at offset k from the first. Every
+// forward kernel sums in this one order with explicit fmas, so they agree
+// bit for bit wherever the corners are read from.
+template <typename Corner>
+__device__ __forceinline__ float2 trilerp(const Cell& c, Corner corner) {
+  float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx) {
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const float wxy = __fmul_rn(c.wx[dx], c.wy[dy]);
+#pragma unroll
+      for (int dz = 0; dz < 2; ++dz) {
+        const float w = __fmul_rn(wxy, c.wz[dz]);
+        const float2 v = corner(corner_offset(dx, dy, dz));
+        acc.x = __fmaf_rn(w, v.x, acc.x);
+        acc.y = __fmaf_rn(w, v.y, acc.y);
+      }
+    }
+  }
+  return acc;
+}
+
+// B1's whole work for one (query, level): the features read from the table
+// in device memory; zero outside [0, 1]^3.
+__device__ __forceinline__ float2 encode_query(const float p[3], int l, uint32_t B,
+                                               const Levels& lv,
+                                               const float2* __restrict__ table) {
+  if (outside_unit_cube(p)) return make_float2(0.f, 0.f);
+  const Cell c = locate(p, l, B, lv);
+  const float2* corner = table + c.corner0;
+  return trilerp(c, [&](int k) { return __ldg(corner + k); });
+}
+
+// B2's whole work for one (query, level) inside [0, 1]^3: one float2
+// atomicAdd of w * g to each of the cell's 8 corners.
+__device__ __forceinline__ void scatter_query(const Cell& c, float2 gv, float2* __restrict__ grad) {
+  float2* corner = grad + c.corner0;
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx) {
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const float wxy = __fmul_rn(c.wx[dx], c.wy[dy]);
+#pragma unroll
+      for (int dz = 0; dz < 2; ++dz) {
+        const float w = __fmul_rn(wxy, c.wz[dz]);
+        atomicAdd(corner + corner_offset(dx, dy, dz),
+                  make_float2(__fmul_rn(w, gv.x), __fmul_rn(w, gv.y)));
+      }
+    }
+  }
+}
+
+// The run-collapsing backwards (B3b, B4b) sum the terms of a group of
+// queries that share one block row before they add them to the table. A
+// query travels between the lanes of its group as its cell's corner offset
+// in the row (`off`, from Cell::corner0 & 63), the fractions of its
+// position (Cell::wx[1], wy[1], wz[1]) and its feature grads.
+struct Term {
+  int off;
+  float fx, fy, fz;
+  float2 g;
+};
+
+__device__ __forceinline__ Term shfl_term(unsigned mask, const Term& t, int src) {
+  Term r;
+  r.off = __shfl_sync(mask, t.off, src);
+  r.fx = __shfl_sync(mask, t.fx, src);
+  r.fy = __shfl_sync(mask, t.fy, src);
+  r.fz = __shfl_sync(mask, t.fz, src);
+  r.g.x = __shfl_sync(mask, t.g.x, src);
+  r.g.y = __shfl_sync(mask, t.g.y, src);
+  return r;
+}
+
+// Adds a query's term at corner float2 `s` of its row (0 <= s < 64) to
+// `acc`: w * g with w its trilinear weight there, the same products as
+// scatter_query, or nothing if s is not a corner of its cell.
+__device__ __forceinline__ void add_corner_term(float2& acc, int s, const Term& t) {
+  const int dx = (s >> 4) - (t.off >> 4);
+  const int dy = ((s >> 2) & 3) - ((t.off >> 2) & 3);
+  const int dz = (s & 3) - (t.off & 3);
+  if ((unsigned)dx > 1u || (unsigned)dy > 1u || (unsigned)dz > 1u) return;
+  const float wx = dx ? t.fx : 1.f - t.fx;
+  const float wy = dy ? t.fy : 1.f - t.fy;
+  const float wz = dz ? t.fz : 1.f - t.fz;
+  const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
+  acc.x = __fadd_rn(acc.x, __fmul_rn(w, t.g.x));
+  acc.y = __fadd_rn(acc.y, __fmul_rn(w, t.g.y));
+}
+
+// The term of query q at level l: zero grads outside [0, 1]^3 (the JAX
+// package zeroes those grads before its backward) and for a lane with no
+// query (valid false).
+__device__ __forceinline__ Term make_term(const Cell& c, bool inside, const float2* __restrict__ g,
+                                          long long q, int L, int l) {
+  Term t;
+  t.off = (int)(c.corner0 & 63);
+  t.fx = c.wx[1];
+  t.fy = c.wy[1];
+  t.fz = c.wz[1];
+  t.g = inside ? __ldg(g + q * L + l) : make_float2(0.f, 0.f);
+  return t;
+}
+
+// Adds a group's summed corner float2s to the table, one atomicAdd each;
+// a float2 that no query touched (or whose terms cancel to zero) is skipped.
+__device__ __forceinline__ void flush_corner(float2* __restrict__ row, int s, float2 acc) {
+  if (acc.x != 0.f || acc.y != 0.f) atomicAdd(row + s, acc);
 }

@@ -17,8 +17,8 @@
 //    a warp covers 2 queries and its feature stores are one contiguous
 //    256-byte run;
 //  - computes the cell, block index, hash and weights in registers
-//    (block_hash_common.cuh), so none of the TPU kernel's [L, 4, Q] prep
-//    arrays go through memory;
+//    (block_hash_common.cuh, shared with B2-B4), so none of the TPU
+//    kernel's [L, 4, Q] prep arrays go through memory;
 //  - reads only the 8 corner float2 pairs it needs (64 bytes) instead of the
 //    whole 512-byte row. Consecutive queries along a ray fall in the same
 //    block at the coarse levels, so those reads mostly hit L1/L2.
@@ -34,26 +34,9 @@ block_hash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ tab
   const long long q = t / L;
   const int l = (int)(t - q * L);
 
-  const float p[3] = {__ldg(x + 3 * q), __ldg(x + 3 * q + 1), __ldg(x + 3 * q + 2)};
-  float2 acc = make_float2(0.f, 0.f);
-  if (!outside_unit_cube(p)) {
-    const Cell c = locate(p, l, B, lv);
-    const float2* corner = reinterpret_cast<const float2*>(table) + c.corner0;
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const float wxy = __fmul_rn(c.wx[dx], c.wy[dy]);
-#pragma unroll
-        for (int dz = 0; dz < 2; ++dz) {
-          const float w = __fmul_rn(wxy, c.wz[dz]);
-          const float2 v = __ldg(corner + corner_offset(dx, dy, dz));
-          acc.x += w * v.x;
-          acc.y += w * v.y;
-        }
-      }
-    }
-  }
+  float p[3];
+  load_point(x, q, p);
+  const float2 acc = encode_query(p, l, B, lv, reinterpret_cast<const float2*>(table));
   out[t] = acc;  // out[q, 2l : 2l+2], t = q * L + l
 }
 

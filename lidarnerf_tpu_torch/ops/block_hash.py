@@ -13,8 +13,21 @@ table gradient, the backward `csrc/block_hash_bwd.cu`. A CPU tensor goes
 through their plain versions below: `encode_plain`, the counterpart of
 `_encode_xla`, and `encode_bwd_plain`, the counterpart of the XLA branch of
 `_encode_bwd`. The plain versions are also the kernels' oracles on the card.
+
+Two run-collapsing variants compute the same function with the work of a
+run of equal consecutive block rows done once (`kernel_variant`, switched by
+`LIDARNERF_SEG_KERNELS=1` or `LIDARNERF_WIN_KERNELS=1`, read at each call):
+"seg" walks runs within 4096-query chunks (kernels B3a/B3b,
+`csrc/block_hash_seg_{fwd,bwd}.cu`), "win" collapses fixed windows of 8, 4
+or 2 queries that share a row (B4a/B4b, `csrc/block_hash_win_{fwd,bwd}.cu`).
+Their forwards equal B1's bit for bit, so `encode_plain` is their plain
+version; their backwards sum each run or window before one scatter-add,
+`encode_bwd_seg_plain` and `encode_bwd_win_plain` below. The run structure
+(`level_rows_padded`, `seg_next`, `pack_win_flags`) is that of
+block_hash_pallas.py's prep.
 """
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,6 +42,15 @@ CELLS_PER_BLOCK = 3  # cells per block axis
 CORNERS_PER_BLOCK = 4  # corners per block axis
 ROW_WIDTH = 128  # 4^3 corners * 2 channels
 LEVEL_DIM = 2
+
+# run structure of the seg and win variants (block_hash_pallas.py:58-73, 778-791)
+CHUNK = 4096  # queries per chunk; runs and windows never cross a chunk
+NSEG_DIV = 5  # a chunk walks its runs only if it has at most CHUNK // NSEG_DIV of them
+SEG_SCALE_MAX = 3000.0  # levels of larger scale take the per-query path
+WIN_SCALE_8 = 260.0
+WIN_SCALE_4 = 700.0
+WIN_SCALE_2 = 2700.0
+VARIANTS = ("default", "seg", "win")
 
 
 @dataclass(frozen=True)
@@ -185,6 +207,14 @@ def encode_plain(x, table, spec: BlockHashSpec):
     return torch.where(_out_of_range(x), 0.0, out)
 
 
+def _level_terms(x, g, li, level, spec):
+    """Rows [Q] and the [Q, 128] lane-weight x feature-grad terms of one level."""
+    rows_idx, w12 = level_indices_and_weights(x, level, li, spec)
+    # lane j holds channel j & 1 -> [g0, g1, g0, g1, ...]
+    g_lane = g[:, 2 * li : 2 * li + 2].repeat(1, ROW_WIDTH // LEVEL_DIM)
+    return rows_idx, lane_weight_row(w12) * g_lane
+
+
 def encode_bwd_plain(x, g, spec: BlockHashSpec):
     """Plain table gradient: [Q, 3] points, [Q, 2L] feature grads -> [L*B, 128] float32.
 
@@ -196,11 +226,172 @@ def encode_bwd_plain(x, g, spec: BlockHashSpec):
     g = torch.where(_out_of_range(x), 0.0, g.float())
     grad = torch.zeros((spec.table_rows, ROW_WIDTH), dtype=torch.float32, device=x.device)
     for li, level in enumerate(spec.levels):
-        rows_idx, w12 = level_indices_and_weights(x, level, li, spec)
-        # lane j holds channel j & 1 -> [g0, g1, g0, g1, ...]
-        g_lane = g[:, 2 * li : 2 * li + 2].repeat(1, ROW_WIDTH // LEVEL_DIM)
-        grad.index_add_(0, rows_idx, lane_weight_row(w12) * g_lane)
+        grad.index_add_(0, *_level_terms(x, g, li, level, spec))
     return grad
+
+
+# ------------------------------------------------ run-collapsing variants
+
+WIN_BIT = {8: 1, 4: 2, 2: 4}  # pack_win_flags' bit of a uniform window of each size
+
+
+def kernel_variant() -> str:
+    """The encoder variant the environment asks for, read at each call.
+
+    `LIDARNERF_SEG_KERNELS=1` selects "seg", else `LIDARNERF_WIN_KERNELS=1`
+    selects "win", else "default": the JAX package's precedence
+    (lidarnerf_tpu/ops/block_hash.py:244-253).
+    """
+    if os.environ.get("LIDARNERF_SEG_KERNELS", "0") == "1":
+        return "seg"
+    if os.environ.get("LIDARNERF_WIN_KERNELS", "0") == "1":
+        return "win"
+    return "default"
+
+
+def check_even_levels(spec: BlockHashSpec, variant: str):
+    """The seg and win variants pair levels, as their TPU kernels assert."""
+    if variant != "default" and spec.num_levels % 2:
+        raise ValueError(f"the {variant} variant needs an even level count, got {spec.num_levels}")
+
+
+def win_of_level(scale: float) -> int:
+    """Window size of a level in the win variant (block_hash_pallas.py:784-791)."""
+    if scale <= WIN_SCALE_8:
+        return 8
+    if scale <= WIN_SCALE_4:
+        return 4
+    if scale <= WIN_SCALE_2:
+        return 2
+    return 1
+
+
+def level_rows_padded(x, spec: BlockHashSpec):
+    """[Q, 3] -> [L * Qp] int32 within-level block rows, level-major.
+
+    The queries are padded with zeros to Qp, a multiple of CHUNK, as
+    block_hash_pallas.prep_inputs_padded does (:233-239).
+    """
+    Q = x.shape[0]
+    xp = torch.cat([x.float(), x.new_zeros(((-Q) % CHUNK, 3), dtype=torch.float32)])
+    B = spec.blocks_per_level
+    rows = [level_indices_and_weights(xp, lv, li, spec)[0] - li * B
+            for li, lv in enumerate(spec.levels)]
+    return torch.cat(rows).to(torch.int32)
+
+
+def seg_next(rows, L: int, Qp: int):
+    """[L * Qp] int32 rows -> (next [L*C, CHUNK] int32, nseg [L*C] int32), C = Qp // CHUNK.
+
+    next[q] is the first q' > q of q's chunk whose row differs from q's, else
+    CHUNK; nseg counts each chunk's runs (block_hash_pallas.py:446-465).
+    """
+    r = rows.reshape(L * (Qp // CHUNK), CHUNK)
+    flag = torch.cat([torch.ones_like(r[:, :1], dtype=torch.bool), r[:, 1:] != r[:, :-1]], dim=1)
+    q = torch.arange(CHUNK, dtype=torch.int32, device=rows.device)
+    c = torch.where(flag, q[None, :], CHUNK)
+    nxt = torch.flip(torch.cummin(torch.flip(c, [1]), dim=1).values, [1])
+    nxt = torch.cat([nxt[:, 1:], torch.full_like(nxt[:, :1], CHUNK)], dim=1)
+    return nxt.to(torch.int32), flag.sum(dim=1, dtype=torch.int32)
+
+
+def pack_win_flags(rows, L: int, Qp: int):
+    """[L * Qp] int32 rows -> [L * Qp] int32 uniformity flags (block_hash_pallas.py:794-821).
+
+    Read at the last index of a window: bit 0 says the 8 queries ending
+    there share one row, bit 1 the 4, bit 2 the 2. Windows never straddle a
+    chunk.
+    """
+    r = rows.reshape(L * (Qp // CHUNK), CHUNK)
+    e = torch.cat([torch.zeros_like(r[:, :1], dtype=torch.bool), r[:, 1:] == r[:, :-1]], dim=1)
+
+    def sh(m, k):  # m[i - k], False at the chunk start
+        return torch.cat([torch.zeros_like(m[:, :k]), m[:, :-k]], dim=1)
+
+    u4 = e & sh(e, 1) & sh(e, 2)
+    u8 = u4 & sh(e, 3) & sh(u4, 4)
+    return (u8.int() + u4.int() * 2 + e.int() * 4).reshape(-1)
+
+
+def _collapsed_bwd(x, g, spec, variant, group_of_level):
+    """Shared body of the seg and win plain backwards.
+
+    `group_of_level(li, level, rows, Qp)` gives, for the padded stream of
+    one level, a group id per query (runs or windows: consecutive, never
+    crossing a chunk) and which groups collapse, or None when the whole
+    level takes per-query adds. A collapsing group's terms are summed first
+    and added once, at its row; every other query adds its own terms.
+    """
+    check_even_levels(spec, variant)
+    Q, L, B = x.shape[0], spec.num_levels, spec.blocks_per_level
+    g = torch.where(_out_of_range(x), 0.0, g.float())
+    grad = torch.zeros((spec.table_rows, ROW_WIDTH), dtype=torch.float32, device=x.device)
+    rows = level_rows_padded(x, spec)
+    Qp = rows.numel() // L
+    for li, level in enumerate(spec.levels):
+        rows_idx, terms = _level_terms(x, g, li, level, spec)
+        groups = group_of_level(li, level, rows, Qp)
+        if groups is None:
+            grad.index_add_(0, rows_idx, terms)
+            continue
+        gid, collapse = groups  # [Qp] int64 group ids, [n_groups] bool
+        gid = gid[:Q]
+        m = collapse[gid]
+        sums = torch.zeros((collapse.numel(), ROW_WIDTH), dtype=torch.float32, device=x.device)
+        sums.index_add_(0, gid[m], terms[m])
+        group_row = torch.zeros(collapse.numel(), dtype=torch.int64, device=x.device)
+        group_row[gid] = rows_idx  # every query of a group holds the group's row
+        grad.index_add_(0, group_row[collapse], sums[collapse])
+        grad.index_add_(0, rows_idx[~m], terms[~m])
+    return grad
+
+
+def encode_bwd_seg_plain(x, g, spec: BlockHashSpec):
+    """Plain table gradient of the seg variant, B3b's plain version: [L*B, 128] float32.
+
+    The rules of block_hash_pallas.py::_bwd_seg_from_prep (:592): levels of
+    scale above SEG_SCALE_MAX, and chunks with more than CHUNK // NSEG_DIV
+    runs, add per query; every other run of equal consecutive rows sums its
+    terms and adds them once. Out-of-range grads are zeroed first.
+    """
+
+    def runs(li, level, rows, Qp):
+        if level.scale > SEG_SCALE_MAX:
+            return None
+        r = rows[li * Qp : (li + 1) * Qp]
+        _, nseg = seg_next(r, 1, Qp)
+        pos = torch.arange(Qp, device=r.device)
+        start = (pos % CHUNK == 0) | torch.cat([r.new_ones(1, dtype=torch.bool), r[1:] != r[:-1]])
+        gid = torch.cumsum(start.long(), 0) - 1
+        walked = nseg <= CHUNK // NSEG_DIV  # [C], per chunk
+        return gid, walked[torch.nonzero(start).squeeze(1) // CHUNK]
+
+    return _collapsed_bwd(x, g, spec, "seg", runs)
+
+
+def encode_bwd_win_plain(x, g, spec: BlockHashSpec):
+    """Plain table gradient of the win variant, B4b's plain version: [L*B, 128] float32.
+
+    The rules of block_hash_pallas.py::_bwd_win_from_prep (:958): level l
+    cuts its stream into windows of w = win_of_level(scale) queries; a window
+    whose flag (pack_win_flags, read at its last index) says its w rows are
+    equal sums its terms and adds them once, every other query (and every
+    query of a w = 1 level) adds its own. Out-of-range grads are zeroed first.
+    """
+
+    def windows(li, level, rows, Qp):
+        w = win_of_level(level.scale)
+        if w == 1:
+            return None
+        flags = pack_win_flags(rows[li * Qp : (li + 1) * Qp], 1, Qp)
+        gid = torch.arange(Qp, device=rows.device) // w
+        return gid, (flags.reshape(-1, w)[:, -1] & WIN_BIT[w]) != 0
+
+    return _collapsed_bwd(x, g, spec, "win", windows)
+
+
+ENCODE_BWD_PLAIN = {"default": encode_bwd_plain, "seg": encode_bwd_seg_plain,
+                    "win": encode_bwd_win_plain}
 
 
 # ------------------------------------------------------------- public entry
@@ -209,19 +400,24 @@ def encode_bwd_plain(x, g, spec: BlockHashSpec):
 class BlockHashEncode(torch.autograd.Function):
     """Features of [Q, 3] points, differentiable w.r.t. the table only.
 
-    CUDA tensors run kernels B1 (forward) and B2 (backward); CPU tensors run
-    `encode_plain` and `encode_bwd_plain`. The points get no gradient: the
-    JAX package's VJP returns zeros there and nothing upstream needs it.
+    The forward reads `kernel_variant()` and keeps it for the backward, as
+    the JAX package keeps it in its residuals. CUDA tensors run the
+    variant's kernels: B1/B2 (default), B3a/B3b (seg) or B4a/B4b (win); CPU
+    tensors run `encode_plain` and the variant's plain backward. The points
+    get no gradient: the JAX package's VJP returns zeros there and nothing
+    upstream needs it.
     """
 
     @staticmethod
     def forward(ctx, x, table, spec):
-        ctx.spec = spec
+        variant = kernel_variant()
+        check_even_levels(spec, variant)
+        ctx.spec, ctx.variant = spec, variant
         ctx.save_for_backward(x)
         if dispatch.uses_kernel(x):
-            from lidarnerf_tpu_torch.ops.block_hash_cuda import block_hash_fwd
+            from lidarnerf_tpu_torch.ops import block_hash_cuda
 
-            return block_hash_fwd(x, table, spec)
+            return block_hash_cuda.FWD[variant](x, table, spec)
         return encode_plain(x, table, spec)
 
     @staticmethod
@@ -231,10 +427,10 @@ class BlockHashEncode(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         g = g.float().contiguous()
         if dispatch.uses_kernel(x):
-            from lidarnerf_tpu_torch.ops.block_hash_cuda import block_hash_bwd
+            from lidarnerf_tpu_torch.ops import block_hash_cuda
 
-            return None, block_hash_bwd(x, g, ctx.spec), None
-        return None, encode_bwd_plain(x, g, ctx.spec), None
+            return None, block_hash_cuda.BWD[ctx.variant](x, g, ctx.spec), None
+        return None, ENCODE_BWD_PLAIN[ctx.variant](x, g, ctx.spec), None
 
 
 def block_hash_encode(x01, table, spec: BlockHashSpec):

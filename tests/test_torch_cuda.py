@@ -99,3 +99,79 @@ def test_block_hash_bwd_kernel_matches_plain(require_cuda, spec_name, coherent):
     torch.cuda.synchronize()
     assert block_hash_cuda.bwd_launches == before + 1
     _assert_bwd_close(out, x, g, spec)
+
+
+VARIANT_ENV = {"seg": "LIDARNERF_SEG_KERNELS", "win": "LIDARNERF_WIN_KERNELS"}
+
+
+@pytest.mark.parametrize("coherent", [True, False], ids=["rays", "uniform"])
+@pytest.mark.parametrize("spec_name", list(SPECS))
+@pytest.mark.parametrize("variant", ["seg", "win"])
+def test_run_collapsing_forward_equals_b1_bit_for_bit(require_cuda, variant, spec_name, coherent):
+    """B3a and B4a load a run's or window's row once; the features are B1's."""
+    spec = block_hash.make_block_hash_spec(**SPECS[spec_name])
+    table = torch.randn(spec.table_rows, 128, generator=torch.Generator(device="cuda").manual_seed(5),
+                        device="cuda")
+    x = _points(20000, 6, coherent)
+    counts = block_hash_cuda.launch_counts()
+    out = block_hash_cuda.FWD[variant](x, table, spec)
+    ref = block_hash_cuda.block_hash_fwd(x, table, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    after = block_hash_cuda.launch_counts()
+    assert after[f"block_hash_{variant}_fwd"] == counts[f"block_hash_{variant}_fwd"] + 1
+
+
+@pytest.mark.parametrize("coherent", [True, False], ids=["rays", "uniform"])
+@pytest.mark.parametrize("spec_name", list(SPECS))
+@pytest.mark.parametrize("variant", ["seg", "win"])
+def test_run_collapsing_backward_matches_plain(require_cuda, variant, spec_name, coherent):
+    """B3b and B4b within B2's slack of encode_bwd_plain and of their own
+    run-structured plain versions."""
+    spec = block_hash.make_block_hash_spec(**SPECS[spec_name])
+    x = _points(20000, 7, coherent)
+    g = torch.randn(20000, spec.output_dim, generator=torch.Generator(device="cuda").manual_seed(8),
+                    device="cuda")
+    out = block_hash_cuda.BWD[variant](x, g, spec)
+    torch.cuda.synchronize()
+    _assert_bwd_close(out, x, g, spec)
+    own = block_hash.ENCODE_BWD_PLAIN[variant](x, g, spec)
+    S = block_hash.encode_bwd_plain(x, g.abs(), spec)
+    assert ((out - own).abs() <= 1e-5 * S + 1e-7).all()
+
+
+@pytest.mark.parametrize("variant", ["seg", "win"])
+def test_run_collapsing_empty_input(require_cuda, variant):
+    spec = block_hash.make_block_hash_spec(**SPECS["small"])
+    x = torch.zeros(0, 3, device="cuda")
+    table = torch.zeros(spec.table_rows, 128, device="cuda")
+    counts = block_hash_cuda.launch_counts()
+    assert block_hash_cuda.FWD[variant](x, table, spec).shape == (0, spec.output_dim)
+    grad = block_hash_cuda.BWD[variant](x, torch.zeros(0, spec.output_dim, device="cuda"), spec)
+    assert grad.shape == (spec.table_rows, 128) and not grad.any()
+    assert block_hash_cuda.launch_counts() == counts
+
+
+@pytest.mark.parametrize("variant", ["seg", "win"])
+def test_variant_on_cuda_launches_its_kernels_only(require_cuda, monkeypatch, variant):
+    """With a switch set, block_hash_encode on CUDA launches the variant's
+    forward and backward once each, no other kernel, and no plain version."""
+    monkeypatch.setenv(VARIANT_ENV[variant], "1")
+    spec = block_hash.make_block_hash_spec(**SPECS["small"])
+    x = _points(5000, 9, coherent=True)
+    g = torch.randn(5000, spec.output_dim, device="cuda")
+    table = torch.zeros(spec.table_rows, 128, device="cuda", requires_grad=True)
+
+    def plain(*args):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    for name in ("encode_plain", "encode_bwd_plain", "encode_bwd_seg_plain", "encode_bwd_win_plain"):
+        monkeypatch.setattr(block_hash, name, plain)
+    monkeypatch.setattr(block_hash, "ENCODE_BWD_PLAIN", {k: plain for k in block_hash.VARIANTS})
+    counts = block_hash_cuda.launch_counts()
+    (block_hash.block_hash_encode(x, table, spec) * g).sum().backward()
+    torch.cuda.synchronize()
+    after = block_hash_cuda.launch_counts()
+    moved = {k: after[k] - counts[k] for k in after if after[k] != counts[k]}
+    assert moved == {f"block_hash_{variant}_fwd": 1, f"block_hash_{variant}_bwd": 1}
+    assert table.grad is not None and table.grad.any()

@@ -115,27 +115,35 @@ def test_cuda_table_gradient_not_ported_and_no_fallback(monkeypatch):
 
 def test_kernel_wrapper_rejects_cpu_tensors():
     spec = block_hash.make_block_hash_spec(num_levels=2, log2_hashmap_size=10)
-    before = block_hash_cuda.launches, block_hash_cuda.bwd_launches
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        block_hash_cuda.block_hash_fwd(torch.rand(4, 3), torch.zeros(spec.table_rows, 128), spec)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        block_hash_cuda.block_hash_bwd(torch.rand(4, 3), torch.zeros(4, spec.output_dim), spec)
-    assert (block_hash_cuda.launches, block_hash_cuda.bwd_launches) == before
+    before = block_hash_cuda.launch_counts()
+    for variant in block_hash.VARIANTS:  # all six wrappers
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            block_hash_cuda.FWD[variant](torch.rand(4, 3), torch.zeros(spec.table_rows, 128), spec)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            block_hash_cuda.BWD[variant](torch.rand(4, 3), torch.zeros(4, spec.output_dim), spec)
+    assert block_hash_cuda.launch_counts() == before
 
 
 def test_kernel_source_and_build_naming(tmp_path, monkeypatch):
     header = (cuda_lib.CSRC_DIR / block_hash_cuda.HEADER).read_text()
     assert int(re.search(r"#define MAX_LEVELS (\d+)", header).group(1)) == block_hash_cuda.MAX_LEVELS
-    for source, name in zip(block_hash_cuda.SOURCES, ("block_hash_fwd", "block_hash_bwd")):
+    # the run structure's constants are the plain versions'
+    for name in ("CHUNK", "NSEG_DIV"):
+        assert int(re.search(rf"#define {name} (\d+)", header).group(1)) == getattr(block_hash, name)
+    names = ("block_hash_fwd", "block_hash_bwd", "block_hash_seg_fwd", "block_hash_seg_bwd",
+             "block_hash_win_fwd", "block_hash_win_bwd")
+    assert len(block_hash_cuda.SOURCES) == len(names)
+    assert set(block_hash_cuda.launch_counts()) == set(names)
+    for source, name in zip(block_hash_cuda.SOURCES, names):
         src = (cuda_lib.CSRC_DIR / source).read_text()
-        assert f'extern "C" int {name}(' in src
-        assert f'#include "{block_hash_cuda.HEADER}"' in src
+        assert source == f"{name}.cu" and f'extern "C" int {name}(' in src
+        assert re.search(r'#include "block_hash_(common|seg)\.cuh"', src)
         lib = cuda_lib.library_path(source)
         assert lib.parent == cuda_lib.BUILD_DIR and lib == cuda_lib.library_path(source)
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
     gitignore = (REPO / ".gitignore").read_text().split()
     assert "lidarnerf_tpu_torch/_build/" in gitignore
-    # an edit of the shared header renames (so rebuilds) both kernels' libraries
+    # an edit of the shared header renames (so rebuilds) every kernel's library
     for f in cuda_lib.CSRC_DIR.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(cuda_lib, "CSRC_DIR", tmp_path)

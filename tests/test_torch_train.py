@@ -138,8 +138,25 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_train_step_matches_jax(field, case):
+VARIANT_ENV = {"seg": "LIDARNERF_SEG_KERNELS", "win": "LIDARNERF_WIN_KERNELS"}
+
+
+@pytest.mark.parametrize(
+    "case, variant",
+    [pytest.param(c, v, id=c if v == "default" else f"{c}-{v}")
+     for v in ("default", "seg", "win") for c in CASES],
+)
+def test_train_step_matches_jax(field, case, variant, monkeypatch):
+    """The port's step under each block-hash variant vs the JAX step.
+
+    The variant switch selects the port's table-gradient path (on the CPU
+    the variant's plain backward, which sums runs or windows first); the
+    JAX step on the CPU ignores it, so both sides hold one function.
+    """
+    monkeypatch.delenv("LIDARNERF_SEG_KERNELS", raising=False)
+    monkeypatch.delenv("LIDARNERF_WIN_KERNELS", raising=False)
+    if variant != "default":
+        monkeypatch.setenv(VARIANT_ENV[variant], "1")
     module, params = field
     patch, masked, kw = CASES[case]["patch"], CASES[case]["masked"], CASES[case]["kw"]
     tcfg_j, tcfg, rcfg_j, rcfg = _configs(**kw)
