@@ -4,12 +4,16 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the ported paths from `lidarnerf_tpu_torch/csrc`
-(the block-hash forward B1 and backward B2, and their run-collapsing
-variants: segmented B3a/B3b and windowed B4a/B4b), holds each against its
-plain PyTorch version on the card at the main paths' shapes, then drives the
-main paths at the full width of the KITTI-360 model (16-level 2^19
-block-hash grid, width-64 bf16 MLPs, 768 + 64 samples, 4096-ray chunks,
-66 x 1030 panos):
+(the block-hash forward B1 and backward B2, their run-collapsing variants:
+segmented B3a/B3b and windowed B4a/B4b, the fused MLP B5 and the
+permutation gather B6), holds each against its plain PyTorch version on the
+card at the main paths' shapes, then drives the main paths at the full width
+of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
+768 + 64 samples, 4096-ray chunks, 66 x 1030 panos):
+  - fused-mlp: `fused_mlp` on the model's own sigma net and LiDAR head at a
+    served chunk's shapes, f32 and bf16, and one backward (B5);
+  - sort-merge: `sort_merge_z` forward and backward on a training chunk's
+    768 + 64 and --fast 192 + 64 samples (B6, both directions);
   - serving: full-pano LiDAR rendering through `PanoRenderer`, with weights
     made from a seed;
   - training: `Trainer` on the synthetic KITTI-360-format drive in
@@ -18,7 +22,10 @@ block-hash grid, width-64 bf16 MLPs, 768 + 64 samples, 4096-ray chunks,
     trained weights;
   - serving-seg, serving-win, training-seg, training-win: one pano and one
     60-step epoch under each variant switch (`LIDARNERF_SEG_KERNELS=1`,
-    `LIDARNERF_WIN_KERNELS=1`), held against the default variant.
+    `LIDARNERF_WIN_KERNELS=1`), held against the default variant;
+  - training-fast, serving-fast: `Trainer` with occupancy-prior sampling
+    (`--fast`: 192 + 64 samples, a 128^3 grid refreshed every 16 steps) for
+    the same three epochs, then `PanoRenderer` on frame 0 with its grid.
 It checks that each path went through its kernels and that its output is
 right, and profiles one render chunk and one training step per variant.
 Prints one JSON line of per-kernel numbers and ends with a JSON status line.
@@ -30,6 +37,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from types import SimpleNamespace
 
 import numpy as np
@@ -57,7 +65,16 @@ TRAIN_OPT = dict(  # configs/kitti360_1908.txt under the -L CLI defaults (main_l
 )
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 KERNEL_ATOL = 1e-5  # fp32, the same products, 8 corners summed in another order
+# B5 vs its plain version, entry by entry: |k - p| <= MLP_RTOL * S + 1e-6 with S
+# the plain chain on |x| and |W| (a bound on the sum of absolute terms). bf16
+# weights: a sum taken in another order may round an intermediate to the other
+# neighbouring bf16 value
+MLP_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+# the --fast macro (main_lidarnerf.py:282-284) at the CLI's occupancy defaults
+FAST = dict(occ_sampling=True, num_steps=192, occ_grid_size=128, occ_update_interval=16,
+            occ_bins=128, occ_floor=0.05, occ_dilate=1, density_thresh=10.0)
 # B2 vs its plain version, entry by entry: |k - p| <= BWD_RTOL * S + BWD_ATOL with
 # S the plain version on |g|: the trilinear weights are non-negative, so S is
 # the sum of the absolute terms of each entry, a bound on any summation order
@@ -96,9 +113,24 @@ def set_variant(variant):
         os.environ[VARIANT_ENV[variant]] = "1"
 
 
+def launch_counts():
+    """{kernel name: launches so far} of every kernel wrapper of the port."""
+    from lidarnerf_tpu_torch.ops import block_hash_cuda, fused_mlp_cuda, perm_gather_cuda
+
+    return {**block_hash_cuda.launch_counts(), **fused_mlp_cuda.launch_counts(),
+            **perm_gather_cuda.launch_counts()}
+
+
+def reset_counts():
+    from lidarnerf_tpu_torch.ops import block_hash_cuda, fused_mlp_cuda, perm_gather_cuda
+
+    for module in (block_hash_cuda, fused_mlp_cuda, perm_gather_cuda):
+        module.reset_counts()
+
+
 def only_launches(counts, expected):
-    """Raise unless `counts` (block_hash_cuda.launch_counts()) holds exactly
-    `expected` launches and none of any other kernel."""
+    """Raise unless `counts` (launch_counts()) holds exactly `expected`
+    launches and none of any other kernel."""
     want = {name: expected.get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"launches {counts}, expected {want}")
@@ -415,19 +447,17 @@ def slice_phase(renderer):
     """The main path: full-width panos through PanoRenderer.
 
     Returns (launch counts, the first pano)."""
-    from lidarnerf_tpu_torch.ops import block_hash_cuda
-
     near, far = FULL.scale, FULL.scale * renderer.cfg.far_mult
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    block_hash_cuda.reset_counts()
+    reset_counts()
     times = []
     frames = []
     for pose in drive_poses(N_PANOS):
         t0 = time.perf_counter()
         frames.append(renderer.render_frame(pose, H, W, INTRINSICS))  # ends on the host
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = block_hash_cuda.launch_counts()
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     chunks = -(-H * W // FULL.max_ray_batch)
@@ -463,10 +493,28 @@ def new_model(opt, fp16):
     )
 
 
-def train_reference_phase(ds, variant="default"):
+def hit_grid(ds, G):
+    """A [G, G, G] occupancy grid of frame 0's returns: 50 in every cell that
+    holds one, 0 elsewhere, so no entry lies near the occupancy threshold
+    (the mean, which the two devices sum in another order)."""
+    from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
+
+    rays = get_lidar_rays(torch.from_numpy(ds.poses_lidar[0])[None], ds.intrinsics_lidar,
+                          ds.H_lidar, ds.W_lidar)
+    image = torch.from_numpy(ds.images_lidar[0]).reshape(-1, 3)
+    hit = image[:, 0] == 1.0
+    pts = rays["rays_o"][0][hit] + rays["rays_d"][0][hit] * image[hit, 2:3]
+    cell = torch.clamp(torch.floor((pts + 1.0) * (G / 2.0)).long(), 0, G - 1)
+    grid = torch.zeros((G,) * 3)
+    grid[cell[:, 0], cell[:, 1], cell[:, 2]] = 50.0
+    return grid
+
+
+def train_reference_phase(ds, variant="default", fast=False):
     """One fp32 training step of a small config on the GPU (the variant's
     kernels) vs the CPU (its plain versions), from the same weights with the
-    same draws.
+    same draws; `fast` samples by occupancy, with one grid (frame 0's
+    returns) on both devices.
 
     The small field's finest level has 64 cells a side: at the full width's
     32768, the devices' one-ulp differences in sample positions (trig,
@@ -475,6 +523,7 @@ def train_reference_phase(ds, variant="default"):
     """
     from lidarnerf_tpu_torch.dataset.base import sample_ray_indices
     from lidarnerf_tpu_torch.models.network import NeRFNetwork
+    from lidarnerf_tpu_torch.models.occupancy import OccConfig
     from lidarnerf_tpu_torch.models.renderer import RenderConfig
     from lidarnerf_tpu_torch.nerf.train_step import TrainConfig, make_train_step
 
@@ -482,8 +531,10 @@ def train_reference_phase(ds, variant="default"):
     opt = train_opt(ds, num_rays_lidar=n)
     cfg = TrainConfig(**{k: getattr(opt, k) for k in TrainConfig.__dataclass_fields__
                          if hasattr(opt, k)})
+    occ = OccConfig() if fast else None
     rcfg = RenderConfig(num_steps=T, upsample_steps=S, min_near_lidar=ds.scale,
-                        min_near=ds.scale)
+                        min_near=ds.scale, occ=occ)
+    grid = hit_grid(ds, occ.grid_size) if fast else None
     gen = torch.Generator().manual_seed(SEED + 3)
     draws = {"inds": sample_ray_indices(ds.H_lidar, ds.W_lidar, n, patch, gen),
              "noise": torch.rand((n, T), generator=gen), "u": torch.rand((n, S), generator=gen)}
@@ -496,13 +547,16 @@ def train_reference_phase(ds, variant="default"):
         poses, images = ds.device_arrays(dev)
         vi = torch.zeros((len(ds), 1), dtype=torch.long, device=dev)
         vc = torch.full((len(ds),), ds.H_lidar * ds.W_lidar, device=dev)
-        m = step(poses, images, vi, vc, 3, draws={k: v.to(dev) for k, v in draws.items()})
+        m = step(poses, images, vi, vc, 3, draws={k: v.to(dev) for k, v in draws.items()},
+                 occ_grid=None if grid is None else grid.to(dev))
         grads = {k: p.grad.cpu() for k, p in net.named_parameters() if p.grad is not None}
         results[dev] = (float(m["loss"]), m["skipped_nonfinite"], grads)
     set_variant("default")
     (loss_g, skip_g, grads_g), (loss_c, skip_c, grads_c) = results["cuda"], results["cpu"]
-    log(f"train reference ({variant} variant): fp32 step of {n} rays, {T}+{S} samples, patch "
-        f"{patch}, 4-level 2^14 table: loss GPU {loss_g:.6f} CPU {loss_c:.6f}")
+    sampler = f"--fast, {100 * float((grid > 0).float().mean()):.2f}% of a 128^3 grid hit" \
+        if fast else "stratified"
+    log(f"train reference ({variant} variant, {sampler}): fp32 step of {n} rays, {T}+{S} "
+        f"samples, patch {patch}, 4-level 2^14 table: loss GPU {loss_g:.6f} CPU {loss_c:.6f}")
     if skip_g or skip_c or grads_g.keys() != grads_c.keys():
         raise AssertionError("train reference: a step was skipped or the gradients differ in kind")
     failed = []
@@ -522,9 +576,8 @@ def train_reference_phase(ds, variant="default"):
 def train_slice_phase(ds):
     """The training path: Trainer at full width on the synthetic drive.
 
-    Returns (trainer, initial state_dict on the host, launch counts)."""
+    Returns (trainer, initial state_dict on the host, launch counts, warm ms/step)."""
     from lidarnerf_tpu_torch.nerf.trainer import Trainer
-    from lidarnerf_tpu_torch.ops import block_hash_cuda
 
     opt = train_opt(ds)
     model = new_model(opt, fp16=FULL.fp16)
@@ -532,13 +585,13 @@ def train_slice_phase(ds):
     trainer = Trainer("chip_smoke", opt, model, ema_decay=0.95)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    block_hash_cuda.reset_counts()
+    reset_counts()
     epoch_s = []
     for epoch in range(1, TRAIN_EPOCHS + 1):
         t0 = time.perf_counter()
         trainer.train(ds, None, max_epochs=epoch)  # ends on the host (loss fetch)
         epoch_s.append(time.perf_counter() - t0)
-    launches = block_hash_cuda.launch_counts()
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     losses, steps = trainer.stats["step_loss"], trainer.global_step
@@ -562,20 +615,19 @@ def train_slice_phase(ds):
         f"{warm:.2f} ms/step = {n / warm * 1e3:.0f} rays/s = "
         f"{n * samples / warm / 1e3:.1f}M composited ray-samples/s; peak memory "
         f"{peak / 2**30:.2f} GiB; launches {launches}")
-    return trainer, init_sd, launches
+    return trainer, init_sd, launches, warm
 
 
 def train_to_serve_phase(ds, trainer, init_sd):
     """Render training frame 0 from the trained and from the initial weights
     through PanoRenderer; the trained field must fit the frame's depth better."""
     from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
-    from lidarnerf_tpu_torch.ops import block_hash_cuda
     from lidarnerf_tpu_torch.utils.params import params_to_jax
 
     opt = train_opt(ds)
     gt = ds.images_lidar[0]
     hit = gt[..., 0] == 1.0
-    block_hash_cuda.reset_counts()
+    reset_counts()
     maes = {}
     for name, sd in (("initial", init_sd), ("trained", trainer.model.state_dict())):
         renderer = PanoRenderer(opt, params_to_jax(sd))
@@ -584,7 +636,7 @@ def train_to_serve_phase(ds, trainer, init_sd):
         if depth.shape != (ds.H_lidar, ds.W_lidar) or not np.isfinite(depth).all():
             raise AssertionError(f"the {name} render is not a finite pano")
         maes[name] = float(np.abs(depth - gt[..., 2])[hit].mean())
-    launches = block_hash_cuda.launch_counts()
+    launches = launch_counts()
     chunks = -(-ds.H_lidar * ds.W_lidar // FULL.max_ray_batch)
     log(f"train-to-serve: depth MAE on the {int(hit.sum())} returning rays of frame 0: "
         f"initial {maes['initial']:.5f}, trained {maes['trained']:.5f} (scaled units; "
@@ -631,15 +683,17 @@ def profile_train_step(ds, trainer, top=15):
     vi = torch.zeros((len(ds), 1), dtype=torch.long, device="cuda")
     vc = torch.full((len(ds),), ds.H_lidar * ds.W_lidar, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    step(poses, images, vi, vc, 0, generator=gen)
+    step(poses, images, vi, vc, 0, generator=gen, occ_grid=trainer.occ_grid)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(poses, images, vi, vc, 1, generator=gen)  # ends on the host (update guard)
+        # ends on the host (update guard)
+        step(poses, images, vi, vc, 1, generator=gen, occ_grid=trainer.occ_grid)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    sampler = ", --fast" if trainer.occ_grid is not None else ""
     return profile_summary(prof, wall_ms, f"one {trainer.train_cfg.num_rays_lidar}-ray training "
-                           f"step ({kernel_variant()} variant)", top)
+                           f"step ({kernel_variant()} variant{sampler})", top)
 
 
 def kernel_ms(profiled, name):
@@ -648,7 +702,7 @@ def kernel_ms(profiled, name):
 
 
 def profile_phase(renderer, top=12):
-    """Device time by operator for one chunk of the serving path (torch.profiler)."""
+    """Device time by operator for one chunk of `renderer`'s serving path (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     pose = drive_poses(1)[0]
@@ -658,7 +712,8 @@ def profile_phase(renderer, top=12):
         t0 = time.perf_counter()
         renderer.render_frame(pose, h, w, INTRINSICS)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    profile_summary(prof, wall_ms, f"one {FULL.max_ray_batch}-ray render chunk", top)
+    sampler = ", --fast" if renderer.occ_grid is not None else ""
+    profile_summary(prof, wall_ms, f"one {FULL.max_ray_batch}-ray render chunk{sampler}", top)
 
 
 def run_structure_phase(spec, ds):
@@ -817,17 +872,15 @@ def variant_serving_phase(renderer, variant, default_frame):
     """The serving path under a variant switch: one full-width pano, which
     must equal the default variant's pano of the same pose. Returns the
     launch counts."""
-    from lidarnerf_tpu_torch.ops import block_hash_cuda
-
     pose = drive_poses(1)[0]  # the default path's first pose
     set_variant(variant)
     renderer.render_frame(pose, 4, 8, INTRINSICS)  # loads the variant's kernel
     torch.cuda.synchronize()
-    block_hash_cuda.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     frame = renderer.render_frame(pose, H, W, INTRINSICS)  # ends on the host
     ms = (time.perf_counter() - t0) * 1e3
-    launches = block_hash_cuda.launch_counts()
+    launches = launch_counts()
     set_variant("default")
 
     check_pano(frame, FULL.scale, FULL.scale * renderer.cfg.far_mult)
@@ -851,17 +904,16 @@ def variant_train_phase(ds, variant, default_epoch_loss):
     from the default path's seeded init and frame order. Returns (launch
     counts, ms/step, the variant backward's device ms in one profiled step)."""
     from lidarnerf_tpu_torch.nerf.trainer import Trainer
-    from lidarnerf_tpu_torch.ops import block_hash_cuda
 
     set_variant(variant)
     opt = train_opt(ds)
     trainer = Trainer("chip_smoke", opt, new_model(opt, fp16=FULL.fp16), ema_decay=0.95)
     torch.cuda.synchronize()
-    block_hash_cuda.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     trainer.train(ds, None, max_epochs=1)  # ends on the host (loss fetch)
     epoch_s = time.perf_counter() - t0
-    launches = block_hash_cuda.launch_counts()
+    launches = launch_counts()
 
     losses, steps = trainer.stats["step_loss"], trainer.global_step
     if steps != len(ds) or len(losses) != steps:
@@ -885,11 +937,368 @@ def variant_train_phase(ds, variant, default_epoch_loss):
     return launches, step_ms, bwd_ms
 
 
+def full_network(params):
+    """The full-width model (bf16 policy) with `params` through the weight bridge, on the card."""
+    from lidarnerf_tpu_torch.utils.params import params_from_jax
+
+    net = new_model(FULL, fp16=FULL.fp16)
+    net.load_state_dict(params_from_jax(params))
+    return net.to("cuda").eval()
+
+
+def jax_layout(mlp, dtype):
+    """An MLP's weights as fused_mlp takes them: [d_in, d_out], as `dtype`."""
+    return [lin.weight.detach().t().contiguous().to(dtype) for lin in mlp.layers]
+
+
+@torch.no_grad()
+def chunk_samples(net, o, d, T, near, generator=None):
+    """A 4096-ray chunk's samples as the renderer forms them over
+    [near, 81 near]: coarse z [N, T] (jittered when a generator is given, as
+    in training), fine z [N, 64] by inverse CDF, and the sigma and 15-wide
+    geo of both."""
+    from lidarnerf_tpu_torch.ops.compositing import composite_weights
+    from lidarnerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
+
+    train = generator is not None
+    near = torch.full((o.shape[0], 1), near, device=o.device)
+    far = near * 81.0
+    z = stratified_z_vals(near, far, T, perturb=train, generator=generator)
+
+    def density(zz):
+        xyz = torch.clamp(o[:, None] + d[:, None] * zz[..., None], -FULL.bound, FULL.bound)
+        return net.density(xyz)
+
+    sigma, geo = density(z)
+    w = composite_weights(sigma, z, (far - near) / T, 1.0)
+    z_mid = z[..., :-1] + 0.5 * (z[..., 1:] - z[..., :-1])
+    new_z = sample_pdf(z_mid, w[:, 1:-1], FULL.upsample_steps, det=not train, generator=generator)
+    new_z = torch.sort(new_z, dim=-1).values
+    new_sigma, new_geo = density(new_z)
+    return z, new_z, sigma, new_sigma, geo, new_geo
+
+
+def head_input(net, o, d):
+    """The LiDAR head's input of a served chunk, as the renderer forms it:
+    [N * (768 + 64), 75 + 15] = the direction encoding broadcast ++ the geo
+    features of the coarse and the fine samples."""
+    *_, geo_c, geo_f = chunk_samples(net, o, d, FULL.num_steps, FULL.scale)
+    geo = torch.cat([geo_c, geo_f], dim=1)  # [N, 832, 15]
+    d_enc = net.encode_dir(d)[:, None, :].expand(*geo.shape[:-1], -1)
+    return torch.cat([d_enc, geo], dim=-1).reshape(-1, d_enc.shape[-1] + geo.shape[-1])
+
+
+def mlp_bound(x, weights, peak):
+    """(least ms, by) of the chain on x: x read and the output written once,
+    2 flops per multiply-add, at `peak` flop/s."""
+    dims = [x.shape[1]] + [w.shape[1] for w in weights]
+    Q = x.shape[0]
+    bytes_moved = Q * (dims[0] + dims[-1]) * 4 + sum(w.numel() * w.element_size() for w in weights)
+    flops = 2 * Q * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mlp_worst(out, x, weights, act):
+    """(max |kernel - plain|, worst err / (r S + 1e-6)) of B5's output."""
+    from lidarnerf_tpu_torch.ops.fused_mlp import mlp_reference
+
+    err = (out - mlp_reference(x, weights, act)).abs()
+    S = mlp_reference(x.abs(), [w.abs() for w in weights], "none")
+    return err.max().item(), (err / (MLP_RTOL[weights[0].dtype] * S + 1e-6)).max().item()
+
+
+def fused_mlp_phase(params, ds):
+    """The fused-mlp path: `fused_mlp` on the model's own nets at a served
+    chunk's shapes, f32 and bf16, and one backward on a training chunk's
+    sigma-net input; each held against the plain chain. Returns (launch
+    counts, the B5 `kernels` entry)."""
+    from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
+    from lidarnerf_tpu_torch.ops.block_hash_cuda import block_hash_fwd
+    from lidarnerf_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_inference, mlp_reference
+
+    dev = torch.device("cuda")
+    net = full_network(params)
+    table, spec = net.hash_table.detach(), net.block_spec
+    enc = block_hash_fwd(serving_chunk_queries(dev), table, spec)  # [3,145,728, 32]
+    rays = get_lidar_rays(torch.from_numpy(drive_poses(1)[0]).to(dev)[None], INTRINSICS, H, W)
+    head_x = head_input(net, rays["rays_o"][0, :FULL.max_ray_batch],
+                        rays["rays_d"][0, :FULL.max_ray_batch])  # [3,407,872, 90]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    train_x = block_hash_fwd(training_chunk_queries(ds, dev, gen), table, spec)
+    cases = [(f"{name} {str(dtype).split('.')[-1]}", x, jax_layout(mlp, dtype), act)
+             for name, x, mlp, act in (("sigma net", enc, net.sigma_net, "none"),
+                                       ("LiDAR head", head_x, net.lidar_color_net, "sigmoid"))
+             for dtype in (torch.float32, torch.bfloat16)]
+    cot = torch.randn((train_x.shape[0], 16), generator=gen, device=dev)
+    xg = train_x.requires_grad_()
+    wg = [w.requires_grad_() for w in jax_layout(net.sigma_net, torch.float32)]
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        outs = [fused_mlp(x, ws, act) for _, x, ws, act in cases]
+    fused_mlp(xg, wg).backward(cot)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    only_launches(launches, {"fused_mlp": len(cases) + 1})
+
+    max_err, timed = 0.0, {}
+    for (name, x, ws, act), out in zip(cases, outs):
+        err, worst = mlp_worst(out, x, ws, act)
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda: fused_mlp_inference(x, ws, act), reps=5)
+        plain_ms = cuda_ms(lambda: mlp_reference(x, ws, act), reps=3)
+        cuda_bound, cuda_by = mlp_bound(x, ws, FP32_FLOPS)
+        tc_bound, tc_by = mlp_bound(x, ws, BF16_FLOPS)
+        timed[name] = (ms, plain_ms, tc_bound if ws[0].dtype == torch.bfloat16 else cuda_bound,
+                       tc_by if ws[0].dtype == torch.bfloat16 else cuda_by)
+        log(f"fused_mlp {name} Q={x.shape[0]} {list(x.shape[1:]) + [w.shape[1] for w in ws]}: "
+            f"max_abs_err={err:.3e}, worst err / ({MLP_RTOL[ws[0].dtype]:.3g} S + 1e-6) = "
+            f"{worst:.3f}; {ms:.4f} ms (plain chain, cuBLAS GEMMs: {plain_ms:.4f} ms); bound "
+            f"{cuda_bound:.4f} ms by {cuda_by} on fp32 CUDA cores, {tc_bound:.4f} ms by {tc_by} "
+            f"on bf16 tensor cores")
+        if not worst <= 1.0:
+            raise AssertionError(f"fused_mlp disagrees with mlp_reference ({name})")
+    del outs, cases, head_x, enc
+
+    xr = xg.detach().clone().requires_grad_()
+    wr = [w.detach().clone().requires_grad_() for w in wg]
+    mlp_reference(xr, wr, "none").backward(cot)
+    gaps = [(a.grad - b.grad).abs().max().item() / b.grad.abs().max().item()
+            for a, b in zip((xg, *wg), (xr, *wr))]
+    log(f"fused_mlp backward (training chunk's sigma-net input, Q={xg.shape[0]}, f32): "
+        f"max |grad - autograd of mlp_reference| / max |grad| per input: "
+        f"{', '.join(f'{g:.3e}' for g in gaps)}")
+    if not max(gaps) <= 1e-5:
+        raise AssertionError("fused_mlp's gradient disagrees with autograd of mlp_reference")
+    ms, plain_ms, bound_ms, bound_by = timed["sigma net bfloat16"]
+    return launches, {
+        "name": "fused_mlp", "route": "cuda", "source": "lidarnerf_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "lidarnerf_tpu/ops/fused_mlp.py:57", "launches": None,
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes the fused chain
+    }
+
+
+def training_samples(net, ds, T, gen):
+    """A training chunk's samples (chunk_samples) at T coarse samples, on
+    frame 0's rays at training pixels."""
+    from lidarnerf_tpu_torch.dataset.base import rays_from_indices, sample_ray_indices
+
+    poses, _ = ds.device_arrays("cuda")
+    inds = sample_ray_indices(ds.H_lidar, ds.W_lidar, FULL.max_ray_batch, 1, gen, "cuda")
+    o, d = rays_from_indices(poses[0], inds, ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
+    return chunk_samples(net, o, d, T, ds.scale, generator=gen)
+
+
+def perm_gather_phase(params, ds):
+    """The sort-merge path: `sort_merge_z` forward and backward on a training
+    chunk's samples at 768 + 64 and at the --fast 192 + 64, through B6 both
+    ways; bit for bit against the plain versions and torch.gather. Returns
+    (launch counts, the two B6 `kernels` entries)."""
+    from lidarnerf_tpu_torch.ops import perm_gather_cuda as pgc
+    from lidarnerf_tpu_torch.ops.perm_gather import gather_by_inverse, scatter_by_inverse
+    from lidarnerf_tpu_torch.ops.sampling import inverse_permutation, sort_merge_z
+
+    dev = torch.device("cuda")
+    net = full_network(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    chunks = {T: training_samples(net, ds, T, gen) for T in (FULL.num_steps, FAST["num_steps"])}
+    del net
+    runs = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for T, (zc, zf, sc, sf, gc, gf) in chunks.items():
+        leaves = [t.detach().clone().requires_grad_() for t in (sc, sf, gc, gf)]
+        z, order, s, geo = sort_merge_z(zc, zf, (leaves[0], leaves[1]), (leaves[2], leaves[3]))
+        cots = [torch.randn(s.shape, generator=gen, device=dev),
+                torch.randn(geo.shape, generator=gen, device=dev)]
+        torch.autograd.backward([s, geo], cots)
+        runs[T] = (zc, zf, sc, sf, gc, gf, z, order, s, geo, cots, leaves)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    only_launches(launches, {"perm_gather_fwd": len(chunks), "perm_gather_bwd": len(chunks)})
+
+    entries = {}
+    for T, (zc, zf, sc, sf, gc, gf, z, order, s, geo, cots, leaves) in runs.items():
+        fused = torch.cat([torch.cat([zc, zf], 1)[..., None], torch.cat([sc, sf], 1)[..., None],
+                           torch.cat([gc, gf], 1)], dim=-1)  # as sort_merge_z fuses them
+        N, S, C = fused.shape
+        inv = inverse_permutation(order)
+        inv32 = inv.int()
+        idx_order, idx_inv = order[..., None].expand_as(fused), inv[..., None].expand_as(fused)
+        out = torch.cat([z[..., None], s[..., None], geo], dim=-1).detach()
+        gcot = torch.cat([torch.zeros_like(z)[..., None], cots[0][..., None], cots[1]], dim=-1)
+        grad = torch.cat([torch.cat([leaves[0].grad, leaves[1].grad], 1)[..., None],
+                          torch.cat([leaves[2].grad, leaves[3].grad], 1)], dim=-1)
+        bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+        checks = {
+            "z sorted": bool((z[:, 1:] >= z[:, :-1]).all()),
+            "forward == plain": torch.equal(bits(out), bits(scatter_by_inverse(fused, inv))),
+            "forward == torch.gather": torch.equal(bits(out), bits(torch.gather(fused, 1, idx_order))),
+            "gradient == gather by inv_order": torch.equal(
+                grad, gather_by_inverse(gcot, inv)[..., 1:]),
+        }
+        # each direction in turns with torch.gather: gather, B6, B6, gather
+        ms, turns = {}, []
+        for d, kernel, library, plain in (
+                ("fwd", lambda: pgc.perm_gather_fwd(fused, inv32),
+                 lambda: torch.gather(fused, 1, idx_order), lambda: scatter_by_inverse(fused, inv)),
+                ("bwd", lambda: pgc.perm_gather_bwd(gcot, inv32),
+                 lambda: torch.gather(gcot, 1, idx_inv), lambda: gather_by_inverse(gcot, inv))):
+            t = [cuda_ms(fn, reps=10) for fn in (library, kernel, kernel, library)]
+            ms[d], ms[f"gather {d}"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            ms[f"plain {d}"] = cuda_ms(plain, reps=10)
+            turns.append(f"{d} " + " / ".join(f"{x:.4f}" for x in t))
+        bytes_moved = 2 * N * S * C * 4 + N * S * 4
+        bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        log(f"sort-merge [{N}, {S}, {C}] ({T} + {S - T} samples): {checks}; B6 forward "
+            f"{ms['fwd']:.4f} ms, backward {ms['bwd']:.4f} ms (plain {ms['plain fwd']:.4f} / "
+            f"{ms['plain bwd']:.4f}, torch.gather {ms['gather fwd']:.4f} / {ms['gather bwd']:.4f}; "
+            f"in turns gather, B6, B6, gather: {'; '.join(turns)}); bound {bound_ms:.4f} ms by "
+            f"bytes ({bytes_moved / 1e6:.1f} MB)")
+        if not all(checks.values()):
+            raise AssertionError(f"sort_merge_z through B6 is not bit-exact at S={S}: {checks}")
+        if T == FULL.num_steps:
+            for d in ("fwd", "bwd"):
+                entries[d] = {
+                    "name": f"perm_gather_{d}", "route": "cuda",
+                    "source": "lidarnerf_tpu_torch/csrc/perm_gather.cu",
+                    "replaces": "lidarnerf_tpu/ops/perm_gather_pallas.py:65", "launches": None,
+                    "max_abs_err": 0.0, "ms": ms[d], "plain_ms": ms[f"plain {d}"],
+                    "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": ms[f"gather {d}"],
+                }
+    return launches, [entries["fwd"], entries["bwd"]]
+
+
+def train_fast_phase(ds, default_ms):
+    """The training-fast path: Trainer with occupancy-prior sampling (--fast)
+    at full width, the training path's three epochs. Returns (trainer,
+    initial state_dict, launch counts)."""
+    from lidarnerf_tpu_torch.models.occupancy import occupied_volume, update_occ_grid
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+    from lidarnerf_tpu_torch.ops import block_hash_cuda
+
+    opt = train_opt(ds, **FAST)
+    model = new_model(opt, fp16=FULL.fp16)
+    init_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer("chip_smoke_fast", opt, model, ema_decay=0.95)
+    occ = trainer.render_cfg.occ
+    torch.cuda.synchronize()
+    reset_counts()
+    epoch_s = []
+    for epoch in range(1, TRAIN_EPOCHS + 1):
+        t0 = time.perf_counter()
+        trainer.train(ds, None, max_epochs=epoch)  # ends on the host (loss fetch)
+        epoch_s.append(time.perf_counter() - t0)
+    launches = launch_counts()
+
+    losses, steps = trainer.stats["step_loss"], trainer.global_step
+    refreshes = len(range(0, steps, occ.update_interval))
+    if steps != TRAIN_EPOCHS * len(ds) or len(losses) != steps:
+        raise AssertionError(f"training-fast: {steps} steps, expected {TRAIN_EPOCHS * len(ds)}")
+    if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
+        raise AssertionError("training-fast: a loss was non-finite or a step was skipped")
+    only_launches(launches, {"block_hash_fwd": 2 * steps + refreshes,
+                             "block_hash_bwd": 2 * steps})
+    if not trainer.occ_grid.any():
+        raise AssertionError("training-fast: the occupancy grid is all zero after its refreshes")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    per_step = [1e3 * t / len(ds) for t in epoch_s]
+    share = float(occupied_volume(trainer.occ_grid, replace(occ, dilate=0)).mean())
+    dilated = float(occupied_volume(trainer.occ_grid, occ).mean())
+
+    # one refresh, and B1 alone at its shape: G^3 points over the whole volume
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    refresh_ms = cuda_ms(lambda: update_occ_grid(trainer.model, trainer.occ_grid, occ, FULL.bound,
+                                                 generator=gen), reps=1, batches=3)
+    G = occ.grid_size
+    idx = torch.arange(G, dtype=torch.float32, device="cuda")
+    cell = torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), -1).reshape(-1, 3)
+    x01 = (cell + torch.rand(cell.shape, generator=gen, device="cuda")) / G
+    spec, table = trainer.model.block_spec, trainer.model.hash_table.detach()
+    b1_ms = cuda_ms(lambda: block_hash_cuda.block_hash_fwd(x01, table, spec), reps=5)
+    b1_bound, b1_by, b1_bytes = fwd_bound(x01, spec, touched_rows(x01, spec))
+    log(f"training-fast on {gpu_line()}: {steps} steps of {opt.num_rays_lidar} rays, "
+        f"{opt.num_steps}+{opt.upsample_steps} samples, a {G}^3 grid refreshed {refreshes} times "
+        f"(every {occ.update_interval} steps from step 0); ms/step by epoch "
+        f"{', '.join(f'{t:.2f}' for t in per_step)} (default path warm {default_ms:.2f}); loss "
+        f"mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+        f"({100 * (1 - last / first):.1f}% lower); grid occupied {100 * share:.2f}% "
+        f"({100 * dilated:.2f}% dilated), max {trainer.occ_grid.max().item():.1f}; launches "
+        f"{launches}")
+    log(f"occupancy refresh: {refresh_ms:.3f} ms each (B1 alone at Q={x01.shape[0]} uniform "
+        f"points: {b1_ms:.4f} ms, bound {b1_bound:.4f} ms by {b1_by}: {b1_bytes / 1e6:.1f} MB)")
+    if not last <= 0.75 * first:
+        raise AssertionError("training-fast lowered the loss by less than 25%")
+    profile_train_step(ds, trainer)
+    return trainer, init_sd, launches
+
+
+def serve_fast_phase(ds, trainer, init_sd):
+    """The serving-fast path: training frame 0 through PanoRenderer with the
+    --fast weights and grid; its depth error must beat the initial weights'
+    (on a zero grid, their state before any refresh). The default-sampling
+    render of the same weights is logged beside it. Returns launch counts."""
+    from lidarnerf_tpu_torch.models.occupancy import init_occ_grid
+    from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
+    from lidarnerf_tpu_torch.utils.params import params_to_jax
+
+    opt = train_opt(ds, **FAST)
+    occ = trainer.render_cfg.occ
+    trained = params_to_jax(trainer.model.state_dict())
+    gt = ds.images_lidar[0]
+    hit = gt[..., 0] == 1.0
+    frame = (ds.poses_lidar[0], ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
+    renderer = PanoRenderer(opt, trained, occ_grid=trainer.occ_grid)
+    torch.cuda.synchronize()
+    reset_counts()
+    raydrop, intensity, depth = renderer.render_frame(*frame)  # ends on the host
+    launches = launch_counts()
+    fast_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        renderer.render_frame(*frame)
+        fast_ms.append((time.perf_counter() - t0) * 1e3)
+    profile_phase(renderer)  # one --fast render chunk: device busy vs host
+
+    far = ds.scale * renderer.cfg.far_mult
+    for name, a in (("raydrop", raydrop), ("intensity", intensity), ("depth", depth)):
+        if a.shape != (ds.H_lidar, ds.W_lidar) or not np.isfinite(a).all():
+            raise AssertionError(f"serving-fast: the {name} pano is not a finite pano")
+    if not (0 <= raydrop.min() and raydrop.max() <= 1 and 0 <= intensity.min()
+            and intensity.max() <= 1 and 0 <= depth.min() and depth.max() <= far):
+        raise AssertionError("serving-fast: a pano lies outside its range")
+    chunks = -(-ds.H_lidar * ds.W_lidar // FULL.max_ray_batch)
+    only_launches(launches, {"block_hash_fwd": 2 * chunks})
+    maes = {"fast": float(np.abs(depth - gt[..., 2])[hit].mean())}
+    _, _, d0 = PanoRenderer(opt, params_to_jax(init_sd), occ_grid=init_occ_grid(occ)
+                            ).render_frame(*frame)
+    maes["initial"] = float(np.abs(d0 - gt[..., 2])[hit].mean())
+    default = PanoRenderer(train_opt(ds), trained)
+    default.render_frame(*frame)
+    t0 = time.perf_counter()
+    _, _, dd = default.render_frame(*frame)
+    default_ms = (time.perf_counter() - t0) * 1e3
+    maes["default sampling"] = float(np.abs(dd - gt[..., 2])[hit].mean())
+    log(f"serving-fast on {gpu_line()}: frame 0 ({ds.H_lidar}x{ds.W_lidar}) from the --fast "
+        f"weights and grid, {opt.num_steps}+{opt.upsample_steps} samples: "
+        f"{', '.join(f'{t:.1f}' for t in fast_ms)} ms/pano (3 warm renders) "
+        f"(default sampling, {FULL.num_steps}+{FULL.upsample_steps}, of the same weights: "
+        f"{default_ms:.1f} ms); depth MAE on the {int(hit.sum())} returning rays: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in maes.items()) + f"; launches {launches}")
+    if not maes["fast"] < maes["initial"]:
+        raise AssertionError("serving-fast: the trained field renders frame 0 no better")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from lidarnerf_tpu_torch.ops import block_hash_cuda, cuda_lib
+    from lidarnerf_tpu_torch.ops import block_hash_cuda, cuda_lib, fused_mlp_cuda, perm_gather_cuda
     from lidarnerf_tpu_torch.ops.block_hash import make_block_hash_spec
     from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
 
@@ -900,7 +1309,8 @@ def main():
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    libs = cuda_lib.build(block_hash_cuda.SOURCES)  # one nvcc per source, in parallel
+    # all eight sources, one nvcc each, started together
+    libs = cuda_lib.build(block_hash_cuda.SOURCES + (fused_mlp_cuda.SOURCE, perm_gather_cuda.SOURCE))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         report = lib.with_suffix(".log")
@@ -926,8 +1336,14 @@ def main():
         paths[f"serving-{variant}"] = variant_serving_phase(renderer, variant, default_frame)
     del renderer
 
+    # the entry points of B5 and B6 at the model's shapes
+    paths["fused-mlp"], b5 = fused_mlp_phase(params, ds)
+    paths["sort-merge"], b6 = perm_gather_phase(params, ds)
+    kernels += [b5, *b6]
+    torch.cuda.empty_cache()
+
     # training
-    trainer, init_sd, paths["training"] = train_slice_phase(ds)
+    trainer, init_sd, paths["training"], default_step_ms = train_slice_phase(ds)
     paths["train-to-serve"] = train_to_serve_phase(ds, trainer, init_sd)
     b2_ms = kernel_ms(profile_train_step(ds, trainer), "block_hash_bwd")
     default_epoch_loss = trainer.stats["loss"][0]
@@ -939,8 +1355,15 @@ def main():
         summary.append(f"{variant}: {step_ms:.2f} ms/step, block_hash_{variant}_bwd {bwd_ms:.3f} ms")
     log(f"table-gradient kernel device ms per training step on {gpu_line()}: "
         + "; ".join(summary))
+
+    # --fast: occupancy-prior sampling, training then serving
+    trainer, init_sd, paths["training-fast"] = train_fast_phase(ds, default_step_ms)
+    paths["serving-fast"] = serve_fast_phase(ds, trainer, init_sd)
+    del trainer, init_sd
+
     for variant in ("default", *VARIANT_ENV):
         train_reference_phase(ds, variant)
+    train_reference_phase(ds, fast=True)
 
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())

@@ -1,7 +1,10 @@
 """LiDAR volume renderer (counterpart of lidarnerf_tpu/models/renderer.py:34-220).
 
 - LiDAR rays: near = min_near_lidar, far = far_mult * min_near_lidar;
-- num_steps stratified samples, jittered when training; xyz clipped to the AABB;
+- num_steps stratified samples, jittered when training, or, with
+  `RenderConfig.occ` and an occupancy grid (`--fast`), num_steps samples
+  drawn from the grid's per-ray PDF (models/occupancy.py); xyz clipped to
+  the AABB;
 - one round of inverse-CDF upsampling on the detached coarse weights,
   deterministic at inference, with uniform draws when training;
 - order-free merged compositing of the coarse and fine lists;
@@ -11,14 +14,14 @@
 stratified jitter and the `u` of the inverse CDF) is injected or drawn from
 a `torch.Generator`, so tests can feed the JAX package's draws.
 `render_rays_staged` renders a full pano in fixed `chunk`-ray blocks, for
-inference only. RGB mode, the background sphere and occupancy-prior
-sampling (`--fast`) are not ported yet.
+inference only. RGB mode and the background sphere are not ported yet.
 """
 
 from dataclasses import dataclass
 
 import torch
 
+from lidarnerf_tpu_torch.models.occupancy import OccConfig, occ_bin_pdf, occ_z_vals
 from lidarnerf_tpu_torch.ops.compositing import merged_composite_weights, composite_weights
 from lidarnerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
 
@@ -35,6 +38,9 @@ class RenderConfig:
     weight_mask_thresh: float = 1e-4
     far_mult: float = 81.0  # the reference's hard-coded far = 81 * min_near_lidar
     bg_radius: float = -1.0
+    # occupancy-prior sampling (--fast): with an occ_grid passed to
+    # render_rays, the coarse samples come from the grid's per-ray PDF
+    occ: OccConfig = None
 
 
 def near_far_from_aabb(rays_o, rays_d, aabb_min, aabb_max, min_near):
@@ -50,7 +56,7 @@ def near_far_from_aabb(rays_o, rays_d, aabb_min, aabb_max, min_near):
 
 
 def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generator=None,
-                noise=None, u=None):
+                noise=None, u=None, occ_grid=None):
     """Render a flat batch of LiDAR rays.
 
     Args:
@@ -59,8 +65,12 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generat
         train: jitter the stratified samples and draw the inverse-CDF `u`
             uniformly (`perturb=train`, `det=not train` in the JAX package).
         generator: the `torch.Generator` the training draws come from.
-        noise: optional [N, num_steps] uniform [0, 1) jitter draws.
+        noise: optional [N, num_steps] uniform [0, 1) jitter draws; under
+            occupancy sampling the per-stratum `xi` of `occ_z_vals` (the JAX
+            renderer draws both from one key at one shape).
         u: optional [N, upsample_steps] uniform [0, 1) inverse-CDF draws.
+        occ_grid: optional [G, G, G] occupancy grid; with `cfg.occ` set, the
+            coarse samples are drawn from its per-ray PDF.
 
     Returns:
         dict(depth [N], image [N, 2] = (raydrop, intensity), weights_sum [N])
@@ -76,8 +86,13 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generat
 
     nears = torch.full((N, 1), cfg.min_near_lidar, dtype=torch.float32, device=dev)
     fars = torch.full((N, 1), cfg.min_near_lidar * cfg.far_mult, dtype=torch.float32, device=dev)
-    z_vals = stratified_z_vals(nears, fars, cfg.num_steps, perturb=train, noise=noise,
-                               generator=generator)
+    if cfg.occ is not None and occ_grid is not None:
+        pdf = occ_bin_pdf(occ_grid, rays_o, rays_d, nears, fars, cfg.occ, cfg.bound)
+        z_vals = occ_z_vals(nears, fars, pdf, cfg.num_steps, perturb=train, xi=noise,
+                            generator=generator)
+    else:
+        z_vals = stratified_z_vals(nears, fars, cfg.num_steps, perturb=train, noise=noise,
+                                   generator=generator)
     sample_dist = (fars - nears) / cfg.num_steps  # [N, 1]
 
     def query_density(z):
@@ -119,18 +134,20 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generat
 
 
 @torch.no_grad()
-def render_rays_staged(network, rays_o, rays_d, cfg: RenderConfig, chunk: int = 4096):
+def render_rays_staged(network, rays_o, rays_d, cfg: RenderConfig, chunk: int = 4096,
+                       occ_grid=None):
     """Full-pano inference in fixed `chunk`-ray blocks.
 
     rays_o/rays_d: [N, 3]; N is padded up to a multiple of `chunk`, padded
     rays get rays_d = 1 (no zero direction), and the blocks run in order.
+    occ_grid: as for `render_rays`.
     """
     N = rays_o.shape[0]
     pad = (-N) % chunk
     ro = torch.cat([rays_o, rays_o.new_zeros((pad, 3))])
     rd = torch.cat([rays_d, rays_d.new_ones((pad, 3))])
     outs = [
-        render_rays(network, ro[i : i + chunk], rd[i : i + chunk], cfg)
+        render_rays(network, ro[i : i + chunk], rd[i : i + chunk], cfg, occ_grid=occ_grid)
         for i in range(0, N + pad, chunk)
     ]
     return {k: torch.cat([o[k] for o in outs])[:N] for k in ("depth", "image", "weights_sum")}

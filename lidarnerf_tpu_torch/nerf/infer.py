@@ -7,8 +7,9 @@ of `Trainer.test` (:718-736): it renders every ray of a LiDAR pano in
 
 `opt` carries the JAX CLI's field names (main_lidarnerf.py): encoding,
 desired_resolution, log2_hashmap_size, num_layers, hidden_dim, geo_feat_dim,
-bound, scale, num_steps, upsample_steps, max_ray_batch, fp16, alpha_r.
-As in the CLI, min_near_lidar = scale.
+bound, scale, num_steps, upsample_steps, max_ray_batch, fp16, alpha_r, and
+for `--fast` occ_sampling with the occ_* fields (models/occupancy.py). As in
+the CLI, min_near_lidar = scale.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
 from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar
 from lidarnerf_tpu_torch.models.network import NeRFNetwork
+from lidarnerf_tpu_torch.models.occupancy import occ_config_from_opt
 from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays_staged
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
 from lidarnerf_tpu_torch.utils.params import params_from_jax
@@ -31,9 +33,12 @@ class PanoRenderer:
             `utils.params.load_jax_checkpoint`.
         device: None runs on CUDA and raises if there is none; pass "cpu" to
             run the plain PyTorch path on the CPU.
+        occ_grid: the [G, G, G] occupancy grid the field was trained with
+            (e.g. `utils.params.load_jax_occ_grid`); needed, and used, when
+            `opt.occ_sampling` is set.
     """
 
-    def __init__(self, opt, params, device=None):
+    def __init__(self, opt, params, device=None, occ_grid=None):
         self.device = resolve_device(device)
         self.opt = opt
         self.network = NeRFNetwork(
@@ -48,12 +53,23 @@ class PanoRenderer:
         )
         self.network.load_state_dict(params_from_jax(params))
         self.network.to(self.device).eval()
+        occ = occ_config_from_opt(opt)
+        self.occ_grid = None
+        if occ is not None:
+            if occ_grid is None:
+                raise ValueError("opt.occ_sampling is set: pass the occupancy grid the field "
+                                 "was trained with (occ_grid=)")
+            self.occ_grid = torch.as_tensor(occ_grid, dtype=torch.float32, device=self.device)
+            if self.occ_grid.shape != (occ.grid_size,) * 3:
+                raise ValueError(f"occ_grid must be {[occ.grid_size] * 3}, got "
+                                 f"{list(self.occ_grid.shape)}")
         self.cfg = RenderConfig(
             num_steps=opt.num_steps,
             upsample_steps=opt.upsample_steps,
             min_near_lidar=opt.scale,
             min_near=opt.scale,
             bound=opt.bound,
+            occ=occ,
         )
 
     def render_frame(self, pose, H, W, intrinsics):
@@ -65,7 +81,7 @@ class PanoRenderer:
         rays = get_lidar_rays(pose[None], intrinsics, H, W, N=-1)
         out = render_rays_staged(
             self.network, rays["rays_o"][0], rays["rays_d"][0], self.cfg,
-            chunk=self.opt.max_ray_batch,
+            chunk=self.opt.max_ray_batch, occ_grid=self.occ_grid,
         )
         image = out["image"].reshape(H, W, -1).cpu().numpy()
         depth = out["depth"].reshape(H, W).cpu().numpy()

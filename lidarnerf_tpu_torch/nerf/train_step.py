@@ -212,14 +212,15 @@ def make_loss_fn(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_size=1
                  masked_sampling=False, sample_without_replacement=False):
     """The per-step loss closure.
 
-    loss_fn(pose, image_flat, valid_idx, valid_count, draws=None, generator=None)
-    -> (loss, aux): pose [4, 4], image_flat [H*W, 3], valid_idx [P] and
-    valid_count [] of the frame; `draws` may inject the pixel draws (see
-    `sample_pixels`) and the render's `noise` [N, num_steps] and
-    `u` [N, upsample_steps].
+    loss_fn(pose, image_flat, valid_idx, valid_count, draws=None, generator=None,
+    occ_grid=None) -> (loss, aux): pose [4, 4], image_flat [H*W, 3], valid_idx
+    [P] and valid_count [] of the frame; `draws` may inject the pixel draws
+    (see `sample_pixels`) and the render's `noise` [N, num_steps] and
+    `u` [N, upsample_steps]; `occ_grid` goes to the render (`--fast`).
     """
 
-    def loss_fn(pose, image_flat, valid_idx, valid_count, draws=None, generator=None):
+    def loss_fn(pose, image_flat, valid_idx, valid_count, draws=None, generator=None,
+                occ_grid=None):
         draws = draws or {}
         inds = sample_pixels(cfg, patch_size, masked_sampling, sample_without_replacement,
                              valid_idx, valid_count, generator, draws)
@@ -227,7 +228,7 @@ def make_loss_fn(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_size=1
         rays_o, rays_d = rays_from_indices(pose, inds, cfg.H_lidar, cfg.W_lidar,
                                            cfg.intrinsics_lidar)
         out = render_rays(model, rays_o, rays_d, render_cfg, train=True, generator=generator,
-                          noise=draws.get("noise"), u=draws.get("u"))
+                          noise=draws.get("noise"), u=draws.get("u"), occ_grid=occ_grid)
         lidar_loss, pred_depth_m, gt_depth, gt_raydrop = lidar_losses(
             cfg, out["depth"], out["image"], gt
         )
@@ -274,11 +275,12 @@ def make_train_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
 
     Returns:
         step(poses, images, valid_idx, valid_counts, frame_idx, draws=None,
-        generator=None) -> metrics dict (loss, depth_mae, raydrop_err as
-        0-d tensors; skipped_nonfinite as a float). poses [F, 4, 4] and
-        images [F, H, W, 3] lie on the device; valid_idx [F, P] and
-        valid_counts [F] are the masked-sampling pools (zeros and H*W for
-        dense datasets). `step.optimizer` is the (optimizer, scheduler) pair.
+        generator=None, occ_grid=None) -> metrics dict (loss, depth_mae,
+        raydrop_err as 0-d tensors; skipped_nonfinite as a float). poses
+        [F, 4, 4] and images [F, H, W, 3] lie on the device; valid_idx
+        [F, P] and valid_counts [F] are the masked-sampling pools (zeros and
+        H*W for dense datasets); occ_grid is the `--fast` occupancy grid.
+        `step.optimizer` is the (optimizer, scheduler) pair.
     """
     device = resolve_device(device)
     if cfg.alpha_seam > 0.0:
@@ -293,13 +295,14 @@ def make_train_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
     loss_fn = make_loss_fn(model, cfg, render_cfg, patch_size, masked_sampling,
                            sample_without_replacement)
 
-    def step(poses, images, valid_idx, valid_counts, frame_idx, draws=None, generator=None):
+    def step(poses, images, valid_idx, valid_counts, frame_idx, draws=None, generator=None,
+             occ_grid=None):
         pose = poses[frame_idx]
         image_flat = images[frame_idx].reshape(-1, images.shape[-1])
         adam.zero_grad(set_to_none=True)
         with _fp32_convolutions():  # the sobel regulariser's forward and backward
             loss, aux = loss_fn(pose, image_flat, valid_idx[frame_idx], valid_counts[frame_idx],
-                                draws, generator)
+                                draws, generator, occ_grid)
             loss.backward()
         finite = guarded_update(adam, sched, loss)
         return {"loss": loss.detach(), **aux, "skipped_nonfinite": 0.0 if finite else 1.0}

@@ -1,11 +1,12 @@
 """Training loop (counterpart of the training part of lidarnerf_tpu/nerf/trainer.py).
 
-`Trainer` holds the model, the Adam state and schedule, and the EMA shadow
-(trainer.py:98-165); `train` runs epochs under the per-epoch patch-size
-schedule (:367-378); `train_one_epoch` visits every frame once in a seeded
-order with one optimisation step each, the per-step path of the JAX
-trainer's epoch (:426-562), updates the EMA once and logs rays/s and
-samples/s.
+`Trainer` holds the model, the Adam state and schedule, the EMA shadow and,
+under `opt.occ_sampling` (`--fast`), the occupancy grid (trainer.py:98-165);
+`train` runs epochs under the per-epoch patch-size schedule (:367-378);
+`train_one_epoch` visits every frame once in a seeded order with one
+optimisation step each, the per-step path of the JAX trainer's epoch
+(:426-562), refreshes the occupancy grid every `occ_update_interval` steps,
+updates the EMA once and logs rays/s and samples/s.
 
 Only `workspace=None` runs in this slice: checkpoints, eval, test, the
 tensorboard writer and resume come with ROADMAP.md queue A item 3.
@@ -16,6 +17,7 @@ import time
 import numpy as np
 import torch
 
+from lidarnerf_tpu_torch.models.occupancy import init_occ_grid, occ_config_from_opt, update_occ_grid
 from lidarnerf_tpu_torch.models.renderer import RenderConfig
 from lidarnerf_tpu_torch.nerf.train_step import (
     TrainConfig,
@@ -40,7 +42,9 @@ class Trainer:
         opt: options object with the CLI's field names (main_lidarnerf.py):
             the TrainConfig fields, num_steps, upsample_steps,
             min_near_lidar, min_near, bound, patch_size_lidar,
-            change_patch_size_lidar, change_patch_size_epoch, seed.
+            change_patch_size_lidar, change_patch_size_epoch, seed; for
+            `--fast`, occ_sampling and occ_grid_size, occ_update_interval,
+            density_thresh, occ_floor, occ_bins, occ_dilate.
         model: NeRFNetwork, moved to `device`.
         device: None runs on CUDA and raises if there is none; pass "cpu"
             to run the plain PyTorch path on the CPU.
@@ -83,9 +87,7 @@ class Trainer:
             iters=opt.iters,
             alpha_seam=getattr(opt, "alpha_seam", 0.0),
         )
-        if getattr(opt, "occ_sampling", False):
-            raise NotImplementedError("occupancy-prior sampling (--fast) is not ported yet "
-                                      "(ROADMAP.md, queue A item 1: --fast)")
+        occ_cfg = occ_config_from_opt(opt)
         self.render_cfg = RenderConfig(
             num_steps=opt.num_steps,
             upsample_steps=opt.upsample_steps,
@@ -93,7 +95,9 @@ class Trainer:
             min_near=opt.min_near,
             density_scale=1.0,
             bound=opt.bound,
+            occ=occ_cfg,
         )
+        self.occ_grid = None if occ_cfg is None else init_occ_grid(occ_cfg, self.device)
 
         seed = getattr(opt, "seed", 0)
         self.model = model.to(self.device)
@@ -103,8 +107,9 @@ class Trainer:
             if ema_decay is not None else None
         )
         self.ema_num_updates = 0
-        # the step draws (pixels, jitter, inverse-CDF u) come from this stream,
-        # on the device; the frame order from a numpy stream, as in the JAX trainer
+        # the step draws (pixels, jitter, inverse-CDF u) and the occupancy
+        # refresh's jitter come from this stream, on the device; the frame
+        # order from a numpy stream, as in the JAX trainer
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._np_rng = np.random.RandomState(seed)
         self._step_fns = {}
@@ -158,6 +163,14 @@ class Trainer:
                 patch = self.opt.patch_size_lidar
             self.train_one_epoch(train_dataset, patch)
 
+    def _refresh_occ_grid(self):
+        """Before a step whose global_step is a multiple of the update interval
+        (step 0 first), refresh the grid from the live weights (trainer.py:480-491)."""
+        occ = self.render_cfg.occ
+        if occ is not None and self.global_step % occ.update_interval == 0:
+            self.occ_grid = update_occ_grid(self.model, self.occ_grid, occ,
+                                            self.render_cfg.bound, generator=self.generator)
+
     def train_one_epoch(self, dataset, patch_size):
         lr_now = self.train_cfg.lr * 0.1 ** min(self.global_step / self.train_cfg.iters, 1.0)
         self.log(f"==> Start Training Epoch {self.epoch}, lr={lr_now:.6f} ...")
@@ -169,10 +182,11 @@ class Trainer:
         pending = []
         t0 = time.perf_counter()
         for frame_idx in order:
+            self._refresh_occ_grid()
             self.local_step += 1
             self.global_step += 1
             pending.append(step_fn(poses, images, vi, vc, int(frame_idx),
-                                   generator=self.generator))
+                                   generator=self.generator, occ_grid=self.occ_grid))
 
         losses = [float(m["loss"]) for m in pending]  # ends on the host
         skips = [m["skipped_nonfinite"] for m in pending]

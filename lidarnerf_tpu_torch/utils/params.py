@@ -1,7 +1,8 @@
 """Weight bridge between the JAX package's flax parameters and the port's state_dict.
 
 The flax tree is the `state["model"]` a JAX checkpoint holds
-(lidarnerf_tpu/nerf/trainer.py:837): nested dicts of numpy arrays,
+(lidarnerf_tpu/nerf/trainer.py:837), beside `state["occ_grid"]` under
+`--fast` (:840-844): nested dicts of numpy arrays,
 `{"params": {"hash_table": [L*B, 128], "<net>": {"Dense_i": {"kernel": [in, out]}}}}`.
 The port's NeRFNetwork keeps the table as is and stores each `Dense_i/kernel`
 transposed as `<net>.layers.i.weight` [out, in], the torch `nn.Linear` layout.
@@ -54,6 +55,13 @@ class _NumpyOnlyUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+def _load_state(path) -> dict:
+    if os.path.isdir(path):
+        raise NotImplementedError(f"{path} is an orbax checkpoint; only pickle checkpoints load here")
+    with open(path, "rb") as f:
+        return _NumpyOnlyUnpickler(f).load()
+
+
 def load_jax_checkpoint(path) -> dict:
     """Model parameters (flax tree, numpy leaves) of a JAX pickle checkpoint.
 
@@ -61,8 +69,17 @@ def load_jax_checkpoint(path) -> dict:
     raises if unpickling would need a JAX, flax or optax class. Unpickle
     only files this system wrote: unpickling can run code.
     """
-    if os.path.isdir(path):
-        raise NotImplementedError(f"{path} is an orbax checkpoint; only pickle checkpoints load here")
-    with open(path, "rb") as f:
-        state = _NumpyOnlyUnpickler(f).load()
+    state = _load_state(path)
     return state.get("model", state)
+
+
+def load_jax_occ_grid(path):
+    """The occupancy grid of a JAX pickle checkpoint, [G, G, G] float32 numpy,
+    or None if the run did not sample by occupancy (no `--fast`).
+
+    The JAX trainer stores it as `state["occ_grid"]` and reads it back on
+    resume (lidarnerf_tpu/nerf/trainer.py:840-844, 914-915); the same
+    unpickling rules as `load_jax_checkpoint` apply.
+    """
+    grid = _load_state(path).get("occ_grid")
+    return None if grid is None else np.asarray(grid, dtype=np.float32)

@@ -19,7 +19,16 @@ from lidarnerf_tpu_torch.models.renderer import RenderConfig
 from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
 from lidarnerf_tpu_torch.nerf.train_step import TrainConfig, make_train_step
 from lidarnerf_tpu_torch.nerf.trainer import Trainer
-from lidarnerf_tpu_torch.ops import block_hash, block_hash_cuda, cuda_lib, dispatch
+from lidarnerf_tpu_torch.ops import (
+    block_hash,
+    block_hash_cuda,
+    cuda_lib,
+    dispatch,
+    fused_mlp,
+    fused_mlp_cuda,
+    perm_gather_cuda,
+    sampling,
+)
 from lidarnerf_tpu_torch.utils.params import load_jax_checkpoint, params_to_jax
 from lidarnerf_tpu_torch.models.network import NeRFNetwork
 
@@ -151,6 +160,32 @@ def test_kernel_source_and_build_naming(tmp_path, monkeypatch):
     (tmp_path / block_hash_cuda.HEADER).write_text(header + "\n// edited\n")
     after = [cuda_lib.library_path(s) for s in block_hash_cuda.SOURCES]
     assert all(a != b for a, b in zip(after, before))
+
+
+def test_b5_b6_kernel_paths_never_fall_back(monkeypatch):
+    """On the kernel path fused_mlp goes to B5's wrapper and sort_merge_z to
+    B6's, which take CUDA tensors only: they raise on the CPU tensors here
+    instead of falling back to the plain chain or a gather."""
+    monkeypatch.setattr(dispatch, "uses_kernel", lambda t: True)
+    counts = {**fused_mlp_cuda.launch_counts(), **perm_gather_cuda.launch_counts()}
+    x, ws = torch.rand(6, 4), [torch.rand(4, 8), torch.rand(8, 2)]
+    with pytest.raises(ValueError, match="fused_mlp_fwd takes CUDA tensors"):
+        fused_mlp.fused_mlp(x, ws)
+    zc, zf = torch.rand(3, 5).sort(1).values, torch.rand(3, 2).sort(1).values
+    with pytest.raises(ValueError, match="perm_gather_fwd takes CUDA tensors"):
+        sampling.sort_merge_z(zc, zf, (torch.rand(3, 5), torch.rand(3, 2)))
+    assert {**fused_mlp_cuda.launch_counts(), **perm_gather_cuda.launch_counts()} == counts
+
+
+def test_b5_b6_sources_and_build_naming():
+    """B5 and B6 have one source each, built like the block-hash kernels into
+    the git-ignored build directory, and are not among the block-hash sources."""
+    for module, name in ((fused_mlp_cuda, "fused_mlp"), (perm_gather_cuda, "perm_gather")):
+        assert module.SOURCE == f"{name}.cu" and module.SOURCE not in block_hash_cuda.SOURCES
+        src = (cuda_lib.CSRC_DIR / module.SOURCE).read_text()
+        assert f'extern "C" int {name}(' in src and "lidarnerf_tpu/ops/" in src
+        assert int(re.search(r"#define SMEM_LIMIT (\d+)", src).group(1)) == module.SMEM_LIMIT
+        assert cuda_lib.library_path(module.SOURCE).parent == cuda_lib.BUILD_DIR
 
 
 def test_checkpoint_with_jax_objects_is_refused(tmp_path):

@@ -20,15 +20,19 @@ import optax
 from lidarnerf_tpu.dataset.base import sample_ray_indices as sample_ray_indices_j
 from lidarnerf_tpu.dataset.kitti360 import KITTI360Dataset as KITTI360DatasetJ
 from lidarnerf_tpu.models.network import NeRFNetwork as FlaxNeRF
+from lidarnerf_tpu.models.occupancy import OccConfig as OccConfigJ
 from lidarnerf_tpu.models.renderer import RenderConfig as RenderConfigJ
 from lidarnerf_tpu.nerf import train_step as tsj
 from lidarnerf_tpu_torch.dataset.base import get_lidar_rays, rays_from_indices, sample_ray_indices
 from lidarnerf_tpu_torch.dataset.kitti360 import KITTI360Dataset
 from lidarnerf_tpu_torch.models.network import NeRFNetwork
+from lidarnerf_tpu_torch.models.occupancy import OccConfig
 from lidarnerf_tpu_torch.models.renderer import RenderConfig
 from lidarnerf_tpu_torch.nerf import train_step as tst
+from lidarnerf_tpu_torch.nerf import trainer as trainer_module
 from lidarnerf_tpu_torch.nerf.trainer import Trainer
 from lidarnerf_tpu_torch.utils.params import params_from_jax, params_to_jax
+from test_torch_occupancy import shell_grid
 
 H, W, N = 8, 64, 64
 T, S = 64, 8  # coarse + fine samples
@@ -60,6 +64,18 @@ def _scene(n_frames=2):
     return np.stack(poses).astype(np.float32), np.stack(images).astype(np.float32)
 
 
+def _make_field(**net):
+    module = FlaxNeRF(compute_dtype=jnp.float32, **{**NET, **net})
+    params = jax.tree.map(
+        np.array, module.init(jax.random.PRNGKey(1), jnp.zeros((8, 3)), jnp.zeros((8, 3)))
+    )
+    p = params["params"]
+    p["hash_table"] *= 1e4
+    p["sigma_net"]["Dense_1"]["kernel"][:, 0] *= 3.0
+    p["sigma_net"]["Dense_1"]["kernel"][:, 0] += 0.1
+    return module, params
+
+
 @pytest.fixture(scope="module")
 def field():
     """(flax module, numpy params) of a field with structure.
@@ -71,22 +87,35 @@ def field():
     gradient times exp(h), so a sharper head amplifies fp32 rounding in
     the transmittance sums into the table's gradient.
     """
-    module = FlaxNeRF(compute_dtype=jnp.float32, **NET)
-    params = jax.tree.map(
-        np.array, module.init(jax.random.PRNGKey(1), jnp.zeros((8, 3)), jnp.zeros((8, 3)))
-    )
-    p = params["params"]
-    p["hash_table"] *= 1e4
-    p["sigma_net"]["Dense_1"]["kernel"][:, 0] *= 3.0
-    p["sigma_net"]["Dense_1"]["kernel"][:, 0] += 0.1
-    return module, params
+    return _make_field()
 
 
-def _configs(**kw):
+# every level one block of 4 x 4 x 4 corners (scales 1 to 2): no block seams
+SEAMLESS = dict(base_resolution=2, desired_resolution=3)
+
+
+@pytest.fixture(scope="module")
+def seamless_field():
+    """`field`'s construction on a table with no block seams.
+
+    Under --fast the coarse depths come from an inverse-CDF cumsum that XLA
+    and torch sum in another order (about 1e-6 apart), and a sample that
+    crosses a block seam sends its gradient to another table row; with one
+    block per level the table gradient is continuous in the sample positions.
+    """
+    return _make_field(**SEAMLESS)
+
+
+OCC = dict(grid_size=16, bins=32)  # the --fast sampler at a small grid
+
+
+def _configs(occ=False, **kw):
     tcfg_j = tsj.TrainConfig(**LOSS, **kw)
     tcfg = tst.TrainConfig(**LOSS, **kw)
-    rcfg_j = RenderConfigJ(num_steps=T, upsample_steps=S, min_near_lidar=SCALE, min_near=SCALE)
-    rcfg = RenderConfig(num_steps=T, upsample_steps=S, min_near_lidar=SCALE, min_near=SCALE)
+    rcfg_j = RenderConfigJ(num_steps=T, upsample_steps=S, min_near_lidar=SCALE, min_near=SCALE,
+                           occ=OccConfigJ(**OCC) if occ else None)
+    rcfg = RenderConfig(num_steps=T, upsample_steps=S, min_near_lidar=SCALE, min_near=SCALE,
+                        occ=OccConfig(**OCC) if occ else None)
     return tcfg_j, tcfg, rcfg_j, rcfg
 
 
@@ -135,6 +164,9 @@ CASES = {
     "patch1": dict(patch=1, masked=False, kw={}),
     "patch2x8_grad_loss": dict(patch=[2, 8], masked=False, kw=dict(grad_loss=True)),
     "masked": dict(patch=1, masked=True, kw={}),
+    # occupancy-prior sampling on the seamless field: the coarse draw
+    # doubles as occ_z_vals' xi
+    "fast": dict(patch=1, masked=False, kw={}, occ=True, net=SEAMLESS),
 }
 
 
@@ -144,9 +176,9 @@ VARIANT_ENV = {"seg": "LIDARNERF_SEG_KERNELS", "win": "LIDARNERF_WIN_KERNELS"}
 @pytest.mark.parametrize(
     "case, variant",
     [pytest.param(c, v, id=c if v == "default" else f"{c}-{v}")
-     for v in ("default", "seg", "win") for c in CASES],
+     for v in ("default", "seg", "win") for c in CASES if v == "default" or c != "fast"],
 )
-def test_train_step_matches_jax(field, case, variant, monkeypatch):
+def test_train_step_matches_jax(field, case, variant, monkeypatch, request):
     """The port's step under each block-hash variant vs the JAX step.
 
     The variant switch selects the port's table-gradient path (on the CPU
@@ -157,9 +189,13 @@ def test_train_step_matches_jax(field, case, variant, monkeypatch):
     monkeypatch.delenv("LIDARNERF_WIN_KERNELS", raising=False)
     if variant != "default":
         monkeypatch.setenv(VARIANT_ENV[variant], "1")
-    module, params = field
+    net_kw = {**NET, **CASES[case].get("net", {})}
+    module, params = request.getfixturevalue("seamless_field") if "net" in CASES[case] else field
     patch, masked, kw = CASES[case]["patch"], CASES[case]["masked"], CASES[case]["kw"]
-    tcfg_j, tcfg, rcfg_j, rcfg = _configs(**kw)
+    occ = CASES[case].get("occ", False)
+    tcfg_j, tcfg, rcfg_j, rcfg = _configs(occ, **kw)
+    # every ray (its far end 0.87 away) crosses the shell
+    grid = shell_grid(OCC["grid_size"], 0.25, 0.55) if occ else None
     poses, images = _scene()
     frame = 1
     if masked:  # a pool of every third pixel, padded past its count
@@ -175,19 +211,21 @@ def test_train_step_matches_jax(field, case, variant, monkeypatch):
     (loss_j, aux_j), grads_j = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         jax.tree.map(jnp.asarray, params), jnp.asarray(poses[frame]),
         jnp.asarray(images[frame].reshape(-1, 3)), jnp.asarray(vi[frame]),
-        jnp.asarray(vc[frame]), key, None)
+        jnp.asarray(vc[frame]), key, None if grid is None else jnp.asarray(grid))
     step_j = tsj.make_train_step(module, tcfg_j, rcfg_j, patch_size=patch, masked_sampling=masked)
     jp = jax.tree.map(jnp.asarray, params)
     new_j, _, m_j = step_j(jp, tsj.make_optimizer(tcfg_j).init(jp), *map(jnp.asarray, (
-        poses, images, vi, vc)), frame, key, 0)
+        poses, images, vi, vc)), frame, key, 0,
+        occ_grid=None if grid is None else jnp.asarray(grid))
 
     # the port, fed the same draws
-    net = NeRFNetwork(**NET)
+    net = NeRFNetwork(**net_kw)
     net.load_state_dict(params_from_jax(params))
     step = tst.make_train_step(net, tcfg, rcfg, patch_size=patch, masked_sampling=masked,
                                device="cpu")
     m = step(*map(torch.from_numpy, (poses, images, vi.astype(np.int64), vc.astype(np.int64))),
-             frame, draws=_draws(key, patch, masked, int(vc[frame])))
+             frame, draws=_draws(key, patch, masked, int(vc[frame])),
+             occ_grid=None if grid is None else torch.from_numpy(grid))
 
     assert m["skipped_nonfinite"] == 0.0 and float(m_j["skipped_nonfinite"]) == 0.0
     np.testing.assert_allclose(float(m["loss"]), float(m_j["loss"]), rtol=1e-5)
@@ -415,8 +453,56 @@ def test_trainer_epochs_follow_the_patch_schedule(field):
         trainer.train(_TinyData(), _TinyData(), max_epochs=3)
     with pytest.raises(NotImplementedError, match="queue A item 3"):
         Trainer("t", opt, net, device="cpu", workspace="ws")
-    with pytest.raises(NotImplementedError, match="queue A item 1"):
-        Trainer("t", SimpleNamespace(**{**vars(opt), "occ_sampling": True}), net, device="cpu")
+    # --fast is ported: the Trainer builds the CLI's default occupancy config and a zero grid
+    fast = Trainer("t", SimpleNamespace(**{**vars(opt), "occ_sampling": True}), net,
+                   device="cpu", mute=True)
+    assert fast.render_cfg.occ == OccConfig() and fast.occ_grid.shape == (128,) * 3
+    assert not fast.occ_grid.any() and trainer.occ_grid is None
     _, _, _, rcfg = _configs()
     with pytest.raises(NotImplementedError, match="queue A item 5"):
         tst.make_train_step(net, tst.TrainConfig(alpha_seam=0.1), rcfg, device="cpu")
+
+
+def test_trainer_refreshes_the_occ_grid_every_interval(field, monkeypatch):
+    """--fast: the grid is refreshed from the live weights before each step
+    whose global step is a multiple of occ_update_interval, from step 0, as
+    lidarnerf_tpu/nerf/trainer.py:480-491 does, and each step gets it."""
+    _, params = field
+    opt = SimpleNamespace(
+        alpha_d=1e3, alpha_r=1.0, alpha_i=10.0, alpha_grad_norm=1.0, alpha_spatial=0.1,
+        alpha_tv=1.0, alpha_grad=100.0, depth_loss="l1", depth_grad_loss="l1",
+        intensity_loss="mse", raydrop_loss="mse", spatial_smooth=False, grad_norm_smooth=False,
+        tv_loss=False, grad_loss=False, sobel_grad=False, scale=SCALE, num_rays_lidar=N,
+        H_lidar=H, W_lidar=W, lr=1e-2, iters=30000, num_steps=T, upsample_steps=S,
+        min_near_lidar=SCALE, min_near=SCALE, bound=1.0, patch_size_lidar=1,
+        change_patch_size_lidar=[1], change_patch_size_epoch=2, seed=0,
+        occ_sampling=True, occ_grid_size=8, occ_update_interval=2, occ_bins=16,
+    )
+    net = NeRFNetwork(**NET)
+    net.load_state_dict(params_from_jax(params))
+    trainer = Trainer("t", opt, net, device="cpu", mute=True)
+    assert trainer.render_cfg.occ == OccConfig(grid_size=8, update_interval=2, bins=16)
+    refreshed, stepped = [], []
+    refresh, make_step = trainer_module.update_occ_grid, trainer_module.make_train_step
+
+    def counting_refresh(model, grid, *args, **kw):
+        assert model is trainer.model  # the live weights, not the EMA
+        refreshed.append(trainer.global_step)
+        return refresh(model, grid, *args, **kw)
+
+    def recording_step(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def run(*a, occ_grid=None, **k):
+            stepped.append(occ_grid is trainer.occ_grid and occ_grid is not None)
+            return step(*a, occ_grid=occ_grid, **k)
+
+        return run
+
+    monkeypatch.setattr(trainer_module, "update_occ_grid", counting_refresh)
+    monkeypatch.setattr(trainer_module, "make_train_step", recording_step)
+    trainer.train(_TinyData(), None, max_epochs=2)  # 2 x 3 steps
+    assert trainer.global_step == 6 and refreshed == [0, 2, 4]
+    assert stepped == [True] * 6
+    assert trainer.occ_grid.shape == (8,) * 3 and trainer.occ_grid.any()
+    assert np.isfinite(trainer.stats["step_loss"]).all() and not any(trainer.stats["skipped"])
