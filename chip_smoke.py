@@ -28,6 +28,10 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
     the same three epochs, then `PanoRenderer` on frame 0 with its grid.
 It checks that each path went through its kernels and that its output is
 right, and profiles one render chunk and one training step per variant.
+B1 and B2 are also checked on adversarial point sets (one cell, runs
+crossing warp and tile ends, reversed and permuted orders, samples on the
+faces of the unit cube, one query) and timed in turns with the
+run-collapsing kernels that compute the same functions.
 Prints one JSON line of per-kernel numbers and ends with a JSON status line.
 Exits non-zero, with no result, when there is no GPU or when any phase fails.
 """
@@ -75,6 +79,7 @@ MLP_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 # the --fast macro (main_lidarnerf.py:282-284) at the CLI's occupancy defaults
 FAST = dict(occ_sampling=True, num_steps=192, occ_grid_size=128, occ_update_interval=16,
             occ_bins=128, occ_floor=0.05, occ_dilate=1, density_thresh=10.0)
+ADVERSARIAL_Q = 20013  # the adversarial point sets' size: no multiple of 32 or of a tile
 # B2 vs its plain version, entry by entry: |k - p| <= BWD_RTOL * S + BWD_ATOL with
 # S the plain version on |g|: the trilinear weights are non-negative, so S is
 # the sum of the absolute terms of each entry, a bound on any summation order
@@ -271,8 +276,9 @@ def bwd_bound(x, spec):
     return (*bound_of(bytes_moved, Q * L * 80), bytes_moved)
 
 
-def serving_chunk_queries(dev):
-    """The coarse queries of the first 4096-ray chunk of a served pano."""
+def serving_chunk_queries(dev, steps=FULL.num_steps):
+    """The coarse queries of the first 4096-ray chunk of a served pano, at
+    `steps` samples per ray (768, or 192 under --fast)."""
     from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
     from lidarnerf_tpu_torch.ops.sampling import stratified_z_vals
 
@@ -281,14 +287,64 @@ def serving_chunk_queries(dev):
     o = rays["rays_o"][0, : FULL.max_ray_batch]
     d = rays["rays_d"][0, : FULL.max_ray_batch]
     near = torch.full((o.shape[0], 1), FULL.scale, device=dev)
-    z = stratified_z_vals(near, near * 81.0, FULL.num_steps)
+    z = stratified_z_vals(near, near * 81.0, steps)
     xyz = torch.clamp(o[:, None] + d[:, None] * z[..., None], -FULL.bound, FULL.bound)
     return ((xyz + FULL.bound) / (2 * FULL.bound)).reshape(-1, 3).contiguous()
 
 
+def adversarial_points(dev, seed=SEED + 11):
+    """The point sets of tests/test_torch_cuda.py that the tile layout of B1
+    and B2 must not be fooled by: every query in one cell (the worst
+    contention), rays of 333 samples (runs crossing warp and tile ends, Q no
+    multiple of 32), the same in reverse and in a random order (no runs of
+    lanes), rays clamped onto the faces of [0, 1]^3 with some left outside,
+    and a single query."""
+    rs = np.random.RandomState(seed)
+    Q, per = ADVERSARIAL_Q, 333
+    n = -(-Q // per)
+    o = rs.uniform(0.3, 0.7, (n, 1, 3))
+    d = rs.normal(size=(n, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = (o + d * np.linspace(0.0, 0.5, per)[None, :, None]).reshape(-1, 3)[:Q]
+    faces = (o + d * np.linspace(0.0, 1.5, per)[None, :, None]).reshape(-1, 3)[:Q]
+    clamped = np.repeat(rs.uniform(size=n) < 0.9, per)[:Q]
+    faces[clamped] = np.clip(faces[clamped], 0.0, 1.0)
+    sets = {"one cell": np.repeat(rs.uniform(size=(1, 3)), Q, axis=0), "ray runs": rays,
+            "reversed": rays[::-1], "permuted": rays[rs.permutation(Q)], "faces": faces,
+            "one query": rs.uniform(size=(1, 3))}
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)).to(dev)
+            for k, v in sets.items()}
+
+
+def in_turns(fns, reps=10):
+    """Device ms of each of `fns` ({name: fn}) timed in turns, a b c c b a:
+    {name: (first, second)}."""
+    order = list(fns) + list(fns)[::-1]
+    times = {}
+    for name in order:
+        times.setdefault(name, []).append(cuda_ms(fns[name], reps=reps))
+    return {k: tuple(v) for k, v in times.items()}
+
+
+def turns_line(times):
+    return ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
+
+
+def level_range(spec, lo, hi):
+    """The spec of levels lo ... hi - 1 alone, with their scales and block
+    grids: a kernel launched with it does exactly those levels' work."""
+    return replace(spec, num_levels=hi - lo, levels=spec.levels[lo:hi])
+
+
+FINE_LEVEL0 = 11  # levels from here on rarely repeat a row along a ray (run structure phase)
+
+
 def block_hash_phase(spec):
-    """B1 vs its plain version on the coarse queries of one real chunk and on
-    uniform ones; returns the kernel's `kernels` entry (launches filled later)."""
+    """B1 vs its plain version on the coarse queries of one real chunk, on
+    uniform ones and on the adversarial point sets (there also bit for bit
+    against B3a and B4a); timed in turns with B3a and B4a at the coarse, fine,
+    --fast coarse and uniform shapes. Returns the kernel's `kernels` entry
+    (launches filled later)."""
     from lidarnerf_tpu_torch.ops import block_hash_cuda
     from lidarnerf_tpu_torch.ops.block_hash import encode_plain
 
@@ -312,17 +368,44 @@ def block_hash_phase(spec):
             raise AssertionError(f"block_hash_fwd disagrees with its plain version: {err}")
         max_err = max(max_err, err)
         del out, ref
+    for name, x in adversarial_points(dev).items():
+        out = block_hash_cuda.block_hash_fwd(x, table, spec)
+        same = [torch.equal(out, f(x, table, spec)) for f in (block_hash_cuda.block_hash_seg_fwd,
+                                                              block_hash_cuda.block_hash_win_fwd)]
+        torch.cuda.synchronize()
+        err = (out - encode_plain(x, table, spec)).abs().max().item()
+        log(f"block_hash_fwd ({name}, Q={x.shape[0]}): max_abs_err={err:.3e} vs plain; equal to "
+            f"block_hash_seg_fwd / block_hash_win_fwd bit for bit: {same[0]} / {same[1]}")
+        if not (err <= KERNEL_ATOL and all(same)):
+            raise AssertionError(f"block_hash_fwd disagrees on the {name} points")
+        max_err = max(max_err, err)
 
     n_rows = touched_rows(coarse, spec)
     bound_ms, bound_by, bytes_moved = fwd_bound(coarse, spec, n_rows)
-
-    ms = cuda_ms(lambda: block_hash_cuda.block_hash_fwd(coarse, table, spec), reps=10)
     plain_ms = cuda_ms(lambda: encode_plain(coarse, table, spec), reps=1, batches=3, warmup=1)
-    fine = coarse[: FULL.max_ray_batch * FULL.upsample_steps]
-    fine_ms = cuda_ms(lambda: block_hash_cuda.block_hash_fwd(fine, table, spec), reps=10)
+    n_fine = FULL.max_ray_batch * FULL.upsample_steps
+    shapes = {"coarse": coarse, "fine": coarse[:n_fine],
+              "--fast coarse": serving_chunk_queries(dev, FAST["num_steps"]), "uniform": uniform}
+    bh = block_hash_cuda
+    for name, x in shapes.items():
+        times = in_turns({k: (lambda f=f: f(x, table, spec)) for k, f in (
+            ("block_hash_fwd", bh.block_hash_fwd), ("block_hash_seg_fwd", bh.block_hash_seg_fwd),
+            ("block_hash_win_fwd", bh.block_hash_win_fwd))})
+        b, by, nbytes = fwd_bound(x, spec, touched_rows(x, spec))
+        log(f"block_hash_fwd {name} call Q={x.shape[0]} in turns (ms): {turns_line(times)}; "
+            f"bound {b:.4f} ms by {by}: {nbytes / 1e6:.1f} MB")
+        if name == "coarse":
+            ms = times["block_hash_fwd"][0]
+    L, B, f0 = spec.num_levels, spec.blocks_per_level, FINE_LEVEL0
+    split = {f"levels 0-{f0 - 1}": (0, f0), f"levels {f0}-{L - 1}": (f0, L)}
+    by_range = {}
+    for k, (lo, hi) in split.items():
+        table_range, spec_range = table[lo * B: hi * B], level_range(spec, lo, hi)
+        by_range[k] = cuda_ms(lambda: bh.block_hash_fwd(coarse, table_range, spec_range), reps=10)
     log(f"block_hash_fwd coarse call Q={Q}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
         f"bound {bound_ms:.4f} ms by {bound_by}: {bytes_moved / 1e6:.1f} MB incl. "
-        f"{n_rows} table rows); fine-call shape Q={fine.shape[0]}: {fine_ms:.4f} ms")
+        f"{n_rows} table rows); each level range alone: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in by_range.items()))
     return {
         "name": "block_hash_fwd",
         "route": "cuda",
@@ -338,9 +421,9 @@ def block_hash_phase(spec):
     }
 
 
-def training_chunk_queries(ds, dev, generator):
+def training_chunk_queries(ds, dev, generator, steps=FULL.num_steps):
     """The perturbed coarse queries of one 4096-ray training chunk of frame 0,
-    as the training step forms them."""
+    as the training step forms them, at `steps` samples per ray."""
     from lidarnerf_tpu_torch.dataset.base import rays_from_indices, sample_ray_indices
     from lidarnerf_tpu_torch.ops.sampling import stratified_z_vals
 
@@ -349,14 +432,16 @@ def training_chunk_queries(ds, dev, generator):
     inds = sample_ray_indices(ds.H_lidar, ds.W_lidar, n, 1, generator, dev)
     o, d = rays_from_indices(poses[0], inds, ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
     near = torch.full((n, 1), ds.scale, device=dev)
-    z = stratified_z_vals(near, near * 81.0, FULL.num_steps, perturb=True, generator=generator)
+    z = stratified_z_vals(near, near * 81.0, steps, perturb=True, generator=generator)
     xyz = torch.clamp(o[:, None] + d[:, None] * z[..., None], -FULL.bound, FULL.bound)
     return ((xyz + FULL.bound) / (2 * FULL.bound)).reshape(-1, 3).contiguous()
 
 
 def block_hash_bwd_phase(spec, ds):
-    """B2 vs its plain version on the coarse queries of one real training chunk
-    and on uniform ones; returns the kernel's `kernels` entry."""
+    """B2 vs its plain version on the coarse queries of one real training
+    chunk, on uniform ones and on the adversarial point sets; timed in turns
+    with B3b and B4b at the coarse, fine, --fast coarse and uniform shapes.
+    Returns the kernel's `kernels` entry."""
     from lidarnerf_tpu_torch.ops import block_hash_cuda
     from lidarnerf_tpu_torch.ops.block_hash import encode_bwd_plain
 
@@ -368,16 +453,19 @@ def block_hash_bwd_phase(spec, ds):
     g = torch.randn((Q, spec.output_dim), generator=gen, device=dev)
 
     max_err = 0.0
-    for name, x in (("training chunk", coarse), ("uniform", uniform)):
-        out = block_hash_cuda.block_hash_bwd(x, g, spec)
-        again = block_hash_cuda.block_hash_bwd(x, g, spec)
+    cases = {"training chunk": (coarse, g), "uniform": (uniform, g)}
+    for name, x in adversarial_points(dev).items():
+        cases[name] = (x, torch.randn((x.shape[0], spec.output_dim), generator=gen, device=dev))
+    for name, (x, gx) in cases.items():
+        out = block_hash_cuda.block_hash_bwd(x, gx, spec)
+        again = block_hash_cuda.block_hash_bwd(x, gx, spec)
         torch.cuda.synchronize()
-        ref = encode_bwd_plain(x, g, spec)
+        ref = encode_bwd_plain(x, gx, spec)
         err = (out - ref).abs()
-        slack = BWD_RTOL * encode_bwd_plain(x, g.abs(), spec) + BWD_ATOL
+        slack = BWD_RTOL * encode_bwd_plain(x, gx.abs(), spec) + BWD_ATOL
         worst = (err / slack).max().item()
         rerun = (out - again).abs().max().item()
-        log(f"block_hash_bwd vs plain ({name}, Q={Q}): max_abs_err={err.max().item():.3e} "
+        log(f"block_hash_bwd vs plain ({name}, Q={x.shape[0]}): max_abs_err={err.max().item():.3e} "
             f"(largest entry {ref.abs().max().item():.3e}), worst err / (1e-5 S + 1e-7) = "
             f"{worst:.3f}; two runs differ by up to {rerun:.3e} (fp32 atomics)")
         if not worst <= 1.0:
@@ -387,15 +475,31 @@ def block_hash_bwd_phase(spec, ds):
 
     n_rows = touched_rows(coarse, spec)
     bound_ms, bound_by, bytes_moved = bwd_bound(coarse, spec)
-
-    ms = cuda_ms(lambda: block_hash_cuda.block_hash_bwd(coarse, g, spec), reps=10)
     plain_ms = cuda_ms(lambda: encode_bwd_plain(coarse, g, spec), reps=1, batches=3, warmup=1)
     n_fine = FULL.max_ray_batch * FULL.upsample_steps
-    fine_ms = cuda_ms(lambda: block_hash_cuda.block_hash_bwd(coarse[:n_fine], g[:n_fine], spec),
-                      reps=10)
+    fast = training_chunk_queries(ds, dev, gen, FAST["num_steps"])
+    shapes = {"coarse": (coarse, g), "fine": (coarse[:n_fine], g[:n_fine]),
+              "--fast coarse": (fast, g[: fast.shape[0]]), "uniform": (uniform, g)}
+    bh = block_hash_cuda
+    for name, (x, gx) in shapes.items():
+        times = in_turns({k: (lambda f=f: f(x, gx, spec)) for k, f in (
+            ("block_hash_bwd", bh.block_hash_bwd), ("block_hash_seg_bwd", bh.block_hash_seg_bwd),
+            ("block_hash_win_bwd", bh.block_hash_win_bwd))})
+        b, by, nbytes = bwd_bound(x, spec)
+        log(f"block_hash_bwd {name} call Q={x.shape[0]} in turns (ms, zero fill included): "
+            f"{turns_line(times)}; bound {b:.4f} ms by {by}: {nbytes / 1e6:.1f} MB")
+        if name == "coarse":
+            ms = times["block_hash_bwd"][0]
+    L, f0 = spec.num_levels, FINE_LEVEL0
+    split = {f"levels 0-{f0 - 1}": (0, f0), f"levels {f0}-{L - 1}": (f0, L)}
+    by_range = {}
+    for k, (lo, hi) in split.items():
+        g_range, spec_range = g[:, 2 * lo: 2 * hi].contiguous(), level_range(spec, lo, hi)
+        by_range[k] = cuda_ms(lambda: bh.block_hash_bwd(coarse, g_range, spec_range), reps=10)
     log(f"block_hash_bwd coarse call Q={Q}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.4f} ms by {bound_by}: {bytes_moved / 1e6:.1f} MB; the chunk touches "
-        f"{n_rows} table rows); fine-call shape Q={n_fine}: {fine_ms:.4f} ms")
+        f"{n_rows} table rows); each level range alone (zero fill of its rows included): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in by_range.items()))
     return {
         "name": "block_hash_bwd",
         "route": "cuda",

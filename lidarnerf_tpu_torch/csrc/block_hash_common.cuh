@@ -5,6 +5,32 @@
 // cell, block row and trilinear weights for a query, and the forwards sum a
 // cell's corners in one order. The plain PyTorch version of the same
 // indexing is lidarnerf_tpu_torch/ops/block_hash.py::level_indices_and_weights.
+//
+// The tile layout of B1 and B2. Both replace TPU kernels whose cost on this
+// card is not arithmetic but where the lanes of a warp go: with one thread
+// per (query, level), level fastest, a warp's 32 lanes would sit on 16
+// levels of 2 queries and touch 32 rows in 16 level sub-tables, although at
+// the coarse levels one row serves 5-300 consecutive queries (the samples
+// of a ray are consecutive). So a block owns a tile of consecutive queries and
+// walks all L levels of it, its points loaded once into shared memory, not
+// once per level; per level a warp takes a group of 32 consecutive
+// queries, query-major: lane k holds query k of the group, the neighbouring
+// samples of one ray sit in neighbouring lanes, and at levels 0-9 a warp's
+// lanes read or add to one or a few rows. What the tile shares:
+//  - B1: a tile of one group (32 queries) whose warps split the levels
+//    (warp w: levels w, w + WARPS, ...); its [32, L] float2 features are
+//    written into shared memory and then stored to `out`, where the
+//    group's rows are contiguous, as 16-byte stores;
+//  - B2: a tile of TILE = THREADS queries (8 groups) whose warps each walk
+//    some levels over all 8 groups in order; the tile's points [TILE, 3]
+//    and feature gradients [TILE, L] float2 are staged once with coalesced
+//    loads, and each warp keeps its sums for one block row (64 float2),
+//    carried from group to group.
+// The [*, L] float2 tiles keep their rows tile_stride(L) = L | 1 float2s
+// apart: with an odd stride the 16 lanes of a half-warp, on 16 consecutive
+// queries of one level, fall in 16 different bank pairs.
+// B3a/B3b and B4a/B4b keep the one-thread-per-query layout of their
+// (level, 4096-query chunk) blocks and B2's per-query scatter_query.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,6 +40,26 @@
 #define THREADS 256
 #define WARPS (THREADS / 32)
 #define FULL_MASK 0xffffffffu
+#define TILE THREADS         // queries of a B2 block (a B1 block takes one group of 32)
+#define GROUPS (TILE / 32)   // 32-query groups of a B2 tile
+
+__host__ __device__ __forceinline__ int tile_stride(int L) { return L | 1; }
+
+// Query j's float2 of a [*, L] tile stored row by row, rows `stride` apart:
+// the float2 that lies at flat index j when the rows are packed.
+__device__ __forceinline__ int tile_slot(int j, int L, int stride) {
+  const int r = j / L;
+  return r * stride + (j - r * L);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory, which above 48 KB
+// needs an explicit opt-in. Returns the CUDA error of the set-up (0 on success).
+template <typename Kernel>
+static inline cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // the run structure of the seg and win kernels (ops/block_hash.py CHUNK, NSEG_DIV)
 #define CHUNK 4096
 #define NSEG_DIV 5
@@ -126,8 +172,9 @@ __device__ __forceinline__ float2 trilerp(const Cell& c, Corner corner) {
   return acc;
 }
 
-// B1's whole work for one (query, level): the features read from the table
-// in device memory; zero outside [0, 1]^3.
+// One (query, level) of the per-query paths of B3a and B4a (B1's work
+// before its tile layout): the features read from the table in device
+// memory; zero outside [0, 1]^3.
 __device__ __forceinline__ float2 encode_query(const float p[3], int l, uint32_t B,
                                                const Levels& lv,
                                                const float2* __restrict__ table) {
@@ -137,8 +184,42 @@ __device__ __forceinline__ float2 encode_query(const float p[3], int l, uint32_t
   return trilerp(c, [&](int k) { return __ldg(corner + k); });
 }
 
-// B2's whole work for one (query, level) inside [0, 1]^3: one float2
-// atomicAdd of w * g to each of the cell's 8 corners.
+// Corner i = (dx * 2 + dy) * 2 + dz of a cell sits corner_offset(dx, dy, dz)
+// float2s after its first corner; trilerp asks for corners by that offset.
+__device__ __forceinline__ int offset_of_corner(int i) {
+  return corner_offset(i >> 2, (i >> 1) & 1, i & 1);
+}
+__device__ __forceinline__ int corner_of_offset(int k) {
+  return ((k >> 4) * 2 + ((k >> 2) & 1)) * 2 + (k & 1);
+}
+
+// An 8 x 8 transpose within each octet of lanes: lane k of an octet holds
+// v[r] = corner k of the octet's query r; afterwards lane r holds v[k] =
+// corner k of its own query (B1's loads), and the same call turns a lane's
+// own 8 corners into corner k of the octet's 8 queries (B2's atomics).
+// Three butterfly stages of 4 float2 swaps.
+__device__ __forceinline__ void transpose_octet(float2 v[8], int k) {
+#pragma unroll
+  for (int m = 4; m >= 1; m >>= 1) {
+    const bool upper = k & m;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (e & m) continue;  // the pair (e, e | m)
+      const float2 send = upper ? v[e] : v[e | m];
+      const float2 got = make_float2(__shfl_xor_sync(FULL_MASK, send.x, m),
+                                     __shfl_xor_sync(FULL_MASK, send.y, m));
+      if (upper) {
+        v[e] = got;
+      } else {
+        v[e | m] = got;
+      }
+    }
+  }
+}
+
+// The per-query path of B3b and B4b (and of B2 before its tile layout) for
+// one (query, level) inside [0, 1]^3: one float2 atomicAdd of w * g to each
+// of the cell's 8 corners.
 __device__ __forceinline__ void scatter_query(const Cell& c, float2 gv, float2* __restrict__ grad) {
   float2* corner = grad + c.corner0;
 #pragma unroll

@@ -11,50 +11,110 @@
 //
 // Bound: device memory. Per query the function must read 12 bytes of position
 // and write 8*L bytes of features, plus the table rows it touches (at most the
-// 64 MiB table), at 3.35 TB/s; its arithmetic (some 60 flops per query-level)
-// is far below the card's fp32 rate. Against that bound the design
-//  - runs one thread per (query, level) with the level fastest, so at L = 16
-//    a warp covers 2 queries and its feature stores are one contiguous
-//    256-byte run;
-//  - computes the cell, block index, hash and weights in registers
-//    (block_hash_common.cuh, shared with B2-B4), so none of the TPU
-//    kernel's [L, 4, Q] prep arrays go through memory;
-//  - reads only the 8 corner float2 pairs it needs (64 bytes) instead of the
-//    whole 512-byte row. Consecutive queries along a ray fall in the same
-//    block at the coarse levels, so those reads mostly hit L1/L2.
+// 64 MiB table), at 3.35 TB/s: 0.1446 ms for the main path's coarse call
+// (Q = 3,145,728, L = 16). Its arithmetic (some 60 flops per query-level) is
+// far below the card's fp32 rate. What a kernel meets first is the cache:
+// each corner load instruction costs the L1 about one cycle per distinct
+// 128-byte line that its 32 lanes touch, and each (query, level) needs 4
+// sectors (the cell's dx = 0 and 1 lines, two dy sectors each) that at the
+// fine levels come from L2. With one thread per (query, level), level
+// fastest, a warp would cover 2 queries x 16 levels and every load touch
+// some 24-32 lines, although at the coarse levels one row serves 5-300
+// consecutive queries. The design, in the tile layout of
+// block_hash_common.cuh:
+//  - a block owns 32 consecutive queries, loads their points once into
+//    shared memory, and its warps split the levels (warp w: levels w,
+//    w + WARPS, ...); per level a warp's lane k holds query k, so the
+//    neighbouring samples of a ray sit in neighbouring lanes;
+//  - where the warp's 32 cells lie in at most FEW_ROWS runs of rows (levels
+//    0-9 of a ray chunk) each lane reads its own 8 corners: mostly
+//    broadcasts of one or a few lines;
+//  - elsewhere (the fine levels, uniform points) the 8 lanes of an octet
+//    read one query's 8 corners per load, 8 lines per instruction instead
+//    of 32, and an octet transpose (24 shuffles) hands each lane its own
+//    query's corners;
+//  - every lane then interpolates with locate + trilerp, the cell choice and
+//    fma order of B3a/B4a, so the features are theirs bit for bit;
+//  - the block's [32, L] features are written into shared memory (rows
+//    L | 1 float2s apart: no bank conflicts) and stored to `out`, where
+//    they are 32 * L contiguous float2s, as coalesced 16-byte stores.
+// What is left: at the fine levels each query still reads its own 4 sectors
+// from L2 (about 2.2 GB per coarse call), which the cache bandwidth bounds.
 
 #include "block_hash_common.cuh"
 
+#define FEW_ROWS 8  // at most this many runs of rows in a warp: each lane reads its own corners
+
 __global__ void __launch_bounds__(THREADS)
 block_hash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ table,
-                      float2* __restrict__ out, long long n, int L, uint32_t B,
+                      float2* __restrict__ out, long long Q, int L, uint32_t B,
                       const Levels lv) {
-  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (t >= n) return;
-  const long long q = t / L;
-  const int l = (int)(t - q * L);
+  __shared__ float2 features[32 * (MAX_LEVELS + 1)];  // [32][tile_stride(L)]
+  __shared__ float points[32 * 3];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long q0 = (long long)blockIdx.x * 32;
+  const int n = (int)min(32LL, Q - q0);
+  if ((int)threadIdx.x < 3 * n) points[threadIdx.x] = __ldg(x + 3 * q0 + threadIdx.x);
+  __syncthreads();
 
-  float p[3];
-  load_point(x, q, p);
-  const float2 acc = encode_query(p, l, B, lv, reinterpret_cast<const float2*>(table));
-  out[t] = acc;  // out[q, 2l : 2l+2], t = q * L + l
+  const int stride = tile_stride(L);
+  const int s = min(lane, n - 1);  // a lane past the end repeats the last query, never stored
+  const float p[3] = {points[3 * s], points[3 * s + 1], points[3 * s + 2]};
+  const bool inside = !outside_unit_cube(p);
+  const int octet = lane & ~7, k8 = lane & 7;
+  for (int l = warp; l < L; l += WARPS) {
+    const Cell c = locate(p, l, B, lv);
+    const size_t level0 = (size_t)l * B * 64;  // the level's first float2
+    const float2* level = reinterpret_cast<const float2*>(table) + level0;
+    const uint32_t local = (uint32_t)(c.corner0 - level0);
+    const uint32_t row = local >> 6;
+    const uint32_t prev = __shfl_up_sync(FULL_MASK, row, 1);
+    const unsigned heads = __ballot_sync(FULL_MASK, lane == 0 || row != prev);
+    float2 v[8];
+    if (__popc(heads) <= FEW_ROWS) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = __ldg(level + local + offset_of_corner(i));
+    } else {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        v[r] = __ldg(level + __shfl_sync(FULL_MASK, local, octet + r) + offset_of_corner(k8));
+      transpose_octet(v, k8);
+    }
+    features[lane * stride + l] =
+        inside ? trilerp(c, [&](int k) { return v[corner_of_offset(k)]; }) : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+
+  // out[q0 : q0 + n] is n * L contiguous float2s, 16-byte aligned (q0 is a
+  // multiple of 32 and out is 16-byte aligned)
+  const int m = n * L;
+  float2* dst = out + q0 * L;
+  float4* dst4 = reinterpret_cast<float4*>(dst);
+  for (int k = threadIdx.x; k < m / 2; k += THREADS) {
+    const float2 a = features[tile_slot(2 * k, L, stride)];
+    const float2 b = features[tile_slot(2 * k + 1, L, stride)];
+    dst4[k] = make_float4(a.x, a.y, b.x, b.y);
+  }
+  if ((m & 1) && threadIdx.x == 0) dst[m - 1] = features[tile_slot(m - 1, L, stride)];
 }
 
 // Plain C entry point: per-level parameters come as host arrays and travel
-// by value in the kernel's arguments. Returns cudaGetLastError() after the
-// launch (0 on success).
+// by value in the kernel's arguments. `out` must be 16-byte aligned, and a
+// level's B * 64 float2s indexable in 32 bits. Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int block_hash_fwd(const float* x, const float* table, float* out,
                               long long Q, int L, int B, const float* scale,
                               const int* max_cell, const int* blocks_axis,
                               const int* dense, void* stream) {
   Levels lv;
-  if (B < 1 || Q < 0 || !fill_levels(&lv, L, scale, max_cell, blocks_axis, dense))
+  if (B < 1 || (long long)B * 64 > 0xffffffffLL || Q < 0 ||
+      !fill_levels(&lv, L, scale, max_cell, blocks_axis, dense) ||
+      reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
-  const long long n = Q * L;
-  if (n == 0) return 0;
-  const long long blocks = (n + THREADS - 1) / THREADS;
+  if (Q == 0) return 0;
+  const long long blocks = (Q + 31) / 32;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   block_hash_fwd_kernel<<<(unsigned int)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      x, table, reinterpret_cast<float2*>(out), n, L, (uint32_t)B, lv);
+      x, table, reinterpret_cast<float2*>(out), Q, L, (uint32_t)B, lv);
   return (int)cudaGetLastError();
 }

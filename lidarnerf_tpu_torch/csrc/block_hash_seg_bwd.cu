@@ -25,7 +25,8 @@
 //    atomic. Then each lane adds its nonzero sums to the table: at most 64
 //    atomics per run, none of them contended within the run;
 //  - a chunk with more runs, and every level above SEG_SCALE_MAX, takes
-//    B2's per-query path (8 float2 atomicAdds).
+//    the per-query path of B2's design before its tile layout
+//    (scatter_query: 8 float2 atomicAdds, one thread per query).
 // The TPU kernel's devices (SMEM scalar streams, 8 VMEM accumulator copies,
 // the MXU one-hot scatter of the dense pair, the split-bf16 lane broadcast)
 // have no place here. fp32 atomics add in an order that changes from run to
@@ -43,7 +44,7 @@ block_hash_seg_bwd_kernel(const float* __restrict__ x, const float2* __restrict_
   const int n = (int)min((long long)CHUNK, Q - chunk0);
 
   const int nseg = lv.runs[l] ? find_runs(x, chunk0, n, l, B, lv, sc) : -1;
-  if (nseg < 0) {  // B2's per-query path
+  if (nseg < 0) {  // the per-query path
     for (int i = threadIdx.x; i < n; i += THREADS) {
       const long long q = chunk0 + i;
       float p[3];

@@ -23,7 +23,8 @@
 //    coalesced, into shared memory; every query of the run interpolates from
 //    there;
 //  - a chunk with more runs, and every level above SEG_SCALE_MAX, takes
-//    B1's per-query path (8 corner float2 reads from the table);
+//    the per-query path of B1's design before its tile layout
+//    (encode_query: 8 corner float2 reads from the table);
 //  - a block writes one level's feature pair per query, a 128-byte stride at
 //    L = 16: the chunk's L blocks run together, so L2 merges the stores.
 // The TPU kernel's devices (SMEM scalar streams, the split-bf16 MXU lane
@@ -43,7 +44,7 @@ block_hash_seg_fwd_kernel(const float* __restrict__ x, const float* __restrict__
   const float2* table2 = reinterpret_cast<const float2*>(table);
 
   const int nseg = lv.runs[l] ? find_runs(x, chunk0, n, l, B, lv, sc) : -1;
-  if (nseg < 0) {  // B1's per-query path
+  if (nseg < 0) {  // the per-query path
     for (int i = threadIdx.x; i < n; i += THREADS) {
       const long long q = chunk0 + i;
       float p[3];

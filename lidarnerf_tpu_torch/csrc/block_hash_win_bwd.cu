@@ -25,8 +25,9 @@
 //    (64 / W of them, in registers); the W queries pass through the window
 //    by shuffles, each lane adds their terms at the float2s it owns, then
 //    adds its nonzero sums to the table: at most 64 atomics per window;
-//  - any other window, and every W = 1 level, takes B2's per-query path
-//    (8 float2 atomicAdds).
+//  - any other window, and every W = 1 level, takes the per-query path of
+//    B2's design before its tile layout (scatter_query: 8 float2
+//    atomicAdds).
 // The TPU kernel's devices (SMEM flag streams, tile reductions, 8 VMEM
 // accumulator copies, the MXU one-hot scatter of the dense pair) have no
 // place here. fp32 atomics add in an order that changes from run to run, so
@@ -68,7 +69,7 @@ __device__ __forceinline__ void win_bwd_chunk(const float* __restrict__ x,
 #pragma unroll
       for (int k = 0; k < 64 / W; ++k) flush_corner(row_grad, r + k * W, acc[k]);
     } else if (inside) {
-      scatter_query(c, __ldg(g + q * L + l), grad);  // B2's per-query path
+      scatter_query(c, __ldg(g + q * L + l), grad);  // the per-query path
     }
   }
 }
@@ -90,7 +91,7 @@ block_hash_win_bwd_kernel(const float* __restrict__ x, const float2* __restrict_
     case 2:
       win_bwd_chunk<2>(x, g, grad, chunk0, n, L, l, B, lv);
       break;
-    default:  // w = 1: B2's per-query path
+    default:  // w = 1: the per-query path
       for (int i = threadIdx.x; i < n; i += THREADS) {
         const long long q = chunk0 + i;
         float p[3];

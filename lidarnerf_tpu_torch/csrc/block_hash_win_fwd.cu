@@ -24,8 +24,9 @@
 //  - a uniform window's w lanes load its 512-byte row together, coalesced
 //    float4s, into a 512-byte shared-memory slot of the window, and each
 //    lane interpolates its query from there;
-//  - any other window, and every w = 1 level, takes B1's per-query path
-//    (8 corner float2 reads from the table).
+//  - any other window, and every w = 1 level, takes the per-query path of
+//    B1's design before its tile layout (encode_query: 8 corner float2
+//    reads from the table).
 // Shared memory: THREADS / w_min slots of 512 bytes, w_min the smallest
 // window above 1 among the levels (64 KiB at w = 2). The TPU kernel's
 // devices (SMEM flag streams, broadcast tile stores, the split-bf16 MXU
@@ -73,7 +74,7 @@ block_hash_win_fwd_kernel(const float* __restrict__ x, const float* __restrict__
         continue;
       }
     }
-    if (valid) out[q * L + l] = encode_query(p, l, B, lv, table2);  // B1's per-query path
+    if (valid) out[q * L + l] = encode_query(p, l, B, lv, table2);  // the per-query path
   }
 }
 

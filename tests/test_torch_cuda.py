@@ -28,37 +28,75 @@ def require_cuda():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
-def _points(Q, seed, coherent):
+def _rays(rs, Q, per_ray, length=0.5):
+    """Q samples along rays of `per_ray` consecutive samples each, in ray order."""
+    n = max(1, -(-Q // per_ray))
+    o = rs.uniform(0.3, 0.7, (n, 1, 3))
+    d = rs.normal(size=(n, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (o + d * np.linspace(0.0, length, per_ray)[None, :, None]).reshape(-1, 3)[:Q]
+
+
+# the point sets of the block-hash kernel tests, and their sizes
+POINTS = {
+    "rays": 20000,  # rays of ~512 samples, as a render chunk orders them
+    "uniform": 20000,  # no runs
+    "one_cell": 20013,  # every query in one cell: the worst contention
+    "ragged": 20013,  # rays of 333 samples: runs cross warp and tile ends, Q no multiple of 32
+    "reversed": 20013,  # the ragged rays in reverse order
+    "permuted": 20013,  # the ragged rays in a random order: no runs of lanes
+    "faces": 20013,  # rays clamped to [0, 1]^3 (samples on the faces), some left outside
+    "single": 1,
+}
+
+
+def _points(Q, seed, kind):
     rs = np.random.RandomState(seed)
-    if coherent:
-        n = max(1, Q // 512)
-        o = rs.uniform(0.3, 0.7, (n, 1, 3))
-        d = rs.normal(size=(n, 1, 3))
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        x = (o + d * np.linspace(0.0, 0.5, -(-Q // n))[None, :, None]).reshape(-1, 3)[:Q]
-    else:
+    if kind == "rays":
+        x = _rays(rs, Q, -(-Q // max(1, Q // 512)))
+    elif kind == "uniform":
         x = rs.uniform(-0.05, 1.05, (Q, 3))
-    x[:3] = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [1.0, 0.0, 0.5]]
-    return torch.from_numpy(x.astype(np.float32)).cuda()
+    elif kind == "one_cell":
+        x = np.repeat(rs.uniform(0.0, 1.0, (1, 3)), Q, axis=0)
+    elif kind in ("ragged", "reversed", "permuted"):
+        x = _rays(rs, Q, 333)
+        x = {"ragged": x, "reversed": x[::-1], "permuted": x[rs.permutation(Q)]}[kind]
+    elif kind == "faces":
+        x = _rays(rs, Q, 333, length=1.5)
+        clamped = np.repeat(rs.uniform(size=-(-Q // 333)) < 0.9, 333)[:Q]
+        x[clamped] = np.clip(x[clamped], 0.0, 1.0)
+    else:
+        x = rs.uniform(0.0, 1.0, (Q, 3))
+    if kind in ("rays", "uniform"):
+        x[:3] = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [1.0, 0.0, 0.5]]
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).cuda()
 
 
 SPECS = {
     "small": dict(num_levels=4, log2_hashmap_size=14, desired_resolution=32768),
     "full_width": dict(num_levels=16, log2_hashmap_size=19, desired_resolution=32768),
 }
+# B1 and B2 also take odd level counts, and up to MAX_LEVELS (the tile then
+# needs more than 48 KB of shared memory)
+B12_SPECS = {
+    **SPECS,
+    "odd_levels": dict(num_levels=3, log2_hashmap_size=14, desired_resolution=512),
+    "max_levels": dict(num_levels=32, log2_hashmap_size=14, desired_resolution=32768),
+}
 
 
-@pytest.mark.parametrize("coherent", [True, False], ids=["rays", "uniform"])
-@pytest.mark.parametrize("spec_name", list(SPECS))
-def test_block_hash_kernel_matches_plain(require_cuda, spec_name, coherent):
-    spec = block_hash.make_block_hash_spec(**SPECS[spec_name])
+@pytest.mark.parametrize("kind", list(POINTS))
+@pytest.mark.parametrize("spec_name", list(B12_SPECS))
+def test_block_hash_kernel_matches_plain(require_cuda, spec_name, kind):
+    spec = block_hash.make_block_hash_spec(**B12_SPECS[spec_name])
     g = torch.Generator(device="cuda").manual_seed(0)
     table = torch.randn(spec.table_rows, 128, generator=g, device="cuda")
-    x = _points(20000, 1, coherent)
+    x = _points(POINTS[kind], 1, kind)
     before = block_hash_cuda.launches
     out = block_hash.block_hash_encode(x, table, spec)
     torch.cuda.synchronize()
     assert block_hash_cuda.launches == before + 1
+    assert out.shape == (x.shape[0], spec.output_dim)
     ref = block_hash.encode_plain(x, table, spec)
     # the same fp32 products; 8 corners summed in another order (fma)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
@@ -81,7 +119,7 @@ def test_block_hash_kernel_empty_and_no_grad_guard(require_cuda):
     plain version; an empty batch launches nothing."""
     spec = block_hash.make_block_hash_spec(**SPECS["small"])
     table = torch.zeros(spec.table_rows, 128, device="cuda", requires_grad=True)
-    x = _points(3000, 2, coherent=True)
+    x = _points(3000, 2, "rays")
     g = torch.randn(3000, spec.output_dim, device="cuda")
     fwd0, bwd0 = block_hash_cuda.launches, block_hash_cuda.bwd_launches
     (block_hash.block_hash_encode(x, table, spec) * g).sum().backward()
@@ -95,12 +133,16 @@ def test_block_hash_kernel_empty_and_no_grad_guard(require_cuda):
     assert (block_hash_cuda.launches, block_hash_cuda.bwd_launches) == (fwd0 + 1, bwd0 + 1)
 
 
-@pytest.mark.parametrize("coherent", [True, False], ids=["rays", "uniform"])
-@pytest.mark.parametrize("spec_name", list(SPECS))
-def test_block_hash_bwd_kernel_matches_plain(require_cuda, spec_name, coherent):
-    spec = block_hash.make_block_hash_spec(**SPECS[spec_name])
-    x = _points(20000, 3, coherent)
-    g = torch.randn(20000, spec.output_dim, generator=torch.Generator(device="cuda").manual_seed(4),
+@pytest.mark.parametrize("kind", list(POINTS))
+@pytest.mark.parametrize("spec_name", list(B12_SPECS))
+def test_block_hash_bwd_kernel_matches_plain(require_cuda, spec_name, kind):
+    """B2 on every point set: runs summed in registers and carried from group
+    to group (rays, one cell, clamped samples on the faces), the plain path
+    (uniform, and any order without runs of lanes)."""
+    spec = block_hash.make_block_hash_spec(**B12_SPECS[spec_name])
+    Q = POINTS[kind]
+    x = _points(Q, 3, kind)
+    g = torch.randn(Q, spec.output_dim, generator=torch.Generator(device="cuda").manual_seed(4),
                     device="cuda")
     before = block_hash_cuda.bwd_launches
     out = block_hash_cuda.block_hash_bwd(x, g, spec)
@@ -112,15 +154,16 @@ def test_block_hash_bwd_kernel_matches_plain(require_cuda, spec_name, coherent):
 VARIANT_ENV = {"seg": "LIDARNERF_SEG_KERNELS", "win": "LIDARNERF_WIN_KERNELS"}
 
 
-@pytest.mark.parametrize("coherent", [True, False], ids=["rays", "uniform"])
+@pytest.mark.parametrize("kind", list(POINTS))
 @pytest.mark.parametrize("spec_name", list(SPECS))
 @pytest.mark.parametrize("variant", ["seg", "win"])
-def test_run_collapsing_forward_equals_b1_bit_for_bit(require_cuda, variant, spec_name, coherent):
-    """B3a and B4a load a run's or window's row once; the features are B1's."""
+def test_run_collapsing_forward_equals_b1_bit_for_bit(require_cuda, variant, spec_name, kind):
+    """B3a and B4a load a run's or window's row once; the features are B1's,
+    whose tile layout reads the same corners in the same order."""
     spec = block_hash.make_block_hash_spec(**SPECS[spec_name])
     table = torch.randn(spec.table_rows, 128, generator=torch.Generator(device="cuda").manual_seed(5),
                         device="cuda")
-    x = _points(20000, 6, coherent)
+    x = _points(POINTS[kind], 6, kind)
     counts = block_hash_cuda.launch_counts()
     out = block_hash_cuda.FWD[variant](x, table, spec)
     ref = block_hash_cuda.block_hash_fwd(x, table, spec)
@@ -130,14 +173,14 @@ def test_run_collapsing_forward_equals_b1_bit_for_bit(require_cuda, variant, spe
     assert after[f"block_hash_{variant}_fwd"] == counts[f"block_hash_{variant}_fwd"] + 1
 
 
-@pytest.mark.parametrize("coherent", [True, False], ids=["rays", "uniform"])
+@pytest.mark.parametrize("kind", ["rays", "uniform"])
 @pytest.mark.parametrize("spec_name", list(SPECS))
 @pytest.mark.parametrize("variant", ["seg", "win"])
-def test_run_collapsing_backward_matches_plain(require_cuda, variant, spec_name, coherent):
+def test_run_collapsing_backward_matches_plain(require_cuda, variant, spec_name, kind):
     """B3b and B4b within B2's slack of encode_bwd_plain and of their own
     run-structured plain versions."""
     spec = block_hash.make_block_hash_spec(**SPECS[spec_name])
-    x = _points(20000, 7, coherent)
+    x = _points(20000, 7, kind)
     g = torch.randn(20000, spec.output_dim, generator=torch.Generator(device="cuda").manual_seed(8),
                     device="cuda")
     out = block_hash_cuda.BWD[variant](x, g, spec)
@@ -166,7 +209,7 @@ def test_variant_on_cuda_launches_its_kernels_only(require_cuda, monkeypatch, va
     forward and backward once each, no other kernel, and no plain version."""
     monkeypatch.setenv(VARIANT_ENV[variant], "1")
     spec = block_hash.make_block_hash_spec(**SPECS["small"])
-    x = _points(5000, 9, coherent=True)
+    x = _points(5000, 9, "rays")
     g = torch.randn(5000, spec.output_dim, device="cuda")
     table = torch.zeros(spec.table_rows, 128, device="cuda", requires_grad=True)
 
