@@ -31,7 +31,11 @@ right, and profiles one render chunk and one training step per variant.
 B1 and B2 are also checked on adversarial point sets (one cell, runs
 crossing warp and tile ends, reversed and permuted orders, samples on the
 faces of the unit cube, one query) and timed in turns with the
-run-collapsing kernels that compute the same functions.
+run-collapsing kernels that compute the same functions. A determinism
+phase calls each backward kernel (B2, B3b, B4b) twice on a training chunk,
+1024 copies of one point and the adversarial sets, and with non-finite
+grads, and takes one full-width training step twice per variant from the
+same state and draws, comparing each pair bit for bit.
 Prints one JSON line of per-kernel numbers and ends with a JSON status line.
 Exits non-zero, with no result, when there is no GPU or when any phase fails.
 """
@@ -240,7 +244,7 @@ def synth_drive():
 
     with open(f"{DATA}/scene_constants.json") as f:
         c = json.load(f)
-    return KITTI360Dataset(DATA, split="train", scale=c["scale"], offset=c["offset"])
+    return KITTI360Dataset(root_path=DATA, split="train", scale=c["scale"], offset=c["offset"])
 
 
 def touched_rows(x, spec):
@@ -458,20 +462,18 @@ def block_hash_bwd_phase(spec, ds):
         cases[name] = (x, torch.randn((x.shape[0], spec.output_dim), generator=gen, device=dev))
     for name, (x, gx) in cases.items():
         out = block_hash_cuda.block_hash_bwd(x, gx, spec)
-        again = block_hash_cuda.block_hash_bwd(x, gx, spec)
         torch.cuda.synchronize()
         ref = encode_bwd_plain(x, gx, spec)
         err = (out - ref).abs()
         slack = BWD_RTOL * encode_bwd_plain(x, gx.abs(), spec) + BWD_ATOL
         worst = (err / slack).max().item()
-        rerun = (out - again).abs().max().item()
         log(f"block_hash_bwd vs plain ({name}, Q={x.shape[0]}): max_abs_err={err.max().item():.3e} "
             f"(largest entry {ref.abs().max().item():.3e}), worst err / (1e-5 S + 1e-7) = "
-            f"{worst:.3f}; two runs differ by up to {rerun:.3e} (fp32 atomics)")
+            f"{worst:.3f}")
         if not worst <= 1.0:
             raise AssertionError(f"block_hash_bwd disagrees with its plain version ({name})")
         max_err = max(max_err, err.max().item())
-        del out, again, ref, err, slack
+        del out, ref, err, slack
 
     n_rows = touched_rows(coarse, spec)
     bound_ms, bound_by, bytes_moved = bwd_bound(coarse, spec)
@@ -882,7 +884,6 @@ def variant_kernel_phase(spec, ds, variant):
     bwd_err = 0.0
     for name, x in (("training chunk", training), ("uniform", uniform)):
         out = bwd(x, g, spec)
-        again = bwd(x, g, spec)
         torch.cuda.synchronize()
         slack = BWD_RTOL * bh.encode_bwd_plain(x, g.abs(), spec) + BWD_ATOL
         ref = bh.encode_bwd_plain(x, g, spec)
@@ -891,15 +892,13 @@ def variant_kernel_phase(spec, ds, variant):
         del ref
         own = bh.ENCODE_BWD_PLAIN[variant](x, g, spec)
         worst_own = ((out - own).abs() / slack).max().item()
-        rerun = (out - again).abs().max().item()
         log(f"{bwd.__name__} ({name}, Q={Q}): max_abs_err vs encode_bwd_plain {err:.3e} "
             f"(largest entry {own.abs().max().item():.3e}); worst err / (1e-5 S + 1e-7): "
-            f"{worst:.3f} vs encode_bwd_plain, {worst_own:.3f} vs its own plain version; "
-            f"two runs differ by up to {rerun:.3e} (fp32 atomics)")
+            f"{worst:.3f} vs encode_bwd_plain, {worst_own:.3f} vs its own plain version")
         if not (worst <= 1.0 and worst_own <= 1.0):
             raise AssertionError(f"{bwd.__name__} disagrees with a plain version ({name})")
         bwd_err = max(bwd_err, err)
-        del out, again, own, slack
+        del out, own, slack
 
     n_fine = FULL.max_ray_batch * FULL.upsample_steps
     # in turns with B1/B2 on the same inputs: base, variant, variant, base
@@ -914,8 +913,6 @@ def variant_kernel_phase(spec, ds, variant):
     b_fine = cuda_ms(lambda: bwd(training[:n_fine], g[:n_fine], spec), reps=10)
     b_plain = cuda_ms(lambda: bh.ENCODE_BWD_PLAIN[variant](training, g, spec), reps=1,
                       batches=3, warmup=1)
-    if variant == "seg":
-        per_query_layout_phase(spec, serving, table, training, g)
     f_bound, f_by, f_bytes = fwd_bound(serving, spec, touched_rows(serving, spec))
     b_bound, b_by, b_bytes = bwd_bound(training, spec)
     log(f"{fwd.__name__} coarse call Q={serving.shape[0]}: {f_ms[0]:.4f} / {f_ms[1]:.4f} ms "
@@ -939,37 +936,89 @@ def variant_kernel_phase(spec, ds, variant):
     return entries
 
 
-def per_query_layout_phase(spec, serving, table, training, g):
-    """The seg kernels with no level walking runs: B1's and B2's per-query
-    work in the seg kernels' (level, 4096-query chunk) layout, timed to part
-    the layout's cost from the run walking's. A measurement only: it calls
-    the C entry points directly, with every level's run mode 0."""
-    import ctypes
+def bit_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
 
+
+def determinism_phase(spec, ds):
+    """The table gradient is the same bit for bit from run to run (the JAX
+    package's is): two calls of each backward kernel (B2, B3b, B4b) on the
+    training chunk, 1024 copies of one point and the adversarial sets, each
+    pair compared bitwise and each call held within its slack of its plain
+    versions; a NaN and Infs in g give non-finite entries where the plain
+    version has them. Then two whole full-width training steps per variant
+    from the same state and draws, compared bitwise: it prints what repeats
+    and what does not, and fails only on the kernels."""
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+    from lidarnerf_tpu_torch.ops import block_hash as bh
     from lidarnerf_tpu_torch.ops import block_hash_cuda as bhc
 
-    L = spec.num_levels
-    arrays = (*bhc._level_arrays(spec), (ctypes.c_int * L)())  # run modes all 0
-    stream = torch.cuda.current_stream().cuda_stream
-    times = {}
-    for name, source, x, other, out in (
-        ("block_hash_seg_fwd", bhc.SEG_FWD_SOURCE, serving, table,
-         torch.empty((serving.shape[0], spec.output_dim), device=serving.device)),
-        ("block_hash_seg_bwd", bhc.SEG_BWD_SOURCE, training, g,
-         torch.zeros((spec.table_rows, 128), device=training.device)),  # accumulates over calls
-    ):
-        fn = bhc._kernel(source, name, runs=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    training = training_chunk_queries(ds, dev, torch.Generator(device=dev).manual_seed(SEED + 2))
+    sets = {"training chunk": training,
+            "one point x 1024": torch.tensor([[0.3, 0.5, 0.7]], device=dev).repeat(1024, 1),
+            **adversarial_points(dev)}
+    failed = []
+    for variant in bh.VARIANTS:
+        kernel, own_plain = bhc.BWD[variant], bh.ENCODE_BWD_PLAIN[variant]
+        for name, x in sets.items():
+            g = torch.randn((x.shape[0], spec.output_dim), generator=gen, device=dev)
+            first, second = kernel(x, g, spec), kernel(x, g, spec)
+            torch.cuda.synchronize()
+            repeats = bit_equal(first, second)
+            slack = BWD_RTOL * bh.encode_bwd_plain(x, g.abs(), spec) + BWD_ATOL
+            worst = max(((first - ref(x, g, spec)).abs() / slack).max().item()
+                        for ref in (bh.encode_bwd_plain, own_plain))
+            log(f"determinism: {kernel.__name__} ({name}, Q={x.shape[0]}): two calls equal bit "
+                f"for bit: {repeats}; worst err / (1e-5 S + 1e-7) vs its plain versions {worst:.3f}")
+            if not (repeats and worst <= 1.0):
+                failed.append(f"{kernel.__name__} ({name})")
+            del first, second, slack
+        g = torch.randn((training.shape[0], spec.output_dim), generator=gen, device=dev)
+        Q = training.shape[0]  # a coarse level early in a ray, the finest level late in one
+        g[100, 1], g[Q // 15, 0], g[Q - 1000, -1] = float("nan"), float("inf"), float("-inf")
+        out, again = kernel(training, g, spec), kernel(training, g, spec)
+        ref = own_plain(training, g, spec)
+        same_set = torch.equal(out.isfinite(), ref.isfinite())
+        log(f"determinism: {kernel.__name__} with a NaN, an Inf and a -Inf in g (training chunk): "
+            f"{int((~out.isfinite()).sum())} non-finite entries, the plain version "
+            f"{int((~ref.isfinite()).sum())}, the same entries: {same_set}; two calls equal bit "
+            f"for bit: {bit_equal(out, again)}")
+        if not (same_set and (~ref.isfinite()).any() and bit_equal(out, again)):
+            failed.append(f"{kernel.__name__} (non-finite g)")
+        del out, again, ref
 
-        def call():
-            err = fn(x.data_ptr(), other.data_ptr(), out.data_ptr(), x.shape[0], L,
-                     spec.blocks_per_level, *arrays, stream)
-            if err:
-                raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-        times[name] = cuda_ms(call, reps=10)
-    log(f"seg kernels with every level per-query (the (level, chunk) layout alone, coarse "
-        f"calls): block_hash_seg_fwd {times['block_hash_seg_fwd']:.4f} ms, block_hash_seg_bwd "
-        f"{times['block_hash_seg_bwd']:.4f} ms (no zero fill)")
+    # two whole training steps from the same state and draws
+    poses, images = ds.device_arrays(dev)
+    vi = torch.zeros((len(ds), 1), dtype=torch.long, device=dev)
+    vc = torch.full((len(ds),), ds.H_lidar * ds.W_lidar, device=dev)
+    opt = train_opt(ds)
+    for variant in bh.VARIANTS:
+        set_variant(variant)
+        runs = []
+        for _ in range(2):
+            trainer = Trainer("chip_smoke", opt, new_model(opt, fp16=FULL.fp16), mute=True)
+            step = trainer._get_step_fn(1)
+            draws = torch.Generator(device=dev).manual_seed(SEED + 9)
+            m = step(poses, images, vi, vc, 0, generator=draws)
+            adam = trainer.optimizer[0]
+            named = dict(trainer.model.named_parameters())
+            state = {f"{k} {s}": v for k, p in named.items() for s, v in adam.state.get(p, {}).items()}
+            runs.append({"loss": m["loss"], **{f"{k} grad": p.grad for k, p in named.items()
+                                               if p.grad is not None},
+                         **{k: p.detach() for k, p in named.items()}, **state})
+            del trainer, step
+        set_variant("default")
+        differ = {k: (runs[0][k].float() - runs[1][k].float()).abs().max().item()
+                  for k in runs[0] if not bit_equal(runs[0][k], runs[1][k])}
+        log(f"determinism: one full-width training step ({variant} variant), twice from the same "
+            f"state and draws: {len(runs[0]) - len(differ)} of {len(runs[0])} tensors (loss, "
+            f"gradients, parameters, Adam state) equal bit for bit"
+            + (f"; differ (max |a - b|): {differ}" if differ else ""))
+    if failed:
+        raise AssertionError(f"backward kernels that do not repeat or disagree: {failed}")
 
 
 def variant_serving_phase(renderer, variant, default_frame):
@@ -1428,6 +1477,7 @@ def main():
     run_structure_phase(spec, ds)
     for variant in VARIANT_ENV:
         kernels += variant_kernel_phase(spec, ds, variant)
+    determinism_phase(spec, ds)
 
     # serving
     params = flax_layout_params(SEED, FULL)

@@ -10,11 +10,19 @@ built at first use from `csrc/` into `_build/`; beside it stays a plain
 PyTorch version of the same function. A CUDA tensor always takes the kernel,
 a CPU tensor the plain version (`ops/dispatch.py`).
 
-Ported so far: full-pano LiDAR inference rendering (`nerf/infer.PanoRenderer`)
-with the block-hash forward kernel (`csrc/block_hash_fwd.cu`), and training
-(`nerf/train_step.make_train_step`, `nerf/trainer.Trainer`,
-`dataset/kitti360.KITTI360Dataset`) with the block-hash backward kernel
-(`csrc/block_hash_bwd.cu`) for the table gradient.
+Ported so far:
+- full-pano LiDAR inference rendering (`nerf/infer.PanoRenderer`) with the
+  block-hash forward kernel B1 (`csrc/block_hash_fwd.cu`);
+- training (`nerf/train_step.make_train_step`, `nerf/trainer.Trainer`,
+  `dataset/kitti360.KITTI360Dataset`) with the block-hash backward kernel
+  B2 (`csrc/block_hash_bwd.cu`), whose table gradient is the same bit for
+  bit from run to run, as the JAX package's;
+- the run-collapsing encoder variants on both paths
+  (`LIDARNERF_SEG_KERNELS=1`: B3a/B3b, `LIDARNERF_WIN_KERNELS=1`: B4a/B4b,
+  `csrc/block_hash_{seg,win}_{fwd,bwd}.cu`);
+- occupancy-prior sampling (`--fast`, `models/occupancy.py`) on both paths;
+- the fused MLP B5 (`ops/fused_mlp.py`, `csrc/fused_mlp.cu`) and the
+  permutation gather B6 of `ops/sampling.sort_merge_z` (`csrc/perm_gather.cu`).
 """
 
 __version__ = "0.1.0"

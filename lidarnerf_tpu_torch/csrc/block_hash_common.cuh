@@ -5,8 +5,10 @@
 // cell, block row and trilinear weights for a query, and the forwards sum a
 // cell's corners in one order. The plain PyTorch version of the same
 // indexing is lidarnerf_tpu_torch/ops/block_hash.py::level_indices_and_weights.
+// The backwards' shared parts are in block_hash_scatter.cuh.
 //
-// The tile layout of B1 and B2. Both replace TPU kernels whose cost on this
+// The tile layout of B1 and B2 (and of B3a and B4b, which compute their
+// functions). Both replace TPU kernels whose cost on this
 // card is not arithmetic but where the lanes of a warp go: with one thread
 // per (query, level), level fastest, a warp's 32 lanes would sit on 16
 // levels of 2 queries and touch 32 rows in 16 level sub-tables, although at
@@ -26,11 +28,13 @@
 //    and feature gradients [TILE, L] float2 are staged once with coalesced
 //    loads, and each warp keeps its sums for one block row (64 float2),
 //    carried from group to group.
+//  - B3a: B1's tile widened to SEG_GROUPS groups, its warps walking each
+//    level over the groups in order; B4b: B2's tile.
 // The [*, L] float2 tiles keep their rows tile_stride(L) = L | 1 float2s
 // apart: with an odd stride the 16 lanes of a half-warp, on 16 consecutive
 // queries of one level, fall in 16 different bank pairs.
-// B3a/B3b and B4a/B4b keep the one-thread-per-query layout of their
-// (level, 4096-query chunk) blocks and B2's per-query scatter_query.
+// B3b and B4a keep the one-thread-per-query layout of their (level,
+// 4096-query chunk) blocks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -172,9 +176,9 @@ __device__ __forceinline__ float2 trilerp(const Cell& c, Corner corner) {
   return acc;
 }
 
-// One (query, level) of the per-query paths of B3a and B4a (B1's work
-// before its tile layout): the features read from the table in device
-// memory; zero outside [0, 1]^3.
+// One (query, level) of B4a's per-query path (B1's work before its tile
+// layout): the features read from the table in device memory; zero
+// outside [0, 1]^3.
 __device__ __forceinline__ float2 encode_query(const float p[3], int l, uint32_t B,
                                                const Levels& lv,
                                                const float2* __restrict__ table) {
@@ -196,7 +200,7 @@ __device__ __forceinline__ int corner_of_offset(int k) {
 // An 8 x 8 transpose within each octet of lanes: lane k of an octet holds
 // v[r] = corner k of the octet's query r; afterwards lane r holds v[k] =
 // corner k of its own query (B1's loads), and the same call turns a lane's
-// own 8 corners into corner k of the octet's 8 queries (B2's atomics).
+// own 8 corners into corner k of the octet's 8 queries (B2's adds).
 // Three butterfly stages of 4 float2 swaps.
 __device__ __forceinline__ void transpose_octet(float2 v[8], int k) {
 #pragma unroll
@@ -217,80 +221,25 @@ __device__ __forceinline__ void transpose_octet(float2 v[8], int k) {
   }
 }
 
-// The per-query path of B3b and B4b (and of B2 before its tile layout) for
-// one (query, level) inside [0, 1]^3: one float2 atomicAdd of w * g to each
-// of the cell's 8 corners.
-__device__ __forceinline__ void scatter_query(const Cell& c, float2 gv, float2* __restrict__ grad) {
-  float2* corner = grad + c.corner0;
+#define FEW_ROWS 8  // at most this many runs of rows in a warp: each lane reads its own corners
+
+// B1's corner loads of one (group, level): v[i] = corner i of the lane's
+// cell, `local` its first corner within the level's float2s `level`, and
+// `heads` the lanes whose row differs from the previous lane's. Where the
+// warp's cells lie in at most FEW_ROWS runs of rows each lane reads its own
+// corners (mostly broadcasts of a few lines); elsewhere the 8 lanes of an
+// octet read one query's 8 corners per load, 8 lines per instruction
+// instead of 32, and an octet transpose hands each lane its own.
+__device__ __forceinline__ void load_corners(const float2* __restrict__ level, uint32_t local,
+                                             unsigned heads, int lane, float2 v[8]) {
+  if (__popc(heads) <= FEW_ROWS) {
 #pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
+    for (int i = 0; i < 8; ++i) v[i] = __ldg(level + local + offset_of_corner(i));
+  } else {
+    const int octet = lane & ~7, k8 = lane & 7;
 #pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const float wxy = __fmul_rn(c.wx[dx], c.wy[dy]);
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const float w = __fmul_rn(wxy, c.wz[dz]);
-        atomicAdd(corner + corner_offset(dx, dy, dz),
-                  make_float2(__fmul_rn(w, gv.x), __fmul_rn(w, gv.y)));
-      }
-    }
+    for (int r = 0; r < 8; ++r)
+      v[r] = __ldg(level + __shfl_sync(FULL_MASK, local, octet + r) + offset_of_corner(k8));
+    transpose_octet(v, k8);
   }
-}
-
-// The run-collapsing backwards (B3b, B4b) sum the terms of a group of
-// queries that share one block row before they add them to the table. A
-// query travels between the lanes of its group as its cell's corner offset
-// in the row (`off`, from Cell::corner0 & 63), the fractions of its
-// position (Cell::wx[1], wy[1], wz[1]) and its feature grads.
-struct Term {
-  int off;
-  float fx, fy, fz;
-  float2 g;
-};
-
-__device__ __forceinline__ Term shfl_term(unsigned mask, const Term& t, int src) {
-  Term r;
-  r.off = __shfl_sync(mask, t.off, src);
-  r.fx = __shfl_sync(mask, t.fx, src);
-  r.fy = __shfl_sync(mask, t.fy, src);
-  r.fz = __shfl_sync(mask, t.fz, src);
-  r.g.x = __shfl_sync(mask, t.g.x, src);
-  r.g.y = __shfl_sync(mask, t.g.y, src);
-  return r;
-}
-
-// Adds a query's term at corner float2 `s` of its row (0 <= s < 64) to
-// `acc`: w * g with w its trilinear weight there, the same products as
-// scatter_query, or nothing if s is not a corner of its cell.
-__device__ __forceinline__ void add_corner_term(float2& acc, int s, const Term& t) {
-  const int dx = (s >> 4) - (t.off >> 4);
-  const int dy = ((s >> 2) & 3) - ((t.off >> 2) & 3);
-  const int dz = (s & 3) - (t.off & 3);
-  if ((unsigned)dx > 1u || (unsigned)dy > 1u || (unsigned)dz > 1u) return;
-  const float wx = dx ? t.fx : 1.f - t.fx;
-  const float wy = dy ? t.fy : 1.f - t.fy;
-  const float wz = dz ? t.fz : 1.f - t.fz;
-  const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
-  acc.x = __fadd_rn(acc.x, __fmul_rn(w, t.g.x));
-  acc.y = __fadd_rn(acc.y, __fmul_rn(w, t.g.y));
-}
-
-// The term of query q at level l: zero grads outside [0, 1]^3 (the JAX
-// package zeroes those grads before its backward) and for a lane with no
-// query (valid false).
-__device__ __forceinline__ Term make_term(const Cell& c, bool inside, const float2* __restrict__ g,
-                                          long long q, int L, int l) {
-  Term t;
-  t.off = (int)(c.corner0 & 63);
-  t.fx = c.wx[1];
-  t.fy = c.wy[1];
-  t.fz = c.wz[1];
-  t.g = inside ? __ldg(g + q * L + l) : make_float2(0.f, 0.f);
-  return t;
-}
-
-// Adds a group's summed corner float2s to the table, one atomicAdd each;
-// a float2 that no query touched (or whose terms cancel to zero) is skipped.
-__device__ __forceinline__ void flush_corner(float2* __restrict__ row, int s, float2 acc) {
-  if (acc.x != 0.f || acc.y != 0.f) atomicAdd(row + s, acc);
 }

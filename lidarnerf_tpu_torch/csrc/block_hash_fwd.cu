@@ -43,8 +43,6 @@
 
 #include "block_hash_common.cuh"
 
-#define FEW_ROWS 8  // at most this many runs of rows in a warp: each lane reads its own corners
-
 __global__ void __launch_bounds__(THREADS)
 block_hash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ table,
                       float2* __restrict__ out, long long Q, int L, uint32_t B,
@@ -61,7 +59,6 @@ block_hash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ tab
   const int s = min(lane, n - 1);  // a lane past the end repeats the last query, never stored
   const float p[3] = {points[3 * s], points[3 * s + 1], points[3 * s + 2]};
   const bool inside = !outside_unit_cube(p);
-  const int octet = lane & ~7, k8 = lane & 7;
   for (int l = warp; l < L; l += WARPS) {
     const Cell c = locate(p, l, B, lv);
     const size_t level0 = (size_t)l * B * 64;  // the level's first float2
@@ -71,15 +68,7 @@ block_hash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ tab
     const uint32_t prev = __shfl_up_sync(FULL_MASK, row, 1);
     const unsigned heads = __ballot_sync(FULL_MASK, lane == 0 || row != prev);
     float2 v[8];
-    if (__popc(heads) <= FEW_ROWS) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = __ldg(level + local + offset_of_corner(i));
-    } else {
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        v[r] = __ldg(level + __shfl_sync(FULL_MASK, local, octet + r) + offset_of_corner(k8));
-      transpose_octet(v, k8);
-    }
+    load_corners(level, local, heads, lane, v);
     features[lane * stride + l] =
         inside ? trilerp(c, [&](int k) { return v[corner_of_offset(k)]; }) : make_float2(0.f, 0.f);
   }

@@ -2,9 +2,11 @@
 
 Loads `transforms_{seq}_{split}.json` and the pano `.npy`s into stacked
 arrays: images [F, H, W, 3] = (ray_drop, intensity, depth * scale) and
-lidar2world poses recentred and scaled as (t - offset) * scale. Training
-samples its rays on the device from `device_arrays` (nerf/train_step.py);
-the host API `collate`/`dataloader` comes with the eval slice.
+lidar2world poses recentred and scaled as (t - offset) * scale. The fields
+are the JAX dataclass's, in its order. Training samples its rays on the
+device from `device_arrays` (nerf/train_step.py); the host API
+(`collate`, `dataloader`, `SimpleLoader`) is not ported yet (ROADMAP.md,
+queue A item 2).
 """
 
 import json
@@ -20,19 +22,35 @@ INTRINSICS_LIDAR = (2.0, 26.9)  # fov_up, fov
 
 @dataclass
 class KITTI360Dataset:
-    root_path: str = "data/kitti360"
+    device: str = "cpu"  # the default device of `device_arrays`
     split: str = "train"
+    root_path: str = "data/kitti360"
     sequence_id: str = "1908"
+    preload: bool = True  # frames are always loaded at construction, as in the JAX package
     scale: float = 1.0
     offset: list = field(default_factory=lambda: [0, 0, 0])
+    fp16: bool = True  # not read, as in the JAX package
+    patch_size: int = 1  # read by the host collate only (not ported)
+    patch_size_lidar: int = 1  # read by the host collate only (not ported)
+    enable_lidar: bool = True
+    num_rays: int = 4096
+    num_rays_lidar: int = 4096
 
     def __post_init__(self):
         if self.sequence_id not in SEQUENCES:
             raise ValueError(f"Invalid sequence id: {self.sequence_id}")
+        if not self.enable_lidar:
+            raise NotImplementedError("enable_lidar=False (RGB frames) is not ported yet "
+                                      "(ROADMAP.md, queue A item 4)")
+        self.training = self.split in ["train", "all", "trainval"]
+        self.num_rays = self.num_rays if self.training else -1
+        self.num_rays_lidar = self.num_rays_lidar if self.training else -1
 
         path = os.path.join(self.root_path, f"transforms_{self.sequence_id}_{self.split}.json")
         with open(path) as f:
             transform = json.load(f)
+        self.H = int(transform["h"]) if "h" in transform else None
+        self.W = int(transform["w"]) if "w" in transform else None
         self.H_lidar = int(transform["h_lidar"])
         self.W_lidar = int(transform["w_lidar"])
 
@@ -50,9 +68,10 @@ class KITTI360Dataset:
         self.intrinsics_lidar = INTRINSICS_LIDAR
         self._device_cache = {}
 
-    def device_arrays(self, device):
-        """(poses [F, 4, 4], images [F, H, W, 3]) float32 tensors on `device`, cached."""
-        device = torch.device(device)
+    def device_arrays(self, device=None):
+        """(poses [F, 4, 4], images [F, H, W, 3]) float32 tensors on `device`
+        (default: the dataset's `device`), cached."""
+        device = torch.device(self.device if device is None else device)
         if device not in self._device_cache:
             self._device_cache[device] = (
                 torch.as_tensor(self.poses_lidar, dtype=torch.float32, device=device),

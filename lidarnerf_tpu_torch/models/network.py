@@ -28,6 +28,17 @@ from lidarnerf_tpu_torch.ops.encoders import frequency_encode, frequency_encodin
 LIDAR_DIR_DEGREE = 12  # frequency degree of the LiDAR direction encoding
 
 
+def check_seam_flags(opt):
+    """Raise on the CLI's seam options (`--seam_tie`, `--seam_sync_hashed`),
+    which the JAX package applies in its model and trainer and the port does
+    not yet (ROADMAP.md, queue A item 5: off-main-path options)."""
+    if getattr(opt, "seam_tie", False):
+        raise NotImplementedError("opt.seam_tie is not ported yet (ROADMAP.md, queue A item 5)")
+    if getattr(opt, "seam_sync_hashed", 0) > 0:
+        raise NotImplementedError("opt.seam_sync_hashed > 0 is not ported yet "
+                                  "(ROADMAP.md, queue A item 5)")
+
+
 class MLP(nn.Module):
     """Bias-free ReLU MLP; weights init Uniform(+-1/sqrt(fan_in)) like torch nn.Linear."""
 
@@ -55,11 +66,23 @@ class MLP(nn.Module):
 
 
 class NeRFNetwork(nn.Module):
+    """The JAX module's fields, in its order, then `generator` (the init's
+    random stream). Values not ported yet raise: encodings other than
+    'blockhash' (the JAX default is 'hashgrid': ROADMAP.md queue A item 4),
+    n_features_per_level != 2, bg_radius > 0 (the background sphere) and
+    seam_tie (queue A item 5). `encoding_dir` is not read, as in the JAX
+    module (directions take the frequency or SH encoding of their head);
+    `multires` only with the frequency encoding and `num_layers_bg`,
+    `hidden_dim_bg` only with the background sphere."""
+
     def __init__(
         self,
         encoding="blockhash",
+        encoding_dir="sphere_harmonics",
+        multires=6,
         desired_resolution=2048,
         log2_hashmap_size=19,
+        n_features_per_level=2,
         num_levels=16,
         base_resolution=16,
         num_layers=2,
@@ -69,15 +92,31 @@ class NeRFNetwork(nn.Module):
         hidden_dim_color=64,
         out_color_dim=3,
         out_lidar_color_dim=2,
+        num_layers_bg=2,
+        hidden_dim_bg=64,
+        bg_radius=-1.0,
         bound=1.0,
         compute_dtype=torch.float32,
+        seam_tie=False,
         generator=None,
     ):
         super().__init__()
         if encoding != "blockhash":
             raise NotImplementedError(
-                f"encoding {encoding!r}: only 'blockhash' is ported so far"
+                f"encoding {encoding!r}: only 'blockhash' is ported so far "
+                "(ROADMAP.md, queue A item 4)"
             )
+        if n_features_per_level != 2:
+            raise NotImplementedError(
+                f"n_features_per_level={n_features_per_level}: the block-hash table "
+                "stores 2 features per level"
+            )
+        if bg_radius > 0:
+            raise NotImplementedError("the background sphere (bg_radius > 0) is not ported "
+                                      "yet (ROADMAP.md, queue A item 4)")
+        if seam_tie:
+            raise NotImplementedError("seam_tie is not ported yet (ROADMAP.md, queue A item 5: "
+                                      "off-main-path options)")
         self.bound = bound
         self.block_spec = bhash.make_block_hash_spec(
             num_levels=num_levels,

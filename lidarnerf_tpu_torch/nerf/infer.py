@@ -9,7 +9,8 @@ of `Trainer.test` (:718-736): it renders every ray of a LiDAR pano in
 desired_resolution, log2_hashmap_size, num_layers, hidden_dim, geo_feat_dim,
 bound, scale, num_steps, upsample_steps, max_ray_batch, fp16, alpha_r, and
 for `--fast` occ_sampling with the occ_* fields (models/occupancy.py). As in
-the CLI, min_near_lidar = scale.
+the CLI, min_near_lidar = scale. The seam options `seam_tie` and
+`seam_sync_hashed`, not ported yet, raise when set.
 """
 
 import numpy as np
@@ -17,7 +18,7 @@ import torch
 
 from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
 from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar
-from lidarnerf_tpu_torch.models.network import NeRFNetwork
+from lidarnerf_tpu_torch.models.network import NeRFNetwork, check_seam_flags
 from lidarnerf_tpu_torch.models.occupancy import occ_config_from_opt
 from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays_staged
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
@@ -39,6 +40,7 @@ class PanoRenderer:
     """
 
     def __init__(self, opt, params, device=None, occ_grid=None):
+        check_seam_flags(opt)
         self.device = resolve_device(device)
         self.opt = opt
         self.network = NeRFNetwork(

@@ -8,8 +8,8 @@ optimisation step each, the per-step path of the JAX trainer's epoch
 (:426-562), refreshes the occupancy grid every `occ_update_interval` steps,
 updates the EMA once and logs rays/s and samples/s.
 
-Only `workspace=None` runs in this slice: checkpoints, eval, test, the
-tensorboard writer and resume come with ROADMAP.md queue A item 3.
+Only `workspace=None` runs so far: checkpoints, eval, test, the tensorboard
+writer and resume come with ROADMAP.md queue A item 3.
 """
 
 import time
@@ -17,6 +17,7 @@ import time
 import numpy as np
 import torch
 
+from lidarnerf_tpu_torch.models.network import check_seam_flags
 from lidarnerf_tpu_torch.models.occupancy import init_occ_grid, occ_config_from_opt, update_occ_grid
 from lidarnerf_tpu_torch.models.renderer import RenderConfig
 from lidarnerf_tpu_torch.nerf.train_step import (
@@ -28,6 +29,11 @@ from lidarnerf_tpu_torch.nerf.train_step import (
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
 
 _NOT_PORTED = "(ROADMAP.md, queue A item 3: checkpoints, eval, test and resume)"
+# the defaults of the JAX trainer's parameters that are not ported yet
+# (workspace: None until the workspace is)
+_DEFAULTS = dict(metrics=None, depth_metrics=None, eval_interval=1, ckpt_interval=1,
+                 max_keep_ckpt=2, workspace=None, best_mode="min", use_checkpoint="latest",
+                 use_tensorboardX=True, ckpt_format="pickle")
 
 
 def _patch_key(p):
@@ -37,6 +43,12 @@ def _patch_key(p):
 class Trainer:
     """Trains a NeRFNetwork in place.
 
+    The parameters are the JAX trainer's, in its order
+    (lidarnerf_tpu/nerf/trainer.py:60-78). Those of what is not ported yet
+    (metrics, eval, checkpoints, the workspace, tensorboard: ROADMAP.md,
+    queue A item 3) raise when given a value other than their default;
+    `workspace` defaults to None here until then.
+
     Args:
         name: run name, used in the log.
         opt: options object with the CLI's field names (main_lidarnerf.py):
@@ -44,18 +56,31 @@ class Trainer:
             min_near_lidar, min_near, bound, patch_size_lidar,
             change_patch_size_lidar, change_patch_size_epoch, seed; for
             `--fast`, occ_sampling and occ_grid_size, occ_update_interval,
-            density_thresh, occ_floor, occ_bins, occ_dilate.
-        model: NeRFNetwork, moved to `device`.
+            density_thresh, occ_floor, occ_bins, occ_dilate. The seam
+            options `seam_tie` and `seam_sync_hashed` raise when set.
+        module: the NeRFNetwork, moved to `device` and trained in place (the
+            JAX trainer takes an unbound flax module and makes its
+            parameters; a torch module holds its own).
         device: None runs on CUDA and raises if there is none; pass "cpu"
             to run the plain PyTorch path on the CPU.
+        mute: no log lines.
         ema_decay: keep an EMA shadow of the parameters, updated per epoch.
-        workspace: must be None in this slice.
     """
 
-    def __init__(self, name, opt, model, device=None, ema_decay=None, workspace=None,
-                 mute=False):
-        if workspace is not None:
-            raise NotImplementedError(f"a Trainer workspace is not ported yet {_NOT_PORTED}")
+    def __init__(self, name, opt, module, device=None, mute=False, metrics=None,
+                 depth_metrics=None, ema_decay=None, eval_interval=1, ckpt_interval=1,
+                 max_keep_ckpt=2, workspace=None, best_mode="min", use_checkpoint="latest",
+                 use_tensorboardX=True, ckpt_format="pickle"):
+        given = dict(metrics=metrics or None, depth_metrics=depth_metrics or None,
+                     eval_interval=eval_interval, ckpt_interval=ckpt_interval,
+                     max_keep_ckpt=max_keep_ckpt, workspace=workspace, best_mode=best_mode,
+                     use_checkpoint=use_checkpoint, use_tensorboardX=use_tensorboardX,
+                     ckpt_format=ckpt_format)
+        unported = [k for k, v in given.items() if v != _DEFAULTS[k]]
+        if unported:
+            raise NotImplementedError(f"Trainer({', '.join(unported)}=...) is not ported yet "
+                                      f"{_NOT_PORTED}")
+        check_seam_flags(opt)
         self.device = resolve_device(device)
         self.name = name
         self.opt = opt
@@ -100,7 +125,7 @@ class Trainer:
         self.occ_grid = None if occ_cfg is None else init_occ_grid(occ_cfg, self.device)
 
         seed = getattr(opt, "seed", 0)
-        self.model = model.to(self.device)
+        self.model = module.to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), self.train_cfg)
         self.ema_params = (
             {k: v.detach().clone() for k, v in self.model.state_dict().items()}

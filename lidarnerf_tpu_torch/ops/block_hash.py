@@ -9,7 +9,8 @@ instant-ngp into 2^log2_hashmap_size / 64 blocks per level.
 `block_hash_encode` is the entry point, an autograd Function on both
 devices. A CUDA tensor goes through the hand-written kernels
 (`block_hash_cuda.py`): the forward `csrc/block_hash_fwd.cu` and, for the
-table gradient, the backward `csrc/block_hash_bwd.cu`. A CPU tensor goes
+table gradient, the backward `csrc/block_hash_bwd.cu`, whose result is the
+same bit for bit from run to run, as the JAX package's. A CPU tensor goes
 through their plain versions below: `encode_plain`, the counterpart of
 `_encode_xla`, and `encode_bwd_plain`, the counterpart of the XLA branch of
 `_encode_bwd`. The plain versions are also the kernels' oracles on the card.

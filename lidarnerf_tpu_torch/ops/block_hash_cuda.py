@@ -12,7 +12,10 @@ with its XLA prep, and has a plain PyTorch version in `block_hash.py`:
 | `block_hash_win_fwd` | B4a | `_fwd_win_from_prep` + `pack_win_flags` | `encode_plain` |
 | `block_hash_win_bwd` | B4b | `_bwd_win_from_prep` | `encode_bwd_win_plain` |
 
-The wrappers never fall back to the plain versions: they launch the kernel
+The backward wrappers' table gradient is the same bit for bit from run to
+run: their kernels add through an order-free fixed-point accumulator in a
+scratch buffer the wrapper allocates (`csrc/block_hash_scatter.cuh`). The
+wrappers never fall back to the plain versions: they launch the kernel
 or raise. Each has its own launch count (`launches`, `bwd_launches`,
 `seg_fwd_launches`, `seg_bwd_launches`, `win_fwd_launches`,
 `win_bwd_launches`; `launch_counts()` reads all six), so a run can show that
@@ -59,7 +62,7 @@ def reset_counts():
         globals()[var] = 0
 
 
-def _kernel(source, name, runs=False):
+def _kernel(source, name, runs=False, scratch=False):
     if name in _fns:
         return _fns[name]
     fn = getattr(cuda_lib.load(source), name)
@@ -67,7 +70,8 @@ def _kernel(source, name, runs=False):
     fn.argtypes = [
         ctypes.c_void_p,  # x [Q, 3] f32
         ctypes.c_void_p,  # fwd: table [L*B, 128] f32; bwd: g [Q, 2L] f32
-        ctypes.c_void_p,  # fwd: out [Q, 2L] f32; bwd: grad [L*B, 128] f32, zeroed
+        ctypes.c_void_p,  # fwd: out [Q, 2L] f32; bwd: grad [L*B, 128] f32
+        *([ctypes.c_void_p] if scratch else []),  # bwd: the accumulator's scratch
         ctypes.c_longlong,  # Q
         ctypes.c_int,  # L
         ctypes.c_int,  # B, blocks per level
@@ -121,13 +125,14 @@ def _check(name, x, other, other_name, other_shape, spec):
         raise ValueError(f"at most {MAX_LEVELS} levels, got {spec.num_levels}")
 
 
-def _launch(name, source, variant, x, other, out, spec):
+def _launch(name, source, variant, x, other, out, spec, scratch=None):
     """Launch kernel `name` of `source` on the current stream; raise on failure."""
-    fn = _kernel(source, name, runs=variant != "default")
+    fn = _kernel(source, name, runs=variant != "default", scratch=scratch is not None)
+    extra = () if scratch is None else (scratch.data_ptr(),)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), other.data_ptr(), out.data_ptr(), x.shape[0], spec.num_levels,
-                 spec.blocks_per_level, *_level_arrays(spec, variant), stream)
+        err = fn(x.data_ptr(), other.data_ptr(), out.data_ptr(), *extra, x.shape[0],
+                 spec.num_levels, spec.blocks_per_level, *_level_arrays(spec, variant), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
@@ -145,17 +150,24 @@ def _fwd(name, source, variant, x, table, spec):
     return out, True
 
 
+def scratch_words(spec) -> int:
+    """int64 words of a backward call's scratch (block_hash_scatter.cuh
+    fixed_scratch_bytes): the fixed-point sums of the table, M and a flag."""
+    return spec.table_rows * 128 + 2
+
+
 def _bwd(name, source, variant, x, g, spec):
-    """The backward wrappers' shared body: the output's zero fill is part of
-    the call. Returns (grad, launched)."""
+    """The backward wrappers' shared body: the kernel call zeroes the output
+    and the scratch itself. Returns (grad, launched)."""
     _check(name, x, g, "g", (x.shape[0], spec.output_dim), spec)
     if g.data_ptr() % 8:
         raise ValueError(f"{name} reads g as float2s: it must be 8-byte aligned")
     block_hash.check_even_levels(spec, variant)
-    grad = torch.zeros((spec.table_rows, 128), dtype=torch.float32, device=x.device)
     if x.shape[0] == 0:
-        return grad, False
-    _launch(name, source, variant, x, g, grad, spec)
+        return torch.zeros((spec.table_rows, 128), dtype=torch.float32, device=x.device), False
+    grad = torch.empty((spec.table_rows, 128), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(scratch_words(spec), dtype=torch.int64, device=x.device)
+    _launch(name, source, variant, x, g, grad, spec, scratch)
     return grad, True
 
 
@@ -173,7 +185,8 @@ def block_hash_fwd(x: torch.Tensor, table: torch.Tensor, spec) -> torch.Tensor:
 def block_hash_bwd(x: torch.Tensor, g: torch.Tensor, spec) -> torch.Tensor:
     """B2: [Q, 3] float32 points, [Q, 2L] float32 feature grads -> [L*B, 128] table gradient.
 
-    Points outside [0, 1]^3 contribute nothing. Launches on the current stream.
+    Points outside [0, 1]^3 contribute nothing. The same inputs give the
+    same gradient bit for bit. Launches on the current stream.
     """
     global bwd_launches
     grad, launched = _bwd("block_hash_bwd", BWD_SOURCE, "default", x, g, spec)
@@ -193,7 +206,7 @@ def block_hash_seg_fwd(x: torch.Tensor, table: torch.Tensor, spec) -> torch.Tens
 
 
 def block_hash_seg_bwd(x: torch.Tensor, g: torch.Tensor, spec) -> torch.Tensor:
-    """B3b: `block_hash_bwd`'s function, one set of atomics per run of equal rows."""
+    """B3b: `block_hash_bwd`'s function, one set of adds per run of equal rows."""
     global seg_bwd_launches
     grad, launched = _bwd("block_hash_seg_bwd", SEG_BWD_SOURCE, "seg", x, g, spec)
     seg_bwd_launches += launched
@@ -212,7 +225,7 @@ def block_hash_win_fwd(x: torch.Tensor, table: torch.Tensor, spec) -> torch.Tens
 
 
 def block_hash_win_bwd(x: torch.Tensor, g: torch.Tensor, spec) -> torch.Tensor:
-    """B4b: `block_hash_bwd`'s function, one set of atomics per uniform window."""
+    """B4b: `block_hash_bwd`'s function, one set of adds per uniform window."""
     global win_bwd_launches
     grad, launched = _bwd("block_hash_win_bwd", WIN_BWD_SOURCE, "win", x, g, spec)
     win_bwd_launches += launched

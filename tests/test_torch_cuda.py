@@ -191,6 +191,108 @@ def test_run_collapsing_backward_matches_plain(require_cuda, variant, spec_name,
     assert ((out - own).abs() <= 1e-5 * S + 1e-7).all()
 
 
+def _model_chunk(kind):
+    """The coarse queries of one 4096-ray chunk as the model's paths form
+    them, 768 samples per ray in ray order: a served pano's first chunk, or
+    a training chunk of frame 0 of data_synth_drive60 (jittered samples)."""
+    import json
+    from pathlib import Path
+
+    from lidarnerf_tpu_torch.dataset.base import get_lidar_rays, rays_from_indices, sample_ray_indices
+    from lidarnerf_tpu_torch.dataset.kitti360 import KITTI360Dataset
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    if kind == "served_chunk":
+        scale = 0.010784853507573345
+        rays = get_lidar_rays(torch.eye(4, device="cuda")[None], (2.0, 26.9), 66, 1030)
+        o, d = rays["rays_o"][0, :4096], rays["rays_d"][0, :4096]
+    else:
+        data = Path(__file__).resolve().parent.parent / "data_synth_drive60"
+        c = json.loads((data / "scene_constants.json").read_text())
+        ds = KITTI360Dataset(root_path=str(data), scale=c["scale"], offset=c["offset"])
+        scale = ds.scale
+        poses, _ = ds.device_arrays("cuda")
+        inds = sample_ray_indices(ds.H_lidar, ds.W_lidar, 4096, 1, gen, "cuda")
+        o, d = rays_from_indices(poses[0], inds, ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
+    near = torch.full((4096, 1), scale, device="cuda")
+    z = sampling.stratified_z_vals(near, near * 81.0, 768, perturb=kind == "training_chunk",
+                                   generator=gen)
+    xyz = torch.clamp(o[:, None] + d[:, None] * z[..., None], -1.0, 1.0)
+    return ((xyz + 1.0) / 2.0).reshape(-1, 3).contiguous()
+
+
+@pytest.mark.parametrize("kind", ["served_chunk", "training_chunk"])
+@pytest.mark.parametrize("variant", ["seg", "win"])
+def test_run_collapsing_forward_equals_b1_on_model_chunks(require_cuda, variant, kind):
+    """B3a and B4a on the model's own chunks at full width: B1's features bit for bit."""
+    spec = block_hash.make_block_hash_spec(**SPECS["full_width"])
+    table = torch.randn(spec.table_rows, 128, generator=torch.Generator(device="cuda").manual_seed(9),
+                        device="cuda")
+    x = _model_chunk(kind)
+    out = block_hash_cuda.FWD[variant](x, table, spec)
+    assert torch.equal(out, block_hash_cuda.block_hash_fwd(x, table, spec))
+
+
+# the point sets of the determinism tests: a training chunk, 1024 copies of
+# one point (tests/test_determinism.py's case) and the adversarial sets
+DETERMINISM_SETS = ["training_chunk", "one_point", "one_cell", "ragged", "reversed", "permuted",
+                    "faces", "single"]
+
+
+def _bwd_case(kind, spec, seed):
+    if kind == "training_chunk":
+        x = _model_chunk(kind)
+    elif kind == "one_point":
+        x = torch.tensor([[0.3, 0.5, 0.7]], device="cuda").repeat(1024, 1)
+    else:
+        x = _points(POINTS[kind], seed, kind)
+    g = torch.randn(x.shape[0], spec.output_dim,
+                    generator=torch.Generator(device="cuda").manual_seed(seed + 1), device="cuda")
+    return x, g
+
+
+@pytest.mark.parametrize("kind", DETERMINISM_SETS)
+@pytest.mark.parametrize("variant", list(block_hash.VARIANTS))
+def test_backward_kernels_repeat_bit_for_bit(require_cuda, variant, kind):
+    """B2, B3b and B4b add through an order-free accumulator: two calls on the
+    same inputs give the same table gradient bit for bit, within B2's slack
+    of encode_bwd_plain and of the variant's own plain version."""
+    spec = block_hash.make_block_hash_spec(**SPECS["full_width"])
+    x, g = _bwd_case(kind, spec, 10)
+    first = block_hash_cuda.BWD[variant](x, g, spec)
+    second = block_hash_cuda.BWD[variant](x, g, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    _assert_bwd_close(first, x, g, spec)
+    own = block_hash.ENCODE_BWD_PLAIN[variant](x, g, spec)
+    S = block_hash.encode_bwd_plain(x, g.abs(), spec)
+    assert ((first - own).abs() <= 1e-5 * S + 1e-7).all()
+
+
+@pytest.mark.parametrize("variant", list(block_hash.VARIANTS))
+def test_backward_kernels_propagate_non_finite(require_cuda, variant):
+    """A NaN and an Inf in g give non-finite table entries exactly where the
+    plain version has them (the guarded update then skips the step), and
+    the result still repeats bit for bit."""
+    spec = block_hash.make_block_hash_spec(**SPECS["full_width"])
+    x = _points(20000, 11, "rays")
+    g = torch.randn(20000, spec.output_dim, generator=torch.Generator(device="cuda").manual_seed(12),
+                    device="cuda")
+    g[5, 3] = float("nan")  # level 1, in a long run
+    g[7000, 0] = float("inf")
+    g[12000, 31] = float("-inf")  # the finest level
+    out = block_hash_cuda.BWD[variant](x, g, spec)
+    again = block_hash_cuda.BWD[variant](x, g, spec)
+    torch.cuda.synchronize()
+    ref = block_hash.ENCODE_BWD_PLAIN[variant](x, g, spec)
+    assert (~ref.isfinite()).any()
+    assert torch.equal(out.isfinite(), ref.isfinite())
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    finite = ref.isfinite()
+    S = block_hash.encode_bwd_plain(x, g.nan_to_num(0.0, 0.0, 0.0).abs(), spec)
+    assert ((out - ref).abs()[finite] <= (1e-5 * S + 1e-7)[finite]).all()
+
+
 @pytest.mark.parametrize("variant", ["seg", "win"])
 def test_run_collapsing_empty_input(require_cuda, variant):
     spec = block_hash.make_block_hash_spec(**SPECS["small"])

@@ -404,7 +404,7 @@ def _drive(split="train"):
 def test_kitti360_dataset_matches_jax_loader():
     scale, offset = _drive()
     ref = KITTI360DatasetJ(root_path=DATA, split="train", scale=scale, offset=offset)
-    ds = KITTI360Dataset(DATA, split="train", scale=scale, offset=offset)
+    ds = KITTI360Dataset(root_path=DATA, split="train", scale=scale, offset=offset)
     assert len(ds) == len(ref) == 60 and (ds.H_lidar, ds.W_lidar) == (66, 1030)
     np.testing.assert_array_equal(ds.poses_lidar, ref.poses_lidar)
     np.testing.assert_array_equal(ds.images_lidar, ref.images_lidar)
