@@ -57,20 +57,6 @@
 #include "block_hash_common.cuh"
 #include "block_hash_scatter.cuh"
 
-// Adds the warp's carried row sums `acc` (64 float2 = 128 floats of table
-// row `row`; lane k adds floats k, k + 32, k + 64, k + 96) to the table, and
-// zeroes them.
-__device__ __forceinline__ void flush_row(const FixedAcc& a, float2* acc, uint32_t row, int lane) {
-  __syncwarp();
-  float* f = reinterpret_cast<float*>(acc);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    add_value(a, (size_t)row * 128 + 32 * j + lane, f[32 * j + lane]);
-    f[32 * j + lane] = 0.f;
-  }
-  __syncwarp();
-}
-
 __global__ void __launch_bounds__(THREADS)
 block_hash_bwd_kernel(const float* __restrict__ x, const float2* __restrict__ g,
                       unsigned long long* __restrict__ sums, float* __restrict__ grad,

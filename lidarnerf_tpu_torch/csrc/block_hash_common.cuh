@@ -7,8 +7,8 @@
 // indexing is lidarnerf_tpu_torch/ops/block_hash.py::level_indices_and_weights.
 // The backwards' shared parts are in block_hash_scatter.cuh.
 //
-// The tile layout of B1 and B2 (and of B3a and B4b, which compute their
-// functions). Both replace TPU kernels whose cost on this
+// The tile layout of B1 and B2 (and of B3a, B4a and B3b, B4b, which compute
+// their functions). Both replace TPU kernels whose cost on this
 // card is not arithmetic but where the lanes of a warp go: with one thread
 // per (query, level), level fastest, a warp's 32 lanes would sit on 16
 // levels of 2 queries and touch 32 rows in 16 level sub-tables, although at
@@ -28,13 +28,18 @@
 //    and feature gradients [TILE, L] float2 are staged once with coalesced
 //    loads, and each warp keeps its sums for one block row (64 float2),
 //    carried from group to group.
-//  - B3a: B1's tile widened to SEG_GROUPS groups, its warps walking each
-//    level over the groups in order; B4b: B2's tile.
+//  - B3a and B4a: B1's tile widened to a few groups (SEG_GROUPS,
+//    WIN_GROUPS), its warps walking each level over the groups in order,
+//    each warp with a ring of table rows in shared memory that a run (B3a)
+//    or a uniform window (B4a) loads once and that the next group may reuse;
+//  - B3b and B4b: B2's tile; B3b's warps carry a ring of row sums, one per
+//    run of equal rows open at a group's end, where B2 carries one.
 // The [*, L] float2 tiles keep their rows tile_stride(L) = L | 1 float2s
 // apart: with an odd stride the 16 lanes of a half-warp, on 16 consecutive
-// queries of one level, fall in 16 different bank pairs.
-// B3b and B4a keep the one-thread-per-query layout of their (level,
-// 4096-query chunk) blocks.
+// queries of one level, fall in 16 different bank pairs. Tiles start at
+// multiples of 32 queries, so the TPU kernels' 4096-query chunks, which no
+// run or window crosses, hold whole tiles, and windows are aligned slices of
+// a group.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -64,9 +69,7 @@ static inline cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// the run structure of the seg and win kernels (ops/block_hash.py CHUNK, NSEG_DIV)
-#define CHUNK 4096
-#define NSEG_DIV 5
+#define NO_ROW 0xffffffffu  // no table row: a warp's ring holds no open run or window
 
 struct Levels {
   float scale[MAX_LEVELS];
@@ -176,18 +179,6 @@ __device__ __forceinline__ float2 trilerp(const Cell& c, Corner corner) {
   return acc;
 }
 
-// One (query, level) of B4a's per-query path (B1's work before its tile
-// layout): the features read from the table in device memory; zero
-// outside [0, 1]^3.
-__device__ __forceinline__ float2 encode_query(const float p[3], int l, uint32_t B,
-                                               const Levels& lv,
-                                               const float2* __restrict__ table) {
-  if (outside_unit_cube(p)) return make_float2(0.f, 0.f);
-  const Cell c = locate(p, l, B, lv);
-  const float2* corner = table + c.corner0;
-  return trilerp(c, [&](int k) { return __ldg(corner + k); });
-}
-
 // Corner i = (dx * 2 + dy) * 2 + dz of a cell sits corner_offset(dx, dy, dz)
 // float2s after its first corner; trilerp asks for corners by that offset.
 __device__ __forceinline__ int offset_of_corner(int i) {
@@ -229,17 +220,25 @@ __device__ __forceinline__ void transpose_octet(float2 v[8], int k) {
 // warp's cells lie in at most FEW_ROWS runs of rows each lane reads its own
 // corners (mostly broadcasts of a few lines); elsewhere the 8 lanes of an
 // octet read one query's 8 corners per load, 8 lines per instruction
-// instead of 32, and an octet transpose hands each lane its own.
+// instead of 32, and an octet transpose hands each lane its own. Only the
+// lanes of `want` get their corners (B4a's lanes outside a uniform window);
+// every lane must call it.
 __device__ __forceinline__ void load_corners(const float2* __restrict__ level, uint32_t local,
-                                             unsigned heads, int lane, float2 v[8]) {
+                                             unsigned heads, int lane, float2 v[8],
+                                             unsigned want = FULL_MASK) {
   if (__popc(heads) <= FEW_ROWS) {
+    if ((want >> lane) & 1u) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = __ldg(level + local + offset_of_corner(i));
+      for (int i = 0; i < 8; ++i) v[i] = __ldg(level + local + offset_of_corner(i));
+    }
   } else {
     const int octet = lane & ~7, k8 = lane & 7;
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-      v[r] = __ldg(level + __shfl_sync(FULL_MASK, local, octet + r) + offset_of_corner(k8));
+    for (int r = 0; r < 8; ++r) {
+      const uint32_t at = __shfl_sync(FULL_MASK, local, octet + r);
+      v[r] = ((want >> (octet + r)) & 1u) ? __ldg(level + at + offset_of_corner(k8))
+                                          : make_float2(0.f, 0.f);
+    }
     transpose_octet(v, k8);
   }
 }

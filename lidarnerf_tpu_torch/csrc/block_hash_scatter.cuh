@@ -1,7 +1,7 @@
 // What the block-hash backward kernels share (B2 block_hash_bwd.cu, B3b
 // block_hash_seg_bwd.cu, B4b block_hash_win_bwd.cu): the order-free
 // accumulator that makes their table gradient bitwise reproducible, and
-// B2's tile helpers, which B4b's tile layout uses too.
+// B2's tile helpers, which the tile layouts of B3b and B4b use too.
 //
 // The order-free accumulator. A kernel sums terms in registers and shared
 // memory in an order fixed by its inputs (shuffles, ballots, scans), and
@@ -231,6 +231,20 @@ __device__ __forceinline__ void corner_terms(const Cell& c, float2 gv, float t[1
       }
     }
   }
+}
+
+// Adds a warp's row sums `acc` (64 float2 = 128 floats of table row `row`;
+// lane k adds floats k, k + 32, k + 64, k + 96) to the table, and zeroes
+// them.
+__device__ __forceinline__ void flush_row(const FixedAcc& a, float2* acc, uint32_t row, int lane) {
+  __syncwarp();
+  float* f = reinterpret_cast<float*>(acc);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    add_value(a, (size_t)row * 128 + 32 * j + lane, f[32 * j + lane]);
+    f[32 * j + lane] = 0.f;
+  }
+  __syncwarp();
 }
 
 // Adds each lane's 8 corner terms t to the table, zeros skipped. `level0`

@@ -4,33 +4,49 @@
 // (B3b). It computes B2's function (block_hash_bwd.cu): for each query
 // inside [0, 1]^3 and level l, w * (g[q, 2l], g[q, 2l+1]) added to each of
 // the cell's 8 corner float2s, w the corner's trilinear weight, duplicates
-// summed, into the [L*B, 128] float32 table gradient. A run of equal
-// consecutive rows sums its terms first and adds them once per touched
-// corner float2 of the row, where B2's plain path adds 8 per query. The
-// plain PyTorch version with the same run rules is
-// lidarnerf_tpu_torch/ops/block_hash.py::encode_bwd_seg_plain.
+// summed, into the [L*B, 128] float32 table gradient. On a level of scale
+// <= SEG_SCALE_MAX (the host's `runs` array) a run of equal consecutive
+// rows sums its terms first and adds its row once, where B2's plain path
+// adds 8 corners per query. The plain PyTorch version with the TPU kernel's
+// run rules is lidarnerf_tpu_torch/ops/block_hash.py::encode_bwd_seg_plain.
 //
 // Bound: the same as B2's, device memory. The function must read 12 bytes
 // of position and 8*L bytes of feature gradient per query and write the
-// 64 MiB gradient table once, at 3.35 TB/s; its ~80 flops per query-level
-// are far below the fp32 rate. What a kernel loses against it is
-// same-address atomics on the coarse levels' long runs. The design:
-//  - one thread block per (level, 4096-query chunk), level fastest; a level
-//    of scale <= SEG_SCALE_MAX finds the chunk's runs in shared memory
-//    (find_runs) from rows it computes itself: the counterpart of the TPU
-//    kernels' XLA-side prep `seg_next` (block_hash_pallas.py:446), whose
-//    [L*Qp] rows, next and nseg arrays never go through device memory here;
-//  - a chunk of at most CHUNK / NSEG_DIV runs hands each run to one warp:
-//    lane k owns corner float2s k and k + 32 of the row, the run's queries
-//    pass through the warp 32 at a time by shuffles, and each lane adds
-//    their terms at its two float2s in registers, in query order. Then each
-//    lane adds its nonzero sums to the table: at most 64 float2s per run,
-//    none of them contended within the run;
-//  - a chunk with more runs, and every level above SEG_SCALE_MAX, takes a
-//    per-query path, one thread per query (scatter_query: its 8 corners);
+// 64 MiB gradient table once, at 3.35 TB/s: 0.1515 ms for the main path's
+// coarse call; its ~80 flops per query-level are far below the fp32 rate.
+// What a kernel loses against it is where the lanes of a warp go (with one
+// thread per (level, query), every load of g[q * L + l] lies 128 bytes from
+// its lane neighbour's) and the count of the accumulator's int64 atomics.
+// The design keeps the TPU kernel's mechanism, one set of adds per run, in
+// B2's tile layout (block_hash_common.cuh):
+//  - a block owns a tile of TILE consecutive queries whose points and g are
+//    staged in shared memory with coalesced loads; warp w walks levels w,
+//    w + WARPS, ... (or a part of the tile's groups when L < WARPS) over
+//    the tile's 32-query groups in order;
+//  - on a run level, a shuffle and a ballot find the group's runs of equal
+//    rows and its runs of equal cells; each cell's 16 terms are summed in
+//    registers (a reduce-scatter for one cell in the whole group, else a
+//    segmented scan) and its last lane adds them into its run's 64-float2
+//    row sums in shared memory. The warp keeps a ring of SEG_SLOTS such row
+//    sums: a run that ends inside the group adds its row to the table at
+//    once, the run open at the group's end is carried to the next group,
+//    so a 300-query run at level 0 adds its row once per tile, not once per
+//    group. Runs never cross a tile, hence never a 4096-query chunk;
+//  - a group of more than SEG_SLOTS runs (the TPU kernel's choice between
+//    its two paths, here made per group), or whose cells do not each form
+//    one run of lanes, and every other level take B2's octet scatter, of
+//    each cell's run sums where the cells form runs, else of each query's
+//    8 corners;
 //  - every add goes through the order-free fixed-point accumulator of
 //    block_hash_scatter.cuh, so the table is the same bit for bit from run
-//    to run.
+//    to run, and a NaN or Inf in g gives the plain version's non-finite
+//    entries.
+// A wider ring sends fewer groups to the octet scatter (its 64 KiB at 16
+// slots leaves 2 blocks an SM); with it the coarse levels cost less than
+// B2's, which carries one row. What still holds it back is B2's: the fine
+// levels' octet scatter (16 int64 atomics per query-level to rows that
+// rarely repeat) and the accumulator's passes (a read of g, a zeroed
+// 128 MiB scratch, the finish).
 // The TPU kernel's devices (SMEM scalar streams, 8 VMEM accumulator copies,
 // the MXU one-hot scatter of the dense pair, the split-bf16 lane broadcast)
 // have no place here.
@@ -38,168 +54,118 @@
 #include "block_hash_common.cuh"
 #include "block_hash_scatter.cuh"
 
-#define MAX_RUNS (CHUNK / NSEG_DIV)  // a chunk with more runs takes the per-query path
-
-struct SegScratch {
-  uint32_t rows[CHUNK];     // the chunk's table rows at this level
-  int starts[MAX_RUNS + 1];  // run s is [starts[s], starts[s + 1])
-  int warp_count[WARPS];
-};
-
-// Finds the runs of equal consecutive rows among the chunk's n queries
-// (chunk0 ... chunk0 + n - 1) at level l. Every thread of the block calls it
-// and gets the same answer: the number of runs, with their starts in
-// sc.starts and their rows in sc.rows[start], or -1 when the chunk has more
-// than MAX_RUNS runs (block_hash_pallas.py:522,542: the per-chunk fallback).
-// The plain PyTorch version of the run structure is
-// lidarnerf_tpu_torch/ops/block_hash.py::seg_next.
-__device__ __forceinline__ int find_runs(const float* __restrict__ x, long long chunk0, int n,
-                                         int l, uint32_t B, const Levels& lv, SegScratch& sc) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < n; i += THREADS) {
-    float p[3];
-    load_point(x, chunk0 + i, p);
-    sc.rows[i] = (uint32_t)(locate(p, l, B, lv).corner0 >> 6);
-  }
-  __syncthreads();
-
-  // warp w counts the run starts among queries [w * 512, (w + 1) * 512)
-  constexpr int PER_WARP = CHUNK / WARPS;
-  const int i0 = warp * PER_WARP;
-  int count = 0;
-  for (int k = 0; k < PER_WARP; k += 32) {
-    const int i = i0 + k + lane;
-    const bool start = i < n && (i == 0 || sc.rows[i] != sc.rows[i - 1]);
-    count += __popc(__ballot_sync(FULL_MASK, start));
-  }
-  if (lane == 0) sc.warp_count[warp] = count;
-  __syncthreads();
-  int nseg = 0, base = 0;
-  for (int w = 0; w < WARPS; ++w) {
-    base += w < warp ? sc.warp_count[w] : 0;
-    nseg += sc.warp_count[w];
-  }
-  if (nseg > MAX_RUNS) return -1;
-
-  // second pass: each start goes to its rank among the chunk's starts
-  for (int k = 0; k < PER_WARP; k += 32) {
-    const int i = i0 + k + lane;
-    const bool start = i < n && (i == 0 || sc.rows[i] != sc.rows[i - 1]);
-    const unsigned ballot = __ballot_sync(FULL_MASK, start);
-    if (start) sc.starts[base + __popc(ballot & ((1u << lane) - 1u))] = i;
-    base += __popc(ballot);
-  }
-  if (tid == 0) sc.starts[nseg] = n;
-  __syncthreads();
-  return nseg;
-}
-
-// The per-query path for one (query, level) inside [0, 1]^3: w * g added
-// to each of the cell's 8 corners.
-__device__ __forceinline__ void scatter_query(const FixedAcc& a, const Cell& c, float2 gv) {
-  check_finite(a, c.corner0, gv);
-  float t[16];
-  corner_terms(c, gv, t);
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    add_pair(a, c.corner0 + offset_of_corner(k), make_float2(t[2 * k], t[2 * k + 1]));
-}
-
-// A query travels between the lanes of a run as its cell's corner offset
-// in the row (`off`, from Cell::corner0 & 63), the fractions of its
-// position (Cell::wx[1], wy[1], wz[1]) and its feature grads.
-struct Term {
-  int off;
-  float fx, fy, fz;
-  float2 g;
-};
-
-__device__ __forceinline__ Term shfl_term(const Term& t, int src) {
-  Term r;
-  r.off = __shfl_sync(FULL_MASK, t.off, src);
-  r.fx = __shfl_sync(FULL_MASK, t.fx, src);
-  r.fy = __shfl_sync(FULL_MASK, t.fy, src);
-  r.fz = __shfl_sync(FULL_MASK, t.fz, src);
-  r.g.x = __shfl_sync(FULL_MASK, t.g.x, src);
-  r.g.y = __shfl_sync(FULL_MASK, t.g.y, src);
-  return r;
-}
-
-// Adds a query's term at corner float2 `s` of its row (0 <= s < 64) to
-// `acc`: w * g with w its trilinear weight there, the products of
-// corner_terms, or nothing if s is not a corner of its cell.
-__device__ __forceinline__ void add_corner_term(float2& acc, int s, const Term& t) {
-  const int dx = (s >> 4) - (t.off >> 4);
-  const int dy = ((s >> 2) & 3) - ((t.off >> 2) & 3);
-  const int dz = (s & 3) - (t.off & 3);
-  if ((unsigned)dx > 1u || (unsigned)dy > 1u || (unsigned)dz > 1u) return;
-  const float wx = dx ? t.fx : 1.f - t.fx;
-  const float wy = dy ? t.fy : 1.f - t.fy;
-  const float wz = dz ? t.fz : 1.f - t.fz;
-  const float w = __fmul_rn(__fmul_rn(wx, wy), wz);
-  acc.x = __fadd_rn(acc.x, __fmul_rn(w, t.g.x));
-  acc.y = __fadd_rn(acc.y, __fmul_rn(w, t.g.y));
-}
-
-// The term of query q at level l: zero grads outside [0, 1]^3 (the JAX
-// package zeroes those grads before its backward).
-__device__ __forceinline__ Term make_term(const Cell& c, bool inside, const float2* __restrict__ g,
-                                          long long q, int L, int l) {
-  Term t;
-  t.off = (int)(c.corner0 & 63);
-  t.fx = c.wx[1];
-  t.fy = c.wy[1];
-  t.fz = c.wz[1];
-  t.g = inside ? __ldg(g + q * L + l) : make_float2(0.f, 0.f);
-  return t;
-}
+#ifndef SEG_SLOTS
+#define SEG_SLOTS 16  // row sums a warp carries in shared memory (a power of 2; 16 timed best of 2-32)
+#endif
 
 __global__ void __launch_bounds__(THREADS)
 block_hash_seg_bwd_kernel(const float* __restrict__ x, const float2* __restrict__ g,
                           unsigned long long* __restrict__ sums, float* __restrict__ grad,
                           const unsigned* __restrict__ max_bits, long long Q, int L, uint32_t B,
-                          const Levels lv) {
-  __shared__ SegScratch sc;
-  const int l = (int)(blockIdx.x % L);
-  const long long chunk0 = (long long)(blockIdx.x / L) * CHUNK;
-  const int n = (int)min((long long)CHUNK, Q - chunk0);
+                          const Levels lv, int split) {
+  extern __shared__ float4 shared[];
+  const int stride = tile_stride(L);
+  float2* rows = reinterpret_cast<float2*>(shared);           // [WARPS][SEG_SLOTS][64] row sums
+  float2* gt = rows + WARPS * SEG_SLOTS * 64;                 // [TILE][stride] the tile's g
+  float* pts = reinterpret_cast<float*>(gt + TILE * stride);  // [TILE][3] the tile's points
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long q0 = (long long)blockIdx.x * TILE;
+  const int n = (int)min((long long)TILE, Q - q0);
   const FixedAcc a = fixed_acc(sums, grad, max_bits, Q);
 
-  const int nseg = lv.runs[l] ? find_runs(x, chunk0, n, l, B, lv, sc) : -1;
-  if (nseg < 0) {  // the per-query path
-    for (int i = threadIdx.x; i < n; i += THREADS) {
-      const long long q = chunk0 + i;
-      float p[3];
-      load_point(x, q, p);
-      if (!outside_unit_cube(p)) scatter_query(a, locate(p, l, B, lv), __ldg(g + q * L + l));
-    }
-    return;
-  }
+  stage_tile(x, g, q0, n, L, stride, pts, gt);
+  float2* ring = rows + warp * SEG_SLOTS * 64;
+  for (int j = lane; j < SEG_SLOTS * 32; j += 32)
+    reinterpret_cast<float4*>(ring)[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int s = warp; s < nseg; s += WARPS) {
-    const int a0 = sc.starts[s], e = sc.starts[s + 1];
-    float2 lo = make_float2(0.f, 0.f), hi = make_float2(0.f, 0.f);  // float2s lane, lane + 32
-    for (int base = a0; base < e; base += 32) {
-      Term t = {0, 0.f, 0.f, 0.f, make_float2(0.f, 0.f)};
-      if (base + lane < e) {
-        const long long q = chunk0 + base + lane;
-        float p[3];
-        load_point(x, q, p);
-        const Cell c = locate(p, l, B, lv);
-        t = make_term(c, !outside_unit_cube(p), g, q, L, l);
-        check_finite(a, c.corner0, t.g);
+  const int per = GROUPS / split;  // groups per task
+  for (int task = warp; task < L * split; task += WARPS) {
+    const int l = task / split, k0 = (task % split) * per;
+    const size_t level0 = (size_t)l * B * 64;  // the level's first float2
+    // Only slot `last` may hold sums when a group starts: those of the run
+    // of table row `carried` that was open at the previous group's end.
+    uint32_t carried = NO_ROW;
+    int last = SEG_SLOTS - 1;
+    for (int k = k0; k < k0 + per && 32 * k < n; ++k) {
+      const int i = 32 * k + lane;
+      const int s = min(i, n - 1);  // a lane past the end repeats the last query, with no term
+      const float p[3] = {pts[3 * s], pts[3 * s + 1], pts[3 * s + 2]};
+      const Cell c = locate(p, l, B, lv);
+      const float2 gv = (i < n && !outside_unit_cube(p)) ? gt[s * stride + l] : make_float2(0.f, 0.f);
+      check_finite(a, c.corner0, gv);
+      float t[16];
+      corner_terms(c, gv, t);
+      const uint32_t local = (uint32_t)(c.corner0 - level0);
+      if (!lv.runs[l]) {
+        scatter_octets(a, level0, local, t, lane);
+        continue;
       }
-      const int count = min(32, e - base);
-      for (int u = 0; u < count; ++u) {
-        const Term tu = shfl_term(t, u);
-        add_corner_term(lo, lane, tu);
-        add_corner_term(hi, lane + 32, tu);
+
+      const unsigned long long key = c.corner0;  // the cell
+      const uint32_t row = (uint32_t)(key >> 6);  // the table row
+      const unsigned long long prev_key = __shfl_up_sync(FULL_MASK, key, 1);
+      const uint32_t prev_row = __shfl_up_sync(FULL_MASK, row, 1);
+      const unsigned cell_heads = __ballot_sync(FULL_MASK, lane == 0 || key != prev_key);
+      const unsigned row_heads = __ballot_sync(FULL_MASK, lane == 0 || row != prev_row);
+      bool cell_runs = cell_heads != FULL_MASK;
+      if (cell_runs && cell_heads != 1u) {  // each cell one run of lanes?
+        const unsigned same = __match_any_sync(FULL_MASK, key);
+        cell_runs = __popc(__ballot_sync(FULL_MASK, __ffs(same) - 1 == lane)) == __popc(cell_heads);
       }
+      const bool last_of_cell = lane == 31 || ((cell_heads >> (lane + 1)) & 1u);
+      const int nruns = __popc(row_heads);
+      if (!cell_runs || nruns > SEG_SLOTS) {  // B2's octet scatter
+        if (cell_runs) {  // of each cell's sums, from its last lane
+          run_sums16(t, cell_heads, lane);
+          if (!last_of_cell) {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) t[j] = 0.f;
+          }
+        }
+        scatter_octets(a, level0, local, t, lane);
+        continue;
+      }
+
+      // run u of the group sums into slot (first + u) % SEG_SLOTS; a first
+      // run that goes on from the previous group finds its sums in `last`
+      const bool goes_on = __shfl_sync(FULL_MASK, row, 0) == carried;
+      if (!goes_on && carried != NO_ROW) flush_row(a, ring + last * 64, carried, lane);
+      const int first = goes_on ? last : (last + 1) & (SEG_SLOTS - 1);
+      const int run = __popc(row_heads & (FULL_MASK >> (31 - lane))) - 1;
+      float2* acc = ring + ((first + run) & (SEG_SLOTS - 1)) * 64;
+      const int off = (int)(c.corner0 & 63);
+      if (cell_heads == 1u) {  // one cell (so one run)
+        reduce_scatter<32>(t, lane);
+        if (!(lane & 1)) {
+          const int m2 = lane >> 1, k2 = m2 >> 1;  // term m2: corner k2, channel m2 & 1
+          reinterpret_cast<float*>(acc)[2 * (off + offset_of_corner(k2)) + (m2 & 1)] += t[0];
+        }
+      } else {
+        run_sums16(t, cell_heads, lane);
+        // the cells of a run are distinct cells of its row: in each round
+        // the last lanes of one run add to distinct float2s
+#pragma unroll
+        for (int k2 = 0; k2 < 8; ++k2) {
+          if (last_of_cell) {
+            float2& r = acc[off + offset_of_corner(k2)];
+            r.x += t[2 * k2];
+            r.y += t[2 * k2 + 1];
+          }
+          __syncwarp();
+        }
+      }
+      // the runs that ended inside the group add their rows; the last stays open
+      unsigned ended = row_heads;
+      for (int u = 0; u < nruns - 1; ++u, ended &= ended - 1) {
+        const uint32_t r = __shfl_sync(FULL_MASK, row, __ffs(ended) - 1);
+        flush_row(a, ring + ((first + u) & (SEG_SLOTS - 1)) * 64, r, lane);
+      }
+      last = (first + nruns - 1) & (SEG_SLOTS - 1);
+      carried = __shfl_sync(FULL_MASK, row, 31);
+      __syncwarp();
     }
-    const size_t row0 = (size_t)sc.rows[a0] * 64;  // the row's first float2
-    add_pair(a, row0 + lane, lo);
-    add_pair(a, row0 + lane + 32, hi);
+    if (carried != NO_ROW) flush_row(a, ring + last * 64, carried, lane);
   }
 }
 
@@ -210,18 +176,22 @@ extern "C" int block_hash_seg_bwd(const float* x, const float* g, float* grad, v
                                   const int* max_cell, const int* blocks_axis,
                                   const int* dense, const int* runs, void* stream) {
   Levels lv;
-  if (B < 1 || Q < 0 || L % 2 != 0 ||
+  if (B < 1 || (long long)B * 64 > 0xffffffffLL || Q < 0 || L % 2 != 0 ||
       !fill_levels(&lv, L, scale, max_cell, blocks_axis, dense, runs) ||
       reinterpret_cast<uintptr_t>(grad) % 16 || reinterpret_cast<uintptr_t>(scratch) % 16)
     return (int)cudaErrorInvalidValue;
-  const long long blocks = (Q + CHUNK - 1) / CHUNK * L;
+  const long long blocks = (Q + TILE - 1) / TILE;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = tile_smem(L, SEG_SLOTS);
+  const cudaError_t err = allow_shared(block_hash_seg_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int split = tile_split(L);
   const cudaStream_t s = (cudaStream_t)stream;
   return run_fixed(g, grad, scratch, Q, L, (uint32_t)B, s,
                    [&](unsigned long long* sums, const unsigned* max_bits) {
-                     block_hash_seg_bwd_kernel<<<(unsigned int)blocks, THREADS, 0, s>>>(
+                     block_hash_seg_bwd_kernel<<<(unsigned int)blocks, THREADS, smem, s>>>(
                          x, reinterpret_cast<const float2*>(g), sums, grad, max_bits, Q, L,
-                         (uint32_t)B, lv);
+                         (uint32_t)B, lv, split);
                      return cudaGetLastError();
                    });
 }

@@ -50,7 +50,6 @@
 #endif
 #define SEG_SLOTS 4  // table rows a warp holds in shared memory (a power of 2)
 #define SEG_TILE (32 * SEG_GROUPS)
-#define NO_ROW 0xffffffffu
 
 __global__ void __launch_bounds__(THREADS)
 block_hash_seg_fwd_kernel(const float* __restrict__ x, const float* __restrict__ table,

@@ -47,6 +47,12 @@ POINTS = {
     "permuted": 20013,  # the ragged rays in a random order: no runs of lanes
     "faces": 20013,  # rays clamped to [0, 1]^3 (samples on the faces), some left outside
     "single": 1,
+    # aimed at the tile layouts of the seg and win kernels (B3a/B3b, B4a/B4b)
+    "tile_ends": 785,  # short dense rays of 96: long runs across group and tile ends, Q = 3 * 256 + 17
+    "many_runs": 8192,  # a 4096-query chunk of uniform points (> 819 runs), then rays
+    "pairs": 20013,  # each point twice: 16 runs a group, as many as B3b's ring holds
+    "quads": 20013,  # four times: uniform windows of 8 rows a group, more than B4a's ring holds
+    "octets": 20013,  # eight times: uniform windows of 4 rows a group, as many as B4a's ring holds
 }
 
 
@@ -65,6 +71,13 @@ def _points(Q, seed, kind):
         x = _rays(rs, Q, 333, length=1.5)
         clamped = np.repeat(rs.uniform(size=-(-Q // 333)) < 0.9, 333)[:Q]
         x[clamped] = np.clip(x[clamped], 0.0, 1.0)
+    elif kind == "tile_ends":
+        x = _rays(rs, Q, 96, length=0.1)
+    elif kind == "many_runs":
+        x = np.concatenate([rs.uniform(0.0, 1.0, (4096, 3)), _rays(rs, Q - 4096, 512)])
+    elif kind in ("pairs", "quads", "octets"):
+        times = {"pairs": 2, "quads": 4, "octets": 8}[kind]
+        x = np.repeat(rs.uniform(0.0, 1.0, (-(-Q // times), 3)), times, axis=0)[:Q]
     else:
         x = rs.uniform(0.0, 1.0, (Q, 3))
     if kind in ("rays", "uniform"):
@@ -173,16 +186,18 @@ def test_run_collapsing_forward_equals_b1_bit_for_bit(require_cuda, variant, spe
     assert after[f"block_hash_{variant}_fwd"] == counts[f"block_hash_{variant}_fwd"] + 1
 
 
-@pytest.mark.parametrize("kind", ["rays", "uniform"])
+@pytest.mark.parametrize("kind", [k for k in POINTS if k != "single"])
 @pytest.mark.parametrize("spec_name", list(SPECS))
 @pytest.mark.parametrize("variant", ["seg", "win"])
 def test_run_collapsing_backward_matches_plain(require_cuda, variant, spec_name, kind):
     """B3b and B4b within B2's slack of encode_bwd_plain and of their own
-    run-structured plain versions."""
+    run-structured plain versions, on every point set: runs carried across
+    group ends and added at tile ends, groups of more runs than B3b's ring
+    holds, chunks beyond the TPU kernel's run limit."""
     spec = block_hash.make_block_hash_spec(**SPECS[spec_name])
-    x = _points(20000, 7, kind)
-    g = torch.randn(20000, spec.output_dim, generator=torch.Generator(device="cuda").manual_seed(8),
-                    device="cuda")
+    x = _points(POINTS[kind], 7, kind)
+    g = torch.randn(x.shape[0], spec.output_dim,
+                    generator=torch.Generator(device="cuda").manual_seed(8), device="cuda")
     out = block_hash_cuda.BWD[variant](x, g, spec)
     torch.cuda.synchronize()
     _assert_bwd_close(out, x, g, spec)
@@ -236,7 +251,7 @@ def test_run_collapsing_forward_equals_b1_on_model_chunks(require_cuda, variant,
 # the point sets of the determinism tests: a training chunk, 1024 copies of
 # one point (tests/test_determinism.py's case) and the adversarial sets
 DETERMINISM_SETS = ["training_chunk", "one_point", "one_cell", "ragged", "reversed", "permuted",
-                    "faces", "single"]
+                    "faces", "single", "tile_ends", "many_runs", "pairs", "quads", "octets"]
 
 
 def _bwd_case(kind, spec, seed):
@@ -269,13 +284,15 @@ def test_backward_kernels_repeat_bit_for_bit(require_cuda, variant, kind):
     assert ((first - own).abs() <= 1e-5 * S + 1e-7).all()
 
 
+@pytest.mark.parametrize("kind", ["rays", "pairs"])
 @pytest.mark.parametrize("variant", list(block_hash.VARIANTS))
-def test_backward_kernels_propagate_non_finite(require_cuda, variant):
+def test_backward_kernels_propagate_non_finite(require_cuda, variant, kind):
     """A NaN and an Inf in g give non-finite table entries exactly where the
     plain version has them (the guarded update then skips the step), and
-    the result still repeats bit for bit."""
+    the result still repeats bit for bit: in long runs carried from group to
+    group, and in groups whose runs fill B3b's ring."""
     spec = block_hash.make_block_hash_spec(**SPECS["full_width"])
-    x = _points(20000, 11, "rays")
+    x = _points(20000, 11, kind)
     g = torch.randn(20000, spec.output_dim, generator=torch.Generator(device="cuda").manual_seed(12),
                     device="cuda")
     g[5, 3] = float("nan")  # level 1, in a long run
@@ -293,16 +310,31 @@ def test_backward_kernels_propagate_non_finite(require_cuda, variant):
     assert ((out - ref).abs()[finite] <= (1e-5 * S + 1e-7)[finite]).all()
 
 
+@pytest.mark.parametrize("Q", [0, 1, 31, 257])
 @pytest.mark.parametrize("variant", ["seg", "win"])
-def test_run_collapsing_empty_input(require_cuda, variant):
+def test_run_collapsing_empty_input(require_cuda, variant, Q):
+    """No query launches nothing; a few (one, less than a group, one past a
+    tile) launch each kernel once, the forward equal to B1 bit for bit and
+    the backward within B2's slack."""
     spec = block_hash.make_block_hash_spec(**SPECS["small"])
-    x = torch.zeros(0, 3, device="cuda")
-    table = torch.zeros(spec.table_rows, 128, device="cuda")
+    x = _points(Q, 13, "ragged") if Q else torch.zeros(0, 3, device="cuda")
+    table = torch.randn(spec.table_rows, 128, generator=torch.Generator(device="cuda").manual_seed(14),
+                        device="cuda")
+    g = torch.randn(Q, spec.output_dim, generator=torch.Generator(device="cuda").manual_seed(15),
+                    device="cuda")
     counts = block_hash_cuda.launch_counts()
-    assert block_hash_cuda.FWD[variant](x, table, spec).shape == (0, spec.output_dim)
-    grad = block_hash_cuda.BWD[variant](x, torch.zeros(0, spec.output_dim, device="cuda"), spec)
-    assert grad.shape == (spec.table_rows, 128) and not grad.any()
-    assert block_hash_cuda.launch_counts() == counts
+    out = block_hash_cuda.FWD[variant](x, table, spec)
+    assert out.shape == (Q, spec.output_dim)
+    grad = block_hash_cuda.BWD[variant](x, g, spec)
+    assert grad.shape == (spec.table_rows, 128)
+    after = block_hash_cuda.launch_counts()
+    moved = {k: after[k] - counts[k] for k in after if after[k] != counts[k]}
+    if not Q:
+        assert not grad.any() and not moved
+        return
+    assert moved == {f"block_hash_{variant}_fwd": 1, f"block_hash_{variant}_bwd": 1}
+    assert torch.equal(out, block_hash_cuda.block_hash_fwd(x, table, spec))
+    _assert_bwd_close(grad, x, g, spec)
 
 
 @pytest.mark.parametrize("variant", ["seg", "win"])

@@ -136,9 +136,15 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 def test_kernel_source_and_build_naming(tmp_path, monkeypatch):
     header = (cuda_lib.CSRC_DIR / block_hash_cuda.HEADER).read_text()
     assert int(re.search(r"#define MAX_LEVELS (\d+)", header).group(1)) == block_hash_cuda.MAX_LEVELS
-    # the run structure's constants are the plain versions'
-    for name in ("CHUNK", "NSEG_DIV"):
-        assert int(re.search(rf"#define {name} (\d+)", header).group(1)) == getattr(block_hash, name)
+    # the run structure of the plain versions holds in the kernels' tiles:
+    # every tile starts at a multiple of 32 queries and within one 4096-query
+    # chunk, so no run crosses a chunk and every window is a slice of a group
+    threads = int(re.search(r"#define THREADS (\d+)", header).group(1))
+    assert threads % 32 == 0 and block_hash.CHUNK % threads == 0
+    for source, macro in (("block_hash_seg_fwd.cu", "SEG_GROUPS"), ("block_hash_win_fwd.cu", "WIN_GROUPS")):
+        src = (cuda_lib.CSRC_DIR / source).read_text()
+        assert block_hash.CHUNK % (32 * int(re.search(rf"#define {macro} (\d+)", src).group(1))) == 0
+    assert all(32 % w == 0 for w in block_hash.WIN_BIT)
     names = ("block_hash_fwd", "block_hash_bwd", "block_hash_seg_fwd", "block_hash_seg_bwd",
              "block_hash_win_fwd", "block_hash_win_bwd")
     assert len(block_hash_cuda.SOURCES) == len(names)

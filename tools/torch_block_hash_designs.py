@@ -1,31 +1,36 @@
 #!/usr/bin/env python3
 """Time two designs of the port's block-hash kernels on one GPU, in turns.
 
-    python3 tools/torch_block_hash_designs.py OLD_CSRC [--seg-groups 1,2,4,8] [--level-probe]
+    python3 tools/torch_block_hash_designs.py OLD_CSRC [--sweep KERNEL:MACRO=V1,V2 ...] [--level-probe]
 
 OLD_CSRC is a `lidarnerf_tpu_torch/csrc` directory of another tree (for
 example an earlier commit unpacked with `git archive` into a git-ignored
 directory). Its B1 (`block_hash_fwd.cu`), B2 (`block_hash_bwd.cu`), B3a
-(`block_hash_seg_fwd.cu`), B3b (`block_hash_seg_bwd.cu`) and B4b
-(`block_hash_win_bwd.cu`) are built with the port's nvcc flags beside this
-tree's, and both are called through their C entry points on the same
-inputs, at the main paths' shapes: the coarse call of a served chunk
-(forwards) or a training chunk (backwards), 4096 rays x 768 samples; the
-fine call's 262,144 queries; the `--fast` coarse call, 4096 x 192;
-3,145,728 uniform points; the `--fast` grid refresh, 128^3 points in grid
-order. Each shape is timed old, new, new, old. A forward's two outputs must
-be equal bit for bit, and each backward within 1e-5 S + 1e-7 of its plain
-version (S its sum of absolute terms); a backward of this tree must repeat
-bit for bit. Backwards whose sources lack `block_hash_scatter.cuh` (the
+(`block_hash_seg_fwd.cu`), B3b (`block_hash_seg_bwd.cu`), B4a
+(`block_hash_win_fwd.cu`) and B4b (`block_hash_win_bwd.cu`) are built with
+the port's nvcc flags beside this tree's, and both are called through
+their C entry points on the same inputs, at the main paths' shapes: the
+coarse call of a served chunk (forwards) or a training chunk (backwards),
+4096 rays x 768 samples; the fine call's 262,144 queries; the `--fast`
+coarse call, 4096 x 192; 3,145,728 uniform points; the `--fast` grid
+refresh, 128^3 points in grid order. Each shape is timed old, new, new,
+old. A forward's two outputs must equal B1's bit for bit, and each backward
+lie within 1e-5 S + 1e-7 of its plain version (S its sum of absolute
+terms); a backward of this tree must repeat bit for bit, and B2's must
+equal the old tree's bit for bit when both add through the order-free
+accumulator. Backwards whose sources lack `block_hash_scatter.cuh` (the
 fp32-atomic designs) take no scratch argument.
 
-`--seg-groups` also builds this tree's B3a at each tile width (32-query
-groups per block, the SEG_GROUPS macro) and times each in turns with B1 at
-the coarse and uniform shapes. `--level-probe` times this tree's B2 on the
-coarse call's levels 11-15 in one call and in two or three calls of fewer
-levels each (each call zeroes, accumulates and converts only its levels'
-rows): whether the int64 sums' working set, larger than the L2 in one
-call, sets the fine levels' pace. Needs a GPU and nvcc; imports no JAX.
+`--sweep KERNEL:MACRO=V1,V2,...` (repeatable) also builds this tree's
+KERNEL with -DMACRO=V for each value (a tile width such as B3a's
+SEG_GROUPS or B4a's WIN_GROUPS, a ring size such as WIN_SLOTS or B3b's
+SEG_SLOTS) and times each in turns with this tree's default build at the
+coarse and uniform shapes, with the same checks. `--level-probe` times
+this tree's B2 on the coarse call's levels 11-15 in one call and in two or
+three calls of fewer levels each (each call zeroes, accumulates and
+converts only its levels' rows): whether the int64 sums' working set,
+larger than the L2 in one call, sets the fine levels' pace. Needs a GPU and
+nvcc; imports no JAX.
 """
 
 import argparse
@@ -51,6 +56,7 @@ FAST_STEPS = cs.FAST["num_steps"]
 KERNELS = {
     "block_hash_fwd": (True, "default"),
     "block_hash_seg_fwd": (True, "seg"),
+    "block_hash_win_fwd": (True, "win"),
     "block_hash_bwd": (False, "default"),
     "block_hash_seg_bwd": (False, "seg"),
     "block_hash_win_bwd": (False, "win"),
@@ -103,6 +109,16 @@ def caller(lib: Path, name, spec, scratch):
     return call
 
 
+def sweep_arg(text):
+    """KERNEL:MACRO=V1,V2,... -> (kernel, macro, [values])."""
+    kernel, _, rest = text.partition(":")
+    macro, _, values = rest.partition("=")
+    if kernel not in KERNELS or not macro or not values:
+        raise argparse.ArgumentTypeError(f"expected KERNEL:MACRO=V1,V2 with KERNEL one of "
+                                         f"{list(KERNELS)}, got {text!r}")
+    return kernel, macro, [v for v in values.split(",") if v]
+
+
 def refresh_points(dev, gen, G=128):
     idx = torch.arange(G, dtype=torch.float32, device=dev)
     cell = torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), -1).reshape(-1, 3)
@@ -118,10 +134,20 @@ def ms_line(t):
     return " / ".join(f"{v:.4f}" for v in t)
 
 
+def bits(t):
+    return t.view(torch.int32)
+
+
+def bwd_worst(out, ref, slack):
+    """The largest |out - ref| over the slack 1e-5 S + 1e-7."""
+    return ((out - ref).abs() / slack).max().item()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("old_csrc", type=Path)
-    parser.add_argument("--seg-groups", default="", help="B3a tile widths to time, e.g. 1,2,4,8")
+    parser.add_argument("--sweep", type=sweep_arg, action="append", default=[],
+                        help="KERNEL:MACRO=V1,V2: time this tree's KERNEL built with each value")
     parser.add_argument("--level-probe", action="store_true",
                         help="time B2's fine levels in one call and in level ranges")
     args = parser.parse_args()
@@ -132,12 +158,12 @@ def main():
     dev = torch.device("cuda")
     spec = bh.make_block_hash_spec(log2_hashmap_size=cs.FULL.log2_hashmap_size,
                                    desired_resolution=cs.FULL.desired_resolution)
-    groups = [int(v) for v in args.seg_groups.split(",") if v]
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         libs = {"old": build(old_csrc, KERNELS, tmp, "old"), "new": build(new_csrc, KERNELS, tmp, "new")}
-        seg_libs = {G: build(new_csrc, ["block_hash_seg_fwd"], tmp, f"g{G}", (f"-DSEG_GROUPS={G}",))
-                    for G in groups}
+        swept = [(kernel, f"{macro}={v}", caller(
+            build(new_csrc, [kernel], tmp, f"{macro}{v}", (f"-D{macro}={v}",))[kernel], kernel, spec,
+            not KERNELS[kernel][0])) for kernel, macro, values in args.sweep for v in values]
         has_scratch = {"old": (old_csrc / "block_hash_scatter.cuh").exists(), "new": True}
         fns = {tree: {name: caller(libs[tree][name], name, spec,
                                    has_scratch[tree] and not KERNELS[name][0])
@@ -152,25 +178,17 @@ def main():
         fwd_shapes = {"coarse": served, "fine": served[:N_FINE],
                       "fast": cs.serving_chunk_queries(dev, FAST_STEPS), "uniform": uniform,
                       "refresh": refresh}
-        for name in ("block_hash_fwd", "block_hash_seg_fwd"):
+        b1 = fns["new"]["block_hash_fwd"]
+        for name in (k for k, (forward, _) in KERNELS.items() if forward):
             fo, fn = fns["old"][name], fns["new"][name]
             for shape, x in fwd_shapes.items():
-                b1 = fns["new"]["block_hash_fwd"](x, table)
-                same = torch.equal(fo(x, table), b1) and torch.equal(fn(x, table), b1)
+                ref = b1(x, table)
+                same = torch.equal(fo(x, table), ref) and torch.equal(fn(x, table), ref)
                 print(f"{name} {shape} Q={x.shape[0]}: old / new / new / old "
                       f"{ms_line(in_turns(fo, fn, x, table))} ms; both equal to B1 bit for bit: "
                       f"{same}", flush=True)
                 if not same:
                     raise AssertionError(f"a {name} design disagrees with B1 ({shape})")
-        for G, lib in seg_libs.items():
-            fg = caller(lib["block_hash_seg_fwd"], "block_hash_seg_fwd", spec, False)
-            for shape in ("coarse", "uniform"):
-                x = fwd_shapes[shape]
-                b1 = fns["new"]["block_hash_fwd"]
-                if not torch.equal(fg(x, table), b1(x, table)):
-                    raise AssertionError(f"B3a with SEG_GROUPS={G} disagrees with B1 ({shape})")
-                print(f"block_hash_seg_fwd SEG_GROUPS={G} ({32 * G}-query tile) {shape}: "
-                      f"B1 / B3a / B3a / B1 {ms_line(in_turns(b1, fg, x, table))} ms", flush=True)
 
         ds = cs.synth_drive()
         train_gen = torch.Generator(device=dev).manual_seed(cs.SEED + 2)
@@ -192,23 +210,49 @@ def main():
                 print(f"block_hash_bwd coarse call, levels 11-15 as {split}: "
                       f"{ms_line(t)} ms", flush=True)
             del g
+        grads = {}
         for shape, x in bwd_shapes.items():
-            g = torch.randn((x.shape[0], spec.output_dim), generator=gen, device=dev)
+            g = grads[shape] = torch.randn((x.shape[0], spec.output_dim), generator=gen, device=dev)
             slack = cs.BWD_RTOL * bh.encode_bwd_plain(x, g.abs(), spec) + cs.BWD_ATOL
-            for name in ("block_hash_bwd", "block_hash_seg_bwd", "block_hash_win_bwd"):
+            for name in (k for k, (forward, _) in KERNELS.items() if not forward):
                 bo, bn = fns["old"][name], fns["new"][name]
                 ref = bh.ENCODE_BWD_PLAIN[KERNELS[name][1]](x, g, spec)
-                new = bn(x, g)
-                worst = [((out - ref).abs() / slack).max().item() for out in (bo(x, g), new)]
-                repeats = torch.equal(new.view(torch.int32), bn(x, g).view(torch.int32))
-                del ref
-                print(f"{name} {shape} Q={x.shape[0]}: old / new / new / old "
-                      f"{ms_line(in_turns(bo, bn, x, g))} ms; worst err / (1e-5 S + 1e-7): old "
-                      f"{worst[0]:.3f}, new {worst[1]:.3f}; new repeats bit for bit: {repeats}",
-                      flush=True)
-                if not (max(worst) <= 1.0 and repeats):
+                old, new = bo(x, g), bn(x, g)
+                worst = [bwd_worst(out, ref, slack) for out in (old, new)]
+                repeats = torch.equal(bits(new), bits(bn(x, g)))
+                line = (f"{name} {shape} Q={x.shape[0]}: old / new / new / old "
+                        f"{ms_line(in_turns(bo, bn, x, g))} ms; worst err / (1e-5 S + 1e-7): old "
+                        f"{worst[0]:.3f}, new {worst[1]:.3f}; new repeats bit for bit: {repeats}")
+                as_old = True  # B2 itself is unchanged where both trees have the accumulator
+                if name == "block_hash_bwd" and has_scratch["old"]:
+                    as_old = torch.equal(bits(old), bits(new))
+                    line += f"; equal to old bit for bit: {as_old}"
+                del ref, old, new
+                print(line, flush=True)
+                if not (max(worst) <= 1.0 and repeats and as_old):
                     raise AssertionError(f"a {name} design disagrees or does not repeat ({shape})")
             del slack
+
+        for kernel, define, fv in swept:
+            forward, variant = KERNELS[kernel]
+            base = fns["new"][kernel]
+            for shape in ("coarse", "uniform"):
+                if forward:
+                    x, other = fwd_shapes[shape], table
+                    ok = torch.equal(fv(x, table), b1(x, table))
+                    check = "equal to B1 bit for bit"
+                else:
+                    x, other = bwd_shapes[shape], grads[shape]
+                    slack = cs.BWD_RTOL * bh.encode_bwd_plain(x, other.abs(), spec) + cs.BWD_ATOL
+                    out = fv(x, other)
+                    worst = bwd_worst(out, bh.ENCODE_BWD_PLAIN[variant](x, other, spec), slack)
+                    ok = worst <= 1.0 and torch.equal(bits(out), bits(fv(x, other)))
+                    check = f"worst err / slack {worst:.3f}, repeats bit for bit"
+                    del slack, out
+                print(f"{kernel} {define} {shape}: default / {define} / {define} / default "
+                      f"{ms_line(in_turns(base, fv, x, other))} ms; {check}: {ok}", flush=True)
+                if not ok:
+                    raise AssertionError(f"{kernel} built with {define} disagrees ({shape})")
     return 0
 
 
