@@ -11,7 +11,9 @@ card at the main paths' shapes, then drives the main paths at the full width
 of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
 768 + 64 samples, 4096-ray chunks, 66 x 1030 panos):
   - fused-mlp: `fused_mlp` on the model's own sigma net and LiDAR head at a
-    served chunk's shapes, f32 and bf16, and one backward (B5);
+    served chunk's shapes, f32 and bf16, and one backward (B5), with each
+    instance's registers and blocks per SM, the spills ptxas reports and the
+    tensor-core mma (HMMA) count of the built library;
   - sort-merge: `sort_merge_z` forward and backward on a training chunk's
     768 + 64 and --fast 192 + 64 samples (B6, both directions);
   - serving: full-pano LiDAR rendering through `PanoRenderer`, with weights
@@ -46,6 +48,7 @@ import subprocess
 import sys
 import time
 from dataclasses import replace
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -1161,6 +1164,35 @@ def mlp_worst(out, x, weights, act):
     return err.max().item(), (err / (MLP_RTOL[weights[0].dtype] * S + 1e-6)).max().item()
 
 
+def b5_build_report(cases):
+    """Log what each B5 instance of `cases` gets (registers, local bytes,
+    blocks per SM), the spills ptxas reported and the HMMA (tensor-core mma)
+    count of the built library's SASS; raise on a spill or on a library
+    without HMMA (its bf16 route would not be on tensor cores)."""
+    import re
+
+    from lidarnerf_tpu_torch.ops import cuda_lib, fused_mlp_cuda
+
+    for name, x, ws, act in cases:
+        occ = fused_mlp_cuda.occupancy([x.shape[1]] + [w.shape[1] for w in ws], ws[0].dtype, act)
+        log(f"fused_mlp {name} instance: {occ['registers']} registers/thread, "
+            f"{occ['local_bytes']} B local (stack frame), {occ['threads']} threads and "
+            f"{occ['smem_bytes']} B of shared memory a block, {occ['blocks_per_sm']} blocks/SM")
+    lib = cuda_lib.library_path(fused_mlp_cuda.SOURCE)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        lib.with_suffix(".log").read_text())
+    cuobjdump = Path(cuda_lib._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    hmma = sum("HMMA" in ln for ln in sass.splitlines())
+    log(f"fused_mlp library {lib.name}: ptxas spills (stores, loads) per kernel {spills}; "
+        f"{hmma} HMMA instructions in its SASS")
+    if not spills or any(a != "0" or b != "0" for a, b in spills):
+        raise AssertionError(f"a fused_mlp kernel spills registers: {spills}")
+    if not hmma:
+        raise AssertionError("the fused_mlp library issues no HMMA: bf16 is not on tensor cores")
+
+
 def fused_mlp_phase(params, ds):
     """The fused-mlp path: `fused_mlp` on the model's own nets at a served
     chunk's shapes, f32 and bf16, and one backward on a training chunk's
@@ -1195,6 +1227,7 @@ def fused_mlp_phase(params, ds):
     torch.cuda.synchronize()
     launches = launch_counts()
     only_launches(launches, {"fused_mlp": len(cases) + 1})
+    b5_build_report(cases)
 
     max_err, timed = 0.0, {}
     for (name, x, ws, act), out in zip(cases, outs):

@@ -13,8 +13,8 @@ import torch
 from lidarnerf_tpu_torch.ops import cuda_lib
 
 SOURCE = "fused_mlp.cu"
-# csrc/fused_mlp.cu: ROWS, MAX_LAYERS, MAX_WIDTH, SMEM_LIMIT
-ROWS = 64
+PLAN = "fused_mlp_plan.cuh"  # the limits and shared-memory plans of both routes
+# csrc/fused_mlp_plan.cuh
 MAX_LAYERS = 8
 MAX_WIDTH = 256
 SMEM_LIMIT = 232448
@@ -22,6 +22,7 @@ ACTIVATIONS = {"none": 0, "relu": 1, "sigmoid": 2}
 
 launches = 0
 _fn = None  # the bound C entry point, loaded (and built) at first launch
+_smem_fn = None  # the bound plan query, loaded at its first use
 
 
 def launch_counts() -> dict:
@@ -53,11 +54,35 @@ def _kernel():
     return _fn
 
 
-def smem_bytes(dims) -> int:
-    """Shared memory of a launch: float32 weights padded to 4 columns and two
-    [ROWS, S] activation buffers, S the widest layer rounded up to odd."""
-    weights = sum(a * ((b + 3) // 4 * 4) for a, b in zip(dims[:-1], dims[1:]))
-    return 4 * (weights + 2 * ROWS * (max(dims) | 1))
+def smem_bytes(dims, dtype=torch.float32) -> int:
+    """Shared memory a block of the chain `dims` takes with weights of `dtype`
+    (float32: the CUDA-core route, bfloat16: the tensor-core route), as the
+    kernel's launch plan computes it (csrc/fused_mlp_plan.cuh::fused_mlp_smem,
+    the one copy of the plan); above SMEM_LIMIT the chain does not fit.
+    Loads the library (built first if needed) once: each launch asks."""
+    global _smem_fn
+    if _smem_fn is None:
+        fn = cuda_lib.load(SOURCE).fused_mlp_smem
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
+        _smem_fn = fn
+    return _smem_fn((ctypes.c_int * len(dims))(*dims), len(dims) - 1, int(dtype == torch.bfloat16))
+
+
+def occupancy(dims, dtype, final_activation="none") -> dict:
+    """What a launch of the chain `dims` gets on the current device: registers
+    and local bytes (stack frame and spills; ptxas reports the spills apart)
+    per thread, threads and shared bytes per block, blocks per SM."""
+    fn = cuda_lib.load(SOURCE).fused_mlp_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    info = (ctypes.c_int * 5)()
+    err = fn((ctypes.c_int * len(dims))(*dims), len(dims) - 1, int(dtype == torch.bfloat16),
+             ACTIVATIONS[final_activation], info)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_occupancy failed: cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "threads", "smem_bytes", "blocks_per_sm"), info))
 
 
 def fused_mlp_fwd(x: torch.Tensor, weights, final_activation: str = "none") -> torch.Tensor:
@@ -86,9 +111,13 @@ def fused_mlp_fwd(x: torch.Tensor, weights, final_activation: str = "none") -> t
         dims.append(w.shape[1])
     if max(dims) > MAX_WIDTH:
         raise ValueError(f"widths up to {MAX_WIDTH}, got {dims}")
-    if smem_bytes(dims) > SMEM_LIMIT:
-        raise ValueError(f"widths {dims} need {smem_bytes(dims)} B of shared memory "
-                         f"(at most {SMEM_LIMIT})")
+    smem = smem_bytes(dims, dtype)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"widths {dims} need {smem} B of shared memory (at most {SMEM_LIMIT})")
+    if dtype == torch.bfloat16 and x.data_ptr() % 16:
+        # the tensor-core route streams x with 16-byte copies: a view that
+        # starts off a 16-byte boundary (such as x[1:]) is copied once
+        x = x.clone()
     Q = x.shape[0]
     out = torch.empty((Q, dims[-1]), dtype=torch.float32, device=x.device)
     if Q == 0:

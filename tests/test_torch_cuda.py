@@ -5,6 +5,11 @@ This file imports no JAX, so it also runs where only PyTorch is installed:
 Each kernel is held against its plain PyTorch version on the same inputs.
 """
 
+import ctypes
+import re
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +17,7 @@ import torch
 from lidarnerf_tpu_torch.ops import (
     block_hash,
     block_hash_cuda,
+    cuda_lib,
     fused_mlp,
     fused_mlp_cuda,
     perm_gather,
@@ -362,13 +368,20 @@ def test_variant_on_cuda_launches_its_kernels_only(require_cuda, monkeypatch, va
     assert table.grad is not None and table.grad.any()
 
 
-# B5: the model's nets (sigma, LiDAR head), a relu head and a wide first layer
+# B5: the model's nets (sigma, LiDAR head), a relu head and a wide first layer;
+# on the tensor-core route, a hidden layer wider than REG_WIDTH goes through a
+# per-warp buffer (one, or two in turns when two follow each other), and an
+# 8-layer chain mixes both routes with widths that need K and N padding
 B5_NETS = {
     "sigma": ([32, 64, 16], "none"),
     "lidar_head": ([90, 64, 64, 2], "sigmoid"),
     "relu": ([16, 32, 8], "relu"),
     "wide": ([256, 64, 3], "none"),
+    "wide_hidden": ([32, 256, 16], "none"),
+    "two_wide": ([32, 128, 96, 8], "relu"),
+    "chain8": ([33, 64, 48, 80, 16, 64, 24, 8, 3], "sigmoid"),
 }
+B5_DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 
 
 def _mlp_case(dims, dtype, rows, seed):
@@ -445,7 +458,125 @@ def test_fused_mlp_wrapper_limits(require_cuda):
         fused_mlp_cuda.fused_mlp_fwd(x, [ws[0], ws[1].to(torch.bfloat16)])
     with pytest.raises(ValueError, match="continue the chain"):
         fused_mlp_cuda.fused_mlp_fwd(x, ws[::-1])
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_mlp_cuda.fused_mlp_fwd(*_mlp_case([256] * 9, torch.bfloat16, 10, 3))
     assert fused_mlp_cuda.launches == before
+
+
+@B5_DTYPES
+@pytest.mark.parametrize("Q", [1, 15, 17, 5037])
+def test_fused_mlp_head_ragged_last_tile(require_cuda, Q, dtype):
+    """A last tile of 1..15 rows (or one whole tile): no copy past x, no wait
+    on a copy never issued, only rows < Q stored."""
+    dims, act = B5_NETS["lidar_head"]
+    x, ws = _mlp_case(dims, dtype, Q, 4)
+    out = fused_mlp.fused_mlp_inference(x, ws, act)
+    torch.cuda.synchronize()
+    assert out.shape == (Q, 2)
+    _assert_mlp_close(out, x, ws, act)
+
+
+@B5_DTYPES
+@pytest.mark.parametrize("d_out", [1, 2, 3])
+@pytest.mark.parametrize("d_in", [1, 33, 90])
+def test_fused_mlp_padded_widths(require_cuda, d_in, d_out, dtype):
+    """Input widths that are no multiple of 16 (or of 4: rows packed in the
+    ring), output widths that are no multiple of 8 (odd: scalar stores)."""
+    x, ws = _mlp_case([d_in, 64, d_out], dtype, 1000 + 13, 5)
+    out = fused_mlp.fused_mlp_inference(x, ws, "none")
+    torch.cuda.synchronize()
+    assert out.shape == (x.shape[0], d_out)
+    _assert_mlp_close(out, x, ws, "none")
+
+
+@B5_DTYPES
+@pytest.mark.parametrize("net", ["sigma", "lidar_head"])
+def test_fused_mlp_non_finite_inputs_stay_in_their_rows(require_cuda, net, dtype):
+    """A NaN or an Inf in x reaches only its row's outputs, where and as
+    mlp_reference has them: the K padding and the ReLU spread nothing (a
+    zero weight times an Inf would be a NaN)."""
+    dims, act = B5_NETS[net]
+    x, ws = _mlp_case(dims, dtype, 777, 6)
+    bad = [5, 40, 41, 300]
+    x[5, 3] = float("nan")
+    x[40, 0] = float("inf")
+    x[41, dims[0] - 1] = float("-inf")
+    x[300, 2], x[300, 7] = float("nan"), float("inf")
+    out = fused_mlp.fused_mlp_inference(x, ws, act)
+    ref = fused_mlp.mlp_reference(x, ws, act)
+    torch.cuda.synchronize()
+    assert torch.equal(out.isnan(), ref.isnan()) and torch.equal(out.isinf(), ref.isinf())
+    assert torch.equal(out[out.isinf()], ref[ref.isinf()])
+    rows = (~out.isfinite()).any(1).nonzero().flatten().tolist()
+    assert rows and set(rows) <= set(bad)
+    good = torch.ones(x.shape[0], dtype=torch.bool, device="cuda")
+    good[bad] = False
+    _assert_mlp_close(out[good], x[good], ws, act)
+
+
+@B5_DTYPES
+def test_fused_mlp_misaligned_view(require_cuda, dtype):
+    """x[1:] of a [Q + 1, 90] tensor is contiguous and 8-byte aligned, not
+    16: the wrapper copies such an x once for the tensor-core route (whose
+    16-byte copies need the alignment; its C entry point refuses it), and the
+    float32 route reads it as it is."""
+    dims, act = B5_NETS["lidar_head"]
+    full, ws = _mlp_case(dims, dtype, 2001 + 1, 7)
+    x = full[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    before = fused_mlp_cuda.launches
+    out = fused_mlp.fused_mlp_inference(x, ws, act)
+    torch.cuda.synchronize()
+    assert fused_mlp_cuda.launches == before + 1
+    _assert_mlp_close(out, x, ws, act)
+    assert torch.equal(out, fused_mlp.fused_mlp_inference(x.clone(), ws, act))
+    if dtype == torch.bfloat16:
+        L = len(ws)
+        err = fused_mlp_cuda._kernel()(
+            x.data_ptr(), out.data_ptr(), x.shape[0],
+            (ctypes.c_void_p * L)(*[w.data_ptr() for w in ws]),
+            (ctypes.c_int * (L + 1))(*dims), L, 1, 0, torch.cuda.current_stream().cuda_stream)
+        assert err != 0
+
+
+@B5_DTYPES
+@pytest.mark.parametrize("net", ["sigma", "lidar_head", "wide_hidden", "chain8"])
+def test_fused_mlp_repeats_bit_for_bit(require_cuda, net, dtype):
+    """B5 adds without atomics, in a fixed order: two calls agree bit for bit."""
+    dims, act = B5_NETS[net]
+    x, ws = _mlp_case(dims, dtype, 20000 + 7, 8)
+    a = fused_mlp.fused_mlp_inference(x, ws, act)
+    b = fused_mlp.fused_mlp_inference(x, ws, act)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@B5_DTYPES
+@pytest.mark.parametrize("net", list(B5_NETS))
+def test_fused_mlp_occupancy_matches_the_wrapper(require_cuda, net, dtype):
+    """Every instance gets at least one block an SM, with the shared memory
+    the wrapper computes."""
+    dims, act = B5_NETS[net]
+    occ = fused_mlp_cuda.occupancy(dims, dtype, act)
+    assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+    assert occ["smem_bytes"] == fused_mlp_cuda.smem_bytes(dims, dtype)
+
+
+def test_fused_mlp_ptxas_reports_no_spill(require_cuda):
+    """ptxas (-v) reports 0 bytes spilled for every kernel of the library: the
+    float32 one and each tensor-core instance."""
+    lib = cuda_lib.build([fused_mlp_cuda.SOURCE])[fused_mlp_cuda.SOURCE]
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        lib.with_suffix(".log").read_text())
+    assert len(spills) >= 2 and all(a == b == "0" for a, b in spills), spills
+
+
+def test_fused_mlp_bf16_route_runs_on_tensor_cores(require_cuda):
+    """The built library's SASS issues HMMA (the bf16 mma.sync)."""
+    lib = cuda_lib.build([fused_mlp_cuda.SOURCE])[fused_mlp_cuda.SOURCE]
+    cuobjdump = Path(cuda_lib._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    assert "HMMA" in sass
 
 
 def _perm_case(N, S, C, seed):

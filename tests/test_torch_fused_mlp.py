@@ -6,7 +6,10 @@ version (kernel B5 itself needs the card: tests/test_torch_cuda.py). Inputs
 are numpy draws from a seed; the nets are the model's own shapes.
 """
 
+import ctypes
 import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -113,15 +116,88 @@ def test_b5_entry_points_take_cuda_tensors_only():
     assert fused_mlp_cuda.launch_counts() == before == {"fused_mlp": before["fused_mlp"]}
 
 
-def test_b5_source_constants_and_shared_memory():
-    """The wrapper's limits are the kernel's, and its shared-memory sizing is
-    the source's formula: the model's nets fit, a 256-wide 8-layer chain not."""
+@pytest.fixture(scope="module")
+def host_plan(tmp_path_factory):
+    """The kernel's launch plan (csrc/fused_mlp_plan.cuh, plain C++), built for
+    the host: the library the wrapper's `smem_bytes` asks, on a machine
+    without nvcc."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a C++ compiler is needed to build the plan header for the host"
+    lib = tmp_path_factory.mktemp("plan") / "fused_mlp_plan.so"
+    subprocess.run([cxx, "-std=c++17", "-shared", "-fPIC", "-x", "c++",
+                    str(cuda_lib.CSRC_DIR / fused_mlp_cuda.PLAN), "-o", str(lib)],
+                   check=True, timeout=120, capture_output=True)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture
+def plan_smem(host_plan, monkeypatch):
+    """fused_mlp_cuda.smem_bytes, bound to the host build of the plan; the
+    sources it loaded are appended to `plan_smem.loads`."""
+    real_load = cuda_lib.load
+    loads = []
+
+    def load(source):
+        loads.append(source)
+        return host_plan if source == fused_mlp_cuda.SOURCE else real_load(source)
+
+    monkeypatch.setattr(cuda_lib, "load", load)
+    monkeypatch.setattr(fused_mlp_cuda, "_smem_fn", None)
+
+    def smem(dims, dtype=torch.float32):
+        return fused_mlp_cuda.smem_bytes(dims, dtype)
+
+    smem.loads = loads
+    return smem
+
+
+def test_b5_source_constants_and_shared_memory(plan_smem):
+    """The wrapper's limits are the source's, and its shared-memory sizing is
+    the source's plan: the model's nets fit, a 256-wide 8-layer chain not, at
+    either dtype."""
+    src = (cuda_lib.CSRC_DIR / fused_mlp_cuda.PLAN).read_text()
+    defines = {m.group(1): int(m.group(2)) for m in re.finditer(r"#define (\w+) (\d+)", src)}
+    for name in ("MAX_LAYERS", "MAX_WIDTH", "SMEM_LIMIT"):
+        assert defines[name] == getattr(fused_mlp_cuda, name), name
+    assert 'extern "C" long long fused_mlp_smem(' in src
     src = (cuda_lib.CSRC_DIR / fused_mlp_cuda.SOURCE).read_text()
-    for name in ("ROWS", "MAX_LAYERS", "MAX_WIDTH", "SMEM_LIMIT"):
-        assert int(re.search(rf"#define {name} (\d+)", src).group(1)) == getattr(fused_mlp_cuda, name)
-    assert 'extern "C" int fused_mlp(' in src
+    assert 'extern "C" int fused_mlp(' in src and f'#include "{fused_mlp_cuda.PLAN}"' in src
     head = [90, 64, 64, 2]
     w = 90 * 64 + 64 * 64 + 64 * 4  # padded to 4 columns
-    assert fused_mlp_cuda.smem_bytes(head) == 4 * (w + 2 * 64 * 91)
-    assert fused_mlp_cuda.smem_bytes([32, 64, 16]) < fused_mlp_cuda.SMEM_LIMIT
-    assert fused_mlp_cuda.smem_bytes([256] * 9) > fused_mlp_cuda.SMEM_LIMIT
+    assert plan_smem(head) == 4 * (w + 2 * defines["ROWS"] * 91)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert plan_smem([32, 64, 16], dtype) < fused_mlp_cuda.SMEM_LIMIT
+        assert plan_smem(head, dtype) < fused_mlp_cuda.SMEM_LIMIT
+        assert plan_smem([256] * 9, dtype) > fused_mlp_cuda.SMEM_LIMIT
+
+
+# Shared memory of a block, worked out by hand from the layouts that
+# csrc/fused_mlp_plan.cuh documents. float32: 4 B x (the weights padded to 4
+# columns + 2 buffers of [64, widest | 1]). bfloat16: 256 B a weight fragment
+# (K padded to 16, N to 8), and per warp (8 at most) a ring of [16, S] float32
+# slots (S = d0, or d0 padded to 8 mod 16 where d0 % 4 == 0; 6 slots at most,
+# as many as keep two blocks an SM) plus, for hidden layers wider than 64, one
+# [16, pad16(widest) + 8] bf16 buffer, or two for two such layers in a row.
+B5_SMEM = {
+    # sigma net: weights 32 x 64 + 64 x 16; 24 fragments, 5 slots of [16, 40]
+    (32, 64, 16): (4 * (3072 + 2 * 64 * 65), 256 * 24 + 8 * 5 * 16 * 40 * 4),
+    # LiDAR head: 84 fragments, 2 slots of [16, 90] (rows packed)
+    (90, 64, 64, 2): (4 * (10112 + 2 * 64 * 91), 256 * 84 + 8 * 2 * 16 * 90 * 4),
+    # wide: 132 fragments, 2 slots of [16, 264]; only 5 warps fit
+    (256, 64, 3): (4 * (16640 + 2 * 64 * 257), 256 * 132 + 5 * 2 * 16 * 264 * 4),
+    # wide hidden: 96 fragments, 2 slots of [16, 40] and one [16, 264] buffer
+    (32, 256, 16): (4 * (12288 + 2 * 64 * 257), 256 * 96 + 8 * (2 * 16 * 40 * 4 + 16 * 264 * 2)),
+    # two wide layers in a row: 134 fragments, 2 slots, two [16, 136] buffers
+    (32, 128, 96, 8): (4 * (17152 + 2 * 64 * 129), 256 * 134 + 8 * (2 * 16 * 40 * 4 + 2 * 16 * 136 * 2)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_b5_wrapper_shared_memory_is_the_sources(plan_smem, dtype):
+    """The shared memory the wrapper checks is the source's figure for each
+    route: at the model's nets, `wide` and the nets that take the wide-buffer
+    route (one buffer, two in turns). The library is bound once, not at
+    each launch's check."""
+    for dims, figures in B5_SMEM.items():
+        assert plan_smem(list(dims), dtype) == figures[dtype == torch.bfloat16], dims
+    assert plan_smem.loads == [fused_mlp_cuda.SOURCE]

@@ -190,6 +190,9 @@ def test_b5_b6_sources_and_build_naming():
         assert module.SOURCE == f"{name}.cu" and module.SOURCE not in block_hash_cuda.SOURCES
         src = (cuda_lib.CSRC_DIR / module.SOURCE).read_text()
         assert f'extern "C" int {name}(' in src and "lidarnerf_tpu/ops/" in src
+        # the limit is the source's or a header's it includes (B5's plan header)
+        src += "".join((cuda_lib.CSRC_DIR / h).read_text()
+                       for h in re.findall(r'#include "(\w+\.cuh)"', src))
         assert int(re.search(r"#define SMEM_LIMIT (\d+)", src).group(1)) == module.SMEM_LIMIT
         assert cuda_lib.library_path(module.SOURCE).parent == cuda_lib.BUILD_DIR
 
