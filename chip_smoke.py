@@ -691,7 +691,7 @@ def train_slice_phase(ds):
     opt = train_opt(ds)
     model = new_model(opt, fp16=FULL.fp16)
     init_sd = {k: v.clone() for k, v in model.state_dict().items()}
-    trainer = Trainer("chip_smoke", opt, model, ema_decay=0.95)
+    trainer = Trainer("chip_smoke", opt, model, ema_decay=0.95, workspace=None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1002,7 +1002,8 @@ def determinism_phase(spec, ds):
         set_variant(variant)
         runs = []
         for _ in range(2):
-            trainer = Trainer("chip_smoke", opt, new_model(opt, fp16=FULL.fp16), mute=True)
+            trainer = Trainer("chip_smoke", opt, new_model(opt, fp16=FULL.fp16), mute=True,
+                              workspace=None)
             step = trainer._get_step_fn(1)
             draws = torch.Generator(device=dev).manual_seed(SEED + 9)
             m = step(poses, images, vi, vc, 0, generator=draws)
@@ -1063,7 +1064,8 @@ def variant_train_phase(ds, variant, default_epoch_loss):
 
     set_variant(variant)
     opt = train_opt(ds)
-    trainer = Trainer("chip_smoke", opt, new_model(opt, fp16=FULL.fp16), ema_decay=0.95)
+    trainer = Trainer("chip_smoke", opt, new_model(opt, fp16=FULL.fp16), ema_decay=0.95,
+                      workspace=None)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1370,7 +1372,7 @@ def train_fast_phase(ds, default_ms):
     opt = train_opt(ds, **FAST)
     model = new_model(opt, fp16=FULL.fp16)
     init_sd = {k: v.clone() for k, v in model.state_dict().items()}
-    trainer = Trainer("chip_smoke_fast", opt, model, ema_decay=0.95)
+    trainer = Trainer("chip_smoke_fast", opt, model, ema_decay=0.95, workspace=None)
     occ = trainer.render_cfg.occ
     torch.cuda.synchronize()
     reset_counts()
@@ -1480,6 +1482,239 @@ def serve_fast_phase(ds, trainer, init_sd):
     return launches
 
 
+# the cli phase: the port's CLI at full width on the synthetic drive, as a
+# user runs it (main_lidarnerf.py with configs/kitti360_1908.txt -L: 768 + 64
+# samples, a 2^19 table at 32768, 4096 rays and 4096-ray render chunks, the
+# [2, 8] patch schedule, a 128^3 mesh query), three 60-step epochs with an
+# evaluation after each
+CLI_ARGV = ["--config", "configs/kitti360_1908.txt", "-L", "--path", DATA, "--iters", "180",
+            "--eval_interval", "1", "--mesh_resolution", "128"]
+CHAMFER_ULPS = 16  # the Chamfer rounding bound of tests/test_torch_metrics.py
+
+
+def cli_argv(workspace, *extra):
+    with open(f"{DATA}/scene_constants.json") as f:
+        c = json.load(f)
+    # positional notation: argparse takes "-5.5e-09" for an option, "-0.0000000055" not
+    num = np.format_float_positional
+    return [*CLI_ARGV, "--workspace", workspace, "--scale", num(c["scale"]),
+            "--offset", *map(num, c["offset"]), *extra]
+
+
+def same_meters(a, b):
+    """True iff two evaluations' meters are equal bit for bit."""
+    return a.keys() == b.keys() and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+def events(trainer, kind):
+    return [e for e in trainer.run_log if e["event"] == kind]
+
+
+def cli_train_phase(cli, ws):
+    """Phase 1: train -> evaluate (val each epoch, then test) -> test -> mesh.
+    Returns (trainer, launch counts, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer = cli.main(cli_argv(ws))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    losses, steps = trainer.stats["step_loss"], trainer.global_step
+    if steps != 180 or len(losses) != steps:
+        raise AssertionError(f"cli: trained {steps} steps, expected 180")
+    if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
+        raise AssertionError("cli: a training loss was non-finite or a step was skipped")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    log(f"cli: loss mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+        f"({100 * (1 - last / first):.1f}% lower)")
+    if not last <= 0.75 * first:
+        raise AssertionError("cli: training lowered the loss by less than 25%")
+    evals, test, mesh = events(trainer, "eval"), events(trainer, "test"), events(trainer, "mesh")
+    if [e["epoch"] for e in evals] != [1, 2, 3, 3] or len(test) != 1 or len(mesh) != 1:
+        raise AssertionError(f"cli: evaluations {[e['epoch'] for e in evals]}, tests "
+                             f"{len(test)}, meshes {len(mesh)}")
+    for e in evals:
+        if not all(np.isfinite(v).all() for v in e["meters"].values()):
+            raise AssertionError(f"cli: a meter of {e['name']} is not finite: {e['meters']}")
+    H, W = trainer.opt.H_lidar, trainer.opt.W_lidar
+    chunks = -(-H * W // trainer.opt.max_ray_batch)
+    panos = sum(e["frames"] for e in evals) + test[0]["frames"]
+    queries = (-(-trainer.opt.mesh_resolution // 128)) ** 3  # extract_fields' 128^3 blocks
+    only_launches(launches, {"block_hash_fwd": 2 * steps + 2 * chunks * panos + queries,
+                             "block_hash_bwd": 2 * steps})
+    files = {p.relative_to(ws).as_posix() for p in Path(ws).rglob("*") if p.is_file()}
+    tag = f"lidar_nerf_ep{trainer.epoch:04d}"
+    want = {"args.txt", "log_lidar_nerf.txt", "checkpoints/lidar_nerf.ckpt",
+            "checkpoints/lidar_nerf_ep0002.ckpt", "checkpoints/lidar_nerf_ep0003.ckpt",
+            f"meshes/lidar_nerf_{trainer.epoch}.ply"}
+    for i in range(test[0]["frames"]):
+        want |= {f"results/test_{tag}_{i:04d}_{k}" for k in
+                 ("depth_lidar.npy", "intensity.png", "depth.png")}
+    for e in evals:
+        for i in range(1, e["frames"] + 1):
+            want |= {f"validation/{e['name']}_{i:04d}_{k}" for k in
+                     ("rarydrop.png", "intensity.png", "depth.png", "lidar.npy")}
+    if not want <= files or "checkpoints/lidar_nerf_ep0001.ckpt" in files:
+        raise AssertionError(f"cli: missing {sorted(want - files)}; files {sorted(files)}")
+    return trainer, launches, peak
+
+
+def cli_test_eval_phase(cli, ws, trained):
+    """Phase 2: --test_eval on the same workspace reproduces the meters of the
+    last evaluation of the test split, then of the val split, bit for bit.
+    Returns (trainer, launch counts)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    again = cli.main(cli_argv(ws, "--test_eval"))
+    launches = launch_counts()
+    evals = events(trained, "eval")
+    got = events(again, "eval")
+    H, W = again.opt.H_lidar, again.opt.W_lidar
+    chunks = -(-H * W // again.opt.max_ray_batch)
+    panos = got[0]["frames"] + events(again, "test")[0]["frames"]
+    queries = (-(-again.opt.mesh_resolution // 128)) ** 3
+    only_launches(launches, {"block_hash_fwd": 2 * chunks * panos + queries})
+    if len(got) != 1 or not same_meters(got[0]["meters"], evals[-1]["meters"]):
+        raise AssertionError(f"cli --test_eval: meters {got[0]['meters']} differ from the "
+                             f"trained run's {evals[-1]['meters']}")
+    again.evaluate(cli.build_dataset(again.opt, "val", "cuda"))
+    if not same_meters(again.run_log[-1]["meters"], evals[-2]["meters"]):
+        raise AssertionError(f"cli --test_eval: val meters {again.run_log[-1]['meters']} differ "
+                             f"from epoch 3's {evals[-2]['meters']}")
+    log("cli --test_eval: the test-split and val-split meters equal the trained run's last "
+        "evaluations bit for bit")
+    return again, launches
+
+
+def cli_resume_phase(cli, ws, uninterrupted):
+    """Phase 3: epochs 1-2, then a new Trainer from the workspace (latest
+    checkpoint) trains epoch 3; its 180 step losses must equal the
+    uninterrupted CLI run's bit for bit (same iters, hence the same schedule)."""
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+
+    opt = cli.get_arg_parser().parse_args(cli_argv(ws))
+    opt.enable_lidar = True
+    cli.apply_macros(opt)
+    ds = cli.build_dataset(opt, "train", "cuda")
+    cli.attach_dims(opt, ds)
+
+    def trainer():
+        return Trainer("lidar_nerf", opt, cli.build_model(opt), ema_decay=0.95, mute=True,
+                       workspace=ws)
+
+    first = trainer()
+    first.train(ds, None, max_epochs=2)
+    del first
+    resumed = trainer()
+    if (resumed.epoch, resumed.global_step) != (2, 120):
+        raise AssertionError(f"cli resume: loaded epoch {resumed.epoch}, step {resumed.global_step}")
+    resumed.train(ds, None, max_epochs=3)
+    a, b = resumed.stats["step_loss"], uninterrupted.stats["step_loss"]
+    differ = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    if len(a) != len(b) or differ:
+        raise AssertionError(f"cli resume: step losses differ at steps {differ[:10]} "
+                             f"(resumed {len(a)}, uninterrupted {len(b)})")
+    log("cli resume: epoch 3 after a resume from epoch 2's checkpoint repeats the "
+        "uninterrupted run's 60 step losses bit for bit (and epochs 1-2 theirs)")
+    return resumed
+
+
+def chamfer_phase(cli, trained, ws):
+    """Phase 4: the device Chamfer and F-score on test frame 0 (the test run's
+    predicted cloud against the frame's) match the CPU's within the rounding
+    bound of tests/test_torch_metrics.py. Returns (ms per call, points)."""
+    from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar
+    from lidarnerf_tpu_torch.ops.chamfer import chamfer_and_fscore, chamfer_distance
+
+    opt = trained.opt
+    ds = cli.build_dataset(opt, "test", "cuda")
+    gt_depth = ds.images_lidar[0][..., 2] * ds.images_lidar[0][..., 0]
+    gt = pano_to_lidar(gt_depth / opt.scale, ds.intrinsics_lidar)
+    pred = np.load(f"{ws}/results/test_lidar_nerf_ep{trained.epoch:04d}_0000_depth_lidar.npy")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cd_g, f_g = chamfer_and_fscore(pred, gt, device="cuda")  # ends on the host
+        ms.append((time.perf_counter() - t0) * 1e3)
+    cd_c, f_c = chamfer_and_fscore(pred, gt, device="cpu")
+    args = [torch.from_numpy(x.astype(np.float32)) for x in (pred, gt)]
+    d_g = [d.cpu().numpy() for d in chamfer_distance(*(x.cuda() for x in args))]
+    d_c = [d.numpy() for d in chamfer_distance(*args)]
+    eps, near = 2.0**-23, 0
+    for g, c, a, b in zip(d_g, d_c, (pred, gt), (gt, pred)):
+        bound = CHAMFER_ULPS * eps * ((a**2).sum(-1) + (b**2).sum(-1).max())
+        if not np.all(np.abs(g - c) <= bound):
+            raise AssertionError(f"chamfer: a distance differs beyond its bound "
+                                 f"(max |GPU - CPU| {np.abs(g - c).max():.3e})")
+        near = max(near, int((np.abs(c - 0.05) <= bound).sum()))
+    p, g = (pred**2).sum(-1), (gt**2).sum(-1)
+    cd_bound = CHAMFER_ULPS * eps * (p.mean() + g.max() + g.mean() + p.max())
+    log(f"chamfer on test frame 0 ({len(pred)} and {len(gt)} points): GPU {cd_g:.6f} / "
+        f"F {f_g:.6f}, CPU {cd_c:.6f} / F {f_c:.6f}; |dCD| {abs(cd_g - cd_c):.3e} (bound "
+        f"{cd_bound:.3e}), points within the bound of the threshold {near}")
+    if abs(cd_g - cd_c) > cd_bound or abs(f_g - f_c) > 2 * near / min(len(pred), len(gt)) + 1e-12:
+        raise AssertionError("chamfer: the device Chamfer or F-score disagrees with the CPU's")
+    return float(np.median(ms)), (len(pred), len(gt))
+
+
+def cli_phase():
+    """The cli phases in a temporary workspace outside the repo, removed
+    afterwards. Returns the launch counts of phase 1 and phase 2."""
+    import shutil
+    import tempfile
+
+    from lidarnerf_tpu_torch import main_lidarnerf as cli
+
+    root = tempfile.mkdtemp(prefix="lidarnerf_cli_")
+    try:
+        ws = os.path.join(root, "run")
+        trained, launches, peak = cli_train_phase(cli, ws)
+        again, test_launches = cli_test_eval_phase(cli, ws, trained)
+        resumed = cli_resume_phase(cli, os.path.join(root, "resume"), trained)
+        loads = events(again, "load") + events(resumed, "load")
+        del again, resumed
+        chamfer_ms, points = chamfer_phase(cli, trained, ws)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    gpu = gpu_line()
+    epochs, evals = events(trained, "epoch"), events(trained, "eval")
+    per_step = [1e3 * e["seconds"] / e["steps"] for e in epochs]
+    log(f"cli train on {gpu}: ms/step by epoch (patch 1, [2, 8], 1): "
+        f"{', '.join(f'{t:.2f}' for t in per_step)}; peak memory of train -> evaluate -> test "
+        f"-> mesh {peak / 2**30:.2f} GiB")
+    frames = sum(e["frames"] for e in evals)
+    render = 1e3 * sum(e["render_s"] for e in evals) / frames
+    meters = 1e3 * sum(e["meters_s"] for e in evals) / frames
+    log(f"cli eval on {gpu}: {render + meters:.1f} ms/frame over {frames} frames = render "
+        f"{render:.1f} + meters {meters:.1f} (of which Chamfer, both directions at "
+        f"{points[0]} x {points[1]} points: {chamfer_ms:.1f} ms)")
+    saves = events(trained, "save")
+    full = [e for e in saves if "_ep" in os.path.basename(e["path"])]
+    best = [e for e in saves if "_ep" not in os.path.basename(e["path"])]
+    def secs(evs):
+        return ", ".join(f"{e['seconds']:.2f}" for e in evs)
+
+    log(f"cli checkpoints on {gpu}: full {full[-1]['bytes']} B ({full[-1]['bytes'] / 2**20:.1f} "
+        f"MiB), written in {secs(full)} s; best {best[-1]['bytes']} B "
+        f"({best[-1]['bytes'] / 2**20:.1f} MiB), written in {secs(best)} s; a full one loaded "
+        f"in {secs(loads)} s")
+    test = events(trained, "test")[0]
+    mesh = events(trained, "mesh")[0]
+    log(f"cli test on {gpu}: {1e3 * test['seconds'] / test['frames']:.1f} ms/frame "
+        f"({test['frames']} frames, render and files)")
+    log(f"cli mesh on {gpu}: {mesh['resolution']}^3 density query {mesh['query_s']:.2f} s, "
+        f"marching tetrahedra {mesh['tetrahedra_s']:.2f} s, PLY write {mesh['ply_s']:.2f} s, "
+        f"{mesh['triangles']} triangles")
+    for e in evals:
+        log(f"cli meters {e['name']} ({e['frames']} frames) on {gpu}: " + "; ".join(
+            f"{k} {np.asarray(v).tolist()}" for k, v in e["meters"].items()))
+    return launches, test_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1551,6 +1786,10 @@ def main():
     for variant in ("default", *VARIANT_ENV):
         train_reference_phase(ds, variant)
     train_reference_phase(ds, fast=True)
+
+    # the CLI and the trainer's workspace
+    torch.cuda.empty_cache()
+    paths["cli"], paths["cli-test-eval"] = cli_phase()
 
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())

@@ -22,7 +22,11 @@ Ported so far:
   `csrc/block_hash_{seg,win}_{fwd,bwd}.cu`);
 - occupancy-prior sampling (`--fast`, `models/occupancy.py`) on both paths;
 - the fused MLP B5 (`ops/fused_mlp.py`, `csrc/fused_mlp.cu`) and the
-  permutation gather B6 of `ops/sampling.sort_merge_z` (`csrc/perm_gather.cu`).
+  permutation gather B6 of `ops/sampling.sort_merge_z` (`csrc/perm_gather.cu`);
+- the CLI (`python -m lidarnerf_tpu_torch.main_lidarnerf`, the counterpart
+  of `main_lidarnerf.py`) and the trainer's workspace: evaluation with the
+  LiDAR meters (`nerf/metrics.py`, `ops/chamfer.py`), test panos and point
+  clouds, mesh export, checkpoints that each package reads, and resume.
 """
 
 __version__ = "0.1.0"

@@ -1,91 +1,150 @@
-"""Training loop (counterpart of the training part of lidarnerf_tpu/nerf/trainer.py).
+"""Training engine (counterpart of lidarnerf_tpu/nerf/trainer.py).
 
 `Trainer` holds the model, the Adam state and schedule, the EMA shadow and,
-under `opt.occ_sampling` (`--fast`), the occupancy grid (trainer.py:98-165);
-`train` runs epochs under the per-epoch patch-size schedule (:367-378);
-`train_one_epoch` visits every frame once in a seeded order with one
-optimisation step each, the per-step path of the JAX trainer's epoch
-(:426-562), refreshes the occupancy grid every `occ_update_interval` steps,
-updates the EMA once and logs rays/s and samples/s.
+under `opt.occ_sampling` (`--fast`), the occupancy grid (trainer.py:98-165),
+and keeps the JAX trainer's workspace (:183-217): `log_{name}.txt`,
+`checkpoints/` (a ring of `max_keep_ckpt` full checkpoints and the best one
+by the Chamfer result, which stores the EMA weights as the model),
+`validation/`, `results/`, `meshes/`, the tensorboardX run when that package
+is installed, and under `opt.profile` a torch.profiler trace of the first
+epoch in `profile/`.
 
-Only `workspace=None` runs so far: checkpoints, eval, test, the tensorboard
-writer and resume come with ROADMAP.md queue A item 3.
+`train` runs epochs under the per-epoch patch-size schedule, with a full
+checkpoint every `ckpt_interval` epochs and an evaluation every
+`eval_interval` epochs (:341-394); `train_one_epoch` visits every frame once
+in a seeded order with one optimisation step each, the per-step path of the
+JAX trainer's epoch (:426-562), refreshes the occupancy grid every
+`occ_update_interval` steps, updates the EMA once and logs rays/s.
+`evaluate_one_epoch` renders every frame with the EMA weights (swapped into
+the model and back; it draws nothing from the training generator) and feeds
+the depth meters (:566-706); `test` and `save_mesh` use the raw weights
+(:710-823). The NeRF-MVL branches of `evaluate_one_epoch` and `test` come
+with that dataset (ROADMAP.md, queue A item 2).
+
+A checkpoint holds numpy leaves only, with `model` and `ema` in the flax
+layout (`utils/params.py`), so each package loads the other's: the JAX
+trainer's keys (`epoch`, `global_step`, `stats`, `ema_num_updates`,
+`np_rng`, `occ_grid`), and the port's own Adam and schedule state under
+`optimizer_torch` and its generator state under `rng_torch`. A JAX
+checkpoint's `optimizer` (optax) and `rng` (a JAX key) are not carried
+across.
 """
 
+import glob
+import os
 import time
 
 import numpy as np
 import torch
 
+from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
+from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar
 from lidarnerf_tpu_torch.models.network import check_seam_flags
 from lidarnerf_tpu_torch.models.occupancy import init_occ_grid, occ_config_from_opt, update_occ_grid
-from lidarnerf_tpu_torch.models.renderer import RenderConfig
+from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays_staged
 from lidarnerf_tpu_torch.nerf.train_step import (
     TrainConfig,
     ema_update,
     make_optimizer,
     make_train_step,
 )
+from lidarnerf_tpu_torch.ops import losses as L
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
+from lidarnerf_tpu_torch.utils import checkpoint_io
+from lidarnerf_tpu_torch.utils.image_io import COLORMAP_BONE, COLORMAP_HSV, apply_color_map, imwrite
+from lidarnerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 
-_NOT_PORTED = "(ROADMAP.md, queue A item 3: checkpoints, eval, test and resume)"
-# the defaults of the JAX trainer's parameters that are not ported yet
-# (workspace: None until the workspace is)
-_DEFAULTS = dict(metrics=None, depth_metrics=None, eval_interval=1, ckpt_interval=1,
-                 max_keep_ckpt=2, workspace=None, best_mode="min", use_checkpoint="latest",
-                 use_tensorboardX=True, ckpt_format="pickle")
+_MVL = "the NeRF-MVL branch of {} is not ported yet (ROADMAP.md, queue A item 2: datasets)"
+
+
+def is_ali_cluster():
+    """Cluster sniff for the alternate summary path (as the JAX trainer's)."""
+    import socket
+
+    return "auto-drive" in socket.gethostname()
 
 
 def _patch_key(p):
     return p if isinstance(p, int) else tuple(p)
 
 
-class Trainer:
-    """Trains a NeRFNetwork in place.
+def _to_numpy(tree):
+    """Every tensor of a nested dict/list/tuple -> numpy on the host."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    return tree
 
-    The parameters are the JAX trainer's, in its order
-    (lidarnerf_tpu/nerf/trainer.py:60-78). Those of what is not ported yet
-    (metrics, eval, checkpoints, the workspace, tensorboard: ROADMAP.md,
-    queue A item 3) raise when given a value other than their default;
-    `workspace` defaults to None here until then.
+
+def _to_torch(tree):
+    """Every numpy array of a nested dict/list/tuple -> a CPU tensor."""
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(tree)
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_torch(v) for v in tree)
+    return tree
+
+
+class Trainer:
+    """Trains, evaluates, tests and checkpoints a NeRFNetwork.
+
+    The parameters are the JAX trainer's, in its order and with its
+    defaults (lidarnerf_tpu/nerf/trainer.py:60-78).
 
     Args:
-        name: run name, used in the log.
+        name: run name: the log file, the checkpoint and result names.
         opt: options object with the CLI's field names (main_lidarnerf.py):
             the TrainConfig fields, num_steps, upsample_steps,
-            min_near_lidar, min_near, bound, patch_size_lidar,
-            change_patch_size_lidar, change_patch_size_epoch, seed; for
-            `--fast`, occ_sampling and occ_grid_size, occ_update_interval,
-            density_thresh, occ_floor, occ_bins, occ_dilate. The seam
-            options `seam_tie` and `seam_sync_hashed` raise when set.
+            min_near_lidar, min_near, bound, max_ray_batch,
+            patch_size_lidar, change_patch_size_lidar,
+            change_patch_size_epoch, seed, and optionally profile,
+            dataloader and cluster_summary_path; for `--fast`,
+            occ_sampling and the occ_* fields. The seam options `seam_tie`
+            and `seam_sync_hashed` raise when set.
         module: the NeRFNetwork, moved to `device` and trained in place (the
             JAX trainer takes an unbound flax module and makes its
             parameters; a torch module holds its own).
         device: None runs on CUDA and raises if there is none; pass "cpu"
             to run the plain PyTorch path on the CPU.
-        mute: no log lines.
+        mute: no log lines on stdout (the log file still gets them).
+        metrics: RGB meters, kept and not read, as in the JAX trainer.
+        depth_metrics: the LiDAR meters, in the CLI's order (MAE and RMSE
+            on intensity, then depth, then points: the last one's first
+            value decides the best checkpoint).
         ema_decay: keep an EMA shadow of the parameters, updated per epoch.
+        workspace: the run directory; None keeps no files (no log file,
+            no checkpoints, no validation images).
+        use_checkpoint: "scratch", "latest", "latest_model", "best" or a
+            checkpoint path; read only with a workspace.
+        ckpt_format: "pickle"; "orbax" raises (a JAX library).
     """
 
     def __init__(self, name, opt, module, device=None, mute=False, metrics=None,
                  depth_metrics=None, ema_decay=None, eval_interval=1, ckpt_interval=1,
-                 max_keep_ckpt=2, workspace=None, best_mode="min", use_checkpoint="latest",
-                 use_tensorboardX=True, ckpt_format="pickle"):
-        given = dict(metrics=metrics or None, depth_metrics=depth_metrics or None,
-                     eval_interval=eval_interval, ckpt_interval=ckpt_interval,
-                     max_keep_ckpt=max_keep_ckpt, workspace=workspace, best_mode=best_mode,
-                     use_checkpoint=use_checkpoint, use_tensorboardX=use_tensorboardX,
-                     ckpt_format=ckpt_format)
-        unported = [k for k, v in given.items() if v != _DEFAULTS[k]]
-        if unported:
-            raise NotImplementedError(f"Trainer({', '.join(unported)}=...) is not ported yet "
-                                      f"{_NOT_PORTED}")
+                 max_keep_ckpt=2, workspace="workspace", best_mode="min",
+                 use_checkpoint="latest", use_tensorboardX=True, ckpt_format="pickle"):
         check_seam_flags(opt)
+        checkpoint_io.check_format(ckpt_format)
         self.device = resolve_device(device)
         self.name = name
         self.opt = opt
         self.mute = mute
+        self.metrics = metrics or []
+        self.depth_metrics = depth_metrics or []
         self.ema_decay = ema_decay
+        self.eval_interval = eval_interval
+        self.ckpt_interval = max(1, ckpt_interval)
+        self.max_keep_ckpt = max_keep_ckpt
+        self.workspace = workspace
+        self.best_mode = best_mode
+        self.use_tensorboardX = use_tensorboardX
+        self.ckpt_format = ckpt_format
+        self.time_stamp = time.strftime("%Y-%m-%d_%H-%M-%S")
         self.train_cfg = TrainConfig(
             alpha_d=opt.alpha_d,
             alpha_r=opt.alpha_r,
@@ -138,19 +197,69 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._np_rng = np.random.RandomState(seed)
         self._step_fns = {}
+        self.writer = None
 
         self.epoch = 0
         self.global_step = 0
         self.local_step = 0
-        self.stats = {"loss": [], "step_loss": [], "skipped": []}
+        # the JAX trainer's stats, and the port's per-step losses and skips
+        self.stats = {"loss": [], "valid_loss": [], "results": [], "checkpoints": [],
+                      "best_result": None, "step_loss": [], "skipped": []}
+        # one dict per epoch, evaluation, test, mesh export, checkpoint save
+        # and load: what it measured and how long it took (not saved)
+        self.run_log = []
+
+        self.log_ptr = None
+        if self.workspace is not None:
+            os.makedirs(self.workspace, exist_ok=True)
+            self.log_path = os.path.join(workspace, f"log_{self.name}.txt")
+            self.log_ptr = open(self.log_path, "a+")
+            self.ckpt_path = os.path.join(self.workspace, "checkpoints")
+            self.best_path = f"{self.ckpt_path}/{self.name}.ckpt"
+            os.makedirs(self.ckpt_path, exist_ok=True)
 
         n_params = sum(p.numel() for p in self.model.parameters())
-        self.log(f"[INFO] Trainer: {self.name} | {self.device}")
+        self.log(f"[INFO] Trainer: {self.name} | {self.time_stamp} | {self.device.type} | "
+                 f"{self.workspace}")
         self.log(f"[INFO] #parameters: {n_params}")
+
+        if self.workspace is not None:
+            if use_checkpoint == "scratch":
+                self.log("[INFO] Training from scratch ...")
+            elif use_checkpoint == "latest":
+                self.log("[INFO] Loading latest checkpoint ...")
+                self.load_checkpoint()
+            elif use_checkpoint == "latest_model":
+                self.log("[INFO] Loading latest checkpoint (model only)...")
+                self.load_checkpoint(model_only=True)
+            elif use_checkpoint == "best":
+                if os.path.exists(self.best_path):
+                    self.log("[INFO] Loading best checkpoint ...")
+                    self.load_checkpoint(self.best_path)
+                else:
+                    self.log(f"[INFO] {self.best_path} not found, loading latest ...")
+                    self.load_checkpoint()
+            else:
+                self.log(f"[INFO] Loading {use_checkpoint} ...")
+                self.load_checkpoint(use_checkpoint)
+
+    # ------------------------------------------------------------------ utils
 
     def log(self, *args):
         if not self.mute:
             print(*args, flush=True)
+        if self.log_ptr:
+            print(*args, file=self.log_ptr)
+            self.log_ptr.flush()
+
+    def close(self):
+        """Close the log file and the tensorboard writer."""
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
+        if self.log_ptr:
+            self.log_ptr.close()
+            self.log_ptr = None
 
     def _get_step_fn(self, patch_size):
         key = _patch_key(patch_size)
@@ -172,10 +281,42 @@ class Trainer:
                         device=self.device)
         return poses, images, vi, vc
 
+    def _is_mvl(self):
+        return getattr(self.opt, "dataloader", "kitti360") == "nerf_mvl"
+
+    # ------------------------------------------------------------------ train
+
     def train(self, train_dataset, valid_dataset, max_epochs):
-        """Epochs self.epoch + 1 .. max_epochs under the patch-size schedule."""
-        if valid_dataset is not None:
-            raise NotImplementedError(f"evaluation is not ported yet {_NOT_PORTED}")
+        """Epochs self.epoch + 1 .. max_epochs under the patch-size schedule.
+
+        With a workspace, a full checkpoint every `ckpt_interval` epochs and
+        after the last; an evaluation of `valid_dataset` (skipped when it is
+        None) every `eval_interval` epochs, then the best checkpoint.
+        """
+        writer = None
+        if self.use_tensorboardX and self.workspace is not None:
+            try:
+                import tensorboardX
+
+                if is_ali_cluster() and getattr(self.opt, "cluster_summary_path", None):
+                    summary_path = self.opt.cluster_summary_path
+                else:
+                    summary_path = os.path.join(self.workspace, "run", self.name)
+                writer = tensorboardX.SummaryWriter(summary_path)
+            except ImportError:
+                pass
+        self.writer = writer
+
+        # --profile: a torch.profiler trace of the first epoch under
+        # workspace/profile (the JAX trainer's jax.profiler trace)
+        prof = None
+        if getattr(self.opt, "profile", None) and self.workspace is not None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+
         change_dataloader = self.opt.change_patch_size_lidar[0] > 1
         for epoch in range(self.epoch + 1, max_epochs + 1):
             self.epoch = epoch
@@ -187,6 +328,30 @@ class Trainer:
             else:
                 patch = self.opt.patch_size_lidar
             self.train_one_epoch(train_dataset, patch)
+
+            if prof is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                prof.stop()
+                trace_dir = os.path.join(self.workspace, "profile")
+                os.makedirs(trace_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(trace_dir, f"{self.name}_ep{epoch:04d}.json"))
+                prof = None
+                self.log(f"[INFO] profiler trace written to {trace_dir}")
+
+            if self.workspace is not None and (
+                self.epoch % self.ckpt_interval == 0 or self.epoch == max_epochs
+            ):
+                self.save_checkpoint(full=True, best=False)
+
+            if valid_dataset is not None and self.epoch % self.eval_interval == 0:
+                self.evaluate_one_epoch(valid_dataset)
+                if self.workspace is not None:
+                    self.save_checkpoint(full=False, best=True)
+
+        if writer is not None:
+            writer.close()
+            self.writer = None
 
     def _refresh_occ_grid(self):
         """Before a step whose global_step is a multiple of the update interval
@@ -215,13 +380,17 @@ class Trainer:
 
         losses = [float(m["loss"]) for m in pending]  # ends on the host
         skips = [m["skipped_nonfinite"] for m in pending]
+        first = self.global_step - len(skips) + 1
         if any(skips):
-            first = self.global_step - len(skips) + 1
             bad = [first + i for i, s in enumerate(skips) if s]
             self.log(f"[WARN] guarded_update skipped non-finite step(s) at global step(s) "
                      f"{bad} (params/opt state kept)")
         self.stats["step_loss"].extend(losses)
         self.stats["skipped"].extend(skips)
+        if self.writer is not None:
+            for i, lv in enumerate(losses):
+                self.writer.add_scalar("train/loss", lv, first + i)
+            self.writer.add_scalar("train/lr", lr_now, self.global_step)
 
         if self.ema_params is not None:
             ema_update(self.ema_params, self.model.state_dict(), self.ema_decay,
@@ -229,6 +398,8 @@ class Trainer:
             self.ema_num_updates += 1
 
         dt = time.perf_counter() - t0
+        self.run_log.append({"event": "epoch", "epoch": self.epoch, "steps": self.local_step,
+                             "seconds": dt})
         average_loss = float(np.sum(losses)) / max(self.local_step, 1)
         self.stats["loss"].append(average_loss)
         rays = self.local_step * self.train_cfg.num_rays_lidar
@@ -237,3 +408,371 @@ class Trainer:
             f"==> Finished Epoch {self.epoch}. loss={average_loss:.4f} "
             f"({rays / dt:.0f} rays/s, {samples / dt / 1e6:.2f}M samples/s)"
         )
+
+    # ------------------------------------------------------------------- eval
+
+    def evaluate(self, dataset, name=None):
+        """evaluate_one_epoch with the tensorboard writer off."""
+        use_tb, self.use_tensorboardX = self.use_tensorboardX, False
+        self.writer = None
+        self.evaluate_one_epoch(dataset, name)
+        self.use_tensorboardX = use_tb
+
+    def _render_full_frame(self, dataset, frame_idx):
+        """Render all H*W rays of one frame with the model's current weights
+        -> numpy (raydrop, intensity, depth), each [H, W]."""
+        H, W = dataset.H_lidar, dataset.W_lidar
+        pose = torch.as_tensor(dataset.poses_lidar[frame_idx : frame_idx + 1],
+                               dtype=torch.float32, device=self.device)
+        rays = get_lidar_rays(pose, dataset.intrinsics_lidar, H, W, N=-1)
+        out = render_rays_staged(
+            self.model, rays["rays_o"][0], rays["rays_d"][0], self.render_cfg,
+            chunk=self.opt.max_ray_batch, occ_grid=self.occ_grid,
+        )
+        image = out["image"].reshape(H, W, -1).cpu().numpy()
+        depth = out["depth"].reshape(H, W).cpu().numpy()
+        return image[..., 0], image[..., 1], depth
+
+    def _criterion_means(self, pred_depth, gt_depth, pred_raydrop, gt_raydrop,
+                         pred_int, gt_int):
+        cfg = self.train_cfg
+        cd = L.make_criterion(cfg.depth_loss, cfg.scale)
+        cr = L.make_criterion(cfg.raydrop_loss, cfg.scale)
+        ci = L.make_criterion(cfg.intensity_loss, cfg.scale)
+
+        def t(x):  # float32, as the JAX trainer's jnp criteria compute
+            return torch.from_numpy(np.asarray(x, dtype=np.float32))
+
+        return float(
+            cfg.alpha_d * np.mean(cd(t(pred_depth), t(gt_depth)).numpy())
+            + cfg.alpha_r * np.mean(cr(t(pred_raydrop), t(gt_raydrop)).numpy())
+            + cfg.alpha_i * np.mean(ci(t(pred_int), t(gt_int)).numpy())
+        )
+
+    def _swap_in(self, state):
+        """Load `state` into the model in place; return the weights it held."""
+        held = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        self.model.load_state_dict(state)
+        return held
+
+    def evaluate_one_epoch(self, dataset, name=None):
+        """Render every frame of `dataset` with the EMA weights (the raw ones
+        without an EMA) and feed the depth meters; with a workspace, write
+        the validation panos and point clouds.
+
+        The meters' measurements and the times are appended to `run_log`.
+        """
+        if self._is_mvl():
+            raise NotImplementedError(_MVL.format("evaluate_one_epoch"))
+        self.log(f"++> Evaluate at epoch {self.epoch} ...")
+        t_eval0 = time.perf_counter()
+        if name is None:
+            name = f"{self.name}_ep{self.epoch:04d}"
+
+        for metric in self.depth_metrics:
+            metric.clear()
+
+        total_loss = 0.0
+        render_s = meters_s = 0.0
+        self.local_step = 0
+        held = self._swap_in(self.ema_params) if self.ema_params is not None else None
+        try:
+            for i in range(len(dataset)):
+                self.local_step += 1
+                gt = dataset.images_lidar[i]  # [H, W, 3]
+                gt_raydrop = gt[..., 0].copy()
+                gt_intensity = gt[..., 1] * gt_raydrop
+                gt_depth = gt[..., 2] * gt_raydrop
+
+                t0 = time.perf_counter()
+                pred_raydrop, pred_intensity, pred_depth = self._render_full_frame(dataset, i)
+                t1 = time.perf_counter()
+                render_s += t1 - t0
+                raydrop_mask = np.where(pred_raydrop > 0.5, 1.0, 0.0)
+                if self.opt.alpha_r > 0 and raydrop_mask.any():
+                    pred_intensity = pred_intensity * raydrop_mask
+                    pred_depth = pred_depth * raydrop_mask
+
+                total_loss += self._criterion_means(
+                    pred_depth, gt_depth, pred_raydrop, gt_raydrop,
+                    pred_intensity, gt_intensity,
+                )
+                pi, gi = pred_intensity[None], gt_intensity[None]
+                pd, gd = pred_depth[None], gt_depth[None]
+                for mi, metric in enumerate(self.depth_metrics):
+                    if mi < 2:  # MAE, RMSE on intensity
+                        metric.update(pi, gi)
+                    else:
+                        metric.update(pd, gd)
+                meters_s += time.perf_counter() - t1
+
+                if self.workspace is not None:
+                    vdir = os.path.join(self.workspace, "validation")
+                    os.makedirs(vdir, exist_ok=True)
+                    tag = f"{name}_{self.local_step:04d}"
+                    rd_img = (np.where(pred_raydrop > 0.5, 1.0, 0.0) * 255).astype(np.uint8)
+                    it_img = (pred_intensity * 255).astype(np.uint8)
+                    dp_img = (pred_depth * 255).astype(np.uint8)
+                    imwrite(os.path.join(vdir, f"{tag}_rarydrop.png"), rd_img)
+                    imwrite(os.path.join(vdir, f"{tag}_intensity.png"),
+                            apply_color_map(it_img, COLORMAP_BONE))
+                    imwrite(os.path.join(vdir, f"{tag}_depth.png"),
+                            apply_color_map(dp_img, COLORMAP_HSV))
+                    pred_lidar = pano_to_lidar(pred_depth / self.opt.scale,
+                                               dataset.intrinsics_lidar)
+                    np.save(os.path.join(vdir, f"{tag}_lidar.npy"), pred_lidar)
+        finally:
+            if held is not None:
+                self.model.load_state_dict(held)
+
+        average_loss = total_loss / max(self.local_step, 1)
+        self.stats["valid_loss"].append(average_loss)
+
+        if len(self.depth_metrics) > 0:
+            result = self.depth_metrics[-1].measure()[0]  # Chamfer
+            self.stats["results"].append(result if self.best_mode == "min" else -result)
+        else:
+            self.stats["results"].append(average_loss)
+
+        measured = {}
+        for metric in self.depth_metrics:
+            measured[type(metric).__name__] = metric.measure()
+            self.log(metric.report())
+            if self.use_tensorboardX and self.writer is not None:
+                metric.write(self.writer, self.epoch, prefix="LiDAR_evaluate")
+            metric.clear()
+
+        self.run_log.append({"event": "eval", "name": name, "epoch": self.epoch,
+                             "frames": self.local_step, "meters": measured,
+                             "render_s": render_s, "meters_s": meters_s})
+        self.log(
+            f"++> Evaluate epoch {self.epoch} Finished "
+            f"({time.perf_counter() - t_eval0:.1f}s, {self.local_step} frames)."
+        )
+
+    # ------------------------------------------------------------------- test
+
+    def test(self, dataset, save_path=None, name=None, write_video=True):
+        """Render every frame with the raw weights; write the point clouds,
+        and the panos as PNGs (or two mp4s when `write_video` and imageio
+        with its ffmpeg backend are installed)."""
+        if self._is_mvl():
+            raise NotImplementedError(_MVL.format("test"))
+        if save_path is None:
+            save_path = os.path.join(self.workspace, "results")
+        if name is None:
+            name = f"{self.name}_ep{self.epoch:04d}"
+        os.makedirs(save_path, exist_ok=True)
+        self.log(f"==> Start Test, save results to {save_path}")
+        t_test0 = time.perf_counter()
+        all_preds, all_preds_depth = [], []
+
+        for i in range(len(dataset)):
+            pred_raydrop, pred_intensity, pred_depth = self._render_full_frame(dataset, i)
+            raydrop_mask = np.where(pred_raydrop > 0.5, 1.0, 0.0)
+            if self.opt.alpha_r > 0:
+                pred_intensity = pred_intensity * raydrop_mask
+                pred_depth = pred_depth * raydrop_mask
+
+            rd_img = (raydrop_mask * 255).astype(np.uint8)
+            it_img = (pred_intensity * 255).astype(np.uint8)
+
+            pred_lidar = pano_to_lidar(pred_depth / self.opt.scale, dataset.intrinsics_lidar)
+            np.save(os.path.join(save_path, f"test_{name}_{i:04d}_depth_lidar.npy"), pred_lidar)
+
+            dp_img = (pred_depth * 255).astype(np.uint8)
+            if write_video:
+                all_preds.append(apply_color_map(it_img, COLORMAP_BONE))
+                all_preds_depth.append(apply_color_map(dp_img, COLORMAP_HSV))
+            else:
+                imwrite(os.path.join(save_path, f"test_{name}_{i:04d}_raydrop.png"), rd_img)
+                imwrite(os.path.join(save_path, f"test_{name}_{i:04d}_intensity.png"),
+                        apply_color_map(it_img, COLORMAP_BONE))
+                imwrite(os.path.join(save_path, f"test_{name}_{i:04d}_depth.png"),
+                        apply_color_map(dp_img, COLORMAP_HSV))
+
+        if write_video and all_preds:
+            try:
+                import imageio
+
+                imageio.mimwrite(
+                    os.path.join(save_path, f"{name}_lidar_rgb.mp4"),
+                    np.stack(all_preds, axis=0), fps=25, quality=8, macro_block_size=1,
+                )
+                imageio.mimwrite(
+                    os.path.join(save_path, f"{name}_depth.mp4"),
+                    np.stack(all_preds_depth, axis=0), fps=25, quality=8, macro_block_size=1,
+                )
+            except (ValueError, ImportError, OSError) as e:
+                # no ffmpeg backend available: per-frame PNGs
+                self.log(f"[WARN] mp4 export unavailable ({e}); writing PNG frames")
+                for i, (im, dp) in enumerate(zip(all_preds, all_preds_depth)):
+                    imwrite(os.path.join(save_path, f"test_{name}_{i:04d}_intensity.png"), im)
+                    imwrite(os.path.join(save_path, f"test_{name}_{i:04d}_depth.png"), dp)
+        seconds = time.perf_counter() - t_test0
+        self.run_log.append({"event": "test", "frames": len(dataset), "seconds": seconds})
+        self.log("==> Finished Test.")
+
+    # ------------------------------------------------------------------- mesh
+
+    def save_mesh(self, save_path=None, resolution=256, threshold=10):
+        """Export the raw weights' density isosurface at `threshold` as a PLY:
+        the density queries run on the device (`NeRFNetwork.density`), the
+        marching tetrahedra and the PLY writer on the host."""
+        from lidarnerf_tpu_torch.utils.mesh import export_ply, extract_geometry
+
+        if save_path is None:
+            save_path = os.path.join(self.workspace, "meshes", f"{self.name}_{self.epoch}.ply")
+        self.log(f"==> Saving mesh to {save_path}")
+        os.makedirs(os.path.dirname(save_path), exist_ok=True)
+        query_s = [0.0]
+
+        @torch.no_grad()
+        def query_func(pts):
+            t0 = time.perf_counter()
+            sigma, _ = self.model.density(torch.from_numpy(pts).to(self.device))
+            sigma = sigma.cpu().numpy()
+            query_s[0] += time.perf_counter() - t0
+            return sigma
+
+        bound = self.opt.bound
+        t0 = time.perf_counter()
+        vertices, triangles = extract_geometry(
+            np.full(3, -bound), np.full(3, bound), resolution=resolution,
+            threshold=threshold, query_func=query_func,
+        )
+        t1 = time.perf_counter()
+        export_ply(save_path, vertices, triangles)
+        t2 = time.perf_counter()
+        self.run_log.append({"event": "mesh", "resolution": resolution,
+                             "triangles": len(triangles), "query_s": query_s[0],
+                             "tetrahedra_s": t1 - t0 - query_s[0], "ply_s": t2 - t1})
+        self.log("==> Finished saving mesh.")
+
+    # ------------------------------------------------------------- checkpoint
+
+    def _state_dict(self, full):
+        state = {
+            "epoch": self.epoch,
+            "global_step": self.global_step,
+            "stats": self.stats,
+            "ema_num_updates": self.ema_num_updates,
+            # the frame order's stream (the JAX trainer's) and the step draws'
+            # stream, so a resumed run continues the exact sample sequence
+            "np_rng": self._np_rng.get_state(),
+            "rng_torch": {"device": self.device.type,
+                          "state": self.generator.get_state().numpy()},
+        }
+        state["model"] = params_to_jax(self.model.state_dict())
+        if self.ema_params is not None:
+            state["ema"] = params_to_jax(self.ema_params)
+        if self.occ_grid is not None:
+            state["occ_grid"] = self.occ_grid.cpu().numpy()
+        if full:
+            adam, sched = self.optimizer
+            # never under "optimizer": the JAX trainer unflattens that entry
+            # into its optax tree
+            state["optimizer_torch"] = {"adam": _to_numpy(adam.state_dict()),
+                                        "schedule": sched.state_dict()}
+        return state
+
+    def save_checkpoint(self, name=None, full=False, best=False, remove_old=True):
+        if name is None:
+            name = f"{self.name}_ep{self.epoch:04d}"
+
+        if not best:
+            file_path = f"{self.ckpt_path}/{name}.ckpt"
+            if remove_old:
+                self.stats["checkpoints"].append(file_path)
+                if len(self.stats["checkpoints"]) > self.max_keep_ckpt:
+                    checkpoint_io.remove(self.stats["checkpoints"].pop(0))
+            self._atomic_dump(self._state_dict(full), file_path)
+        else:
+            if len(self.stats["results"]) > 0:
+                if (
+                    self.stats["best_result"] is None
+                    or self.stats["results"][-1] < self.stats["best_result"]
+                ):
+                    self.log(
+                        f"[INFO] New best result: {self.stats['best_result']} --> "
+                        f"{self.stats['results'][-1]}"
+                    )
+                    self.stats["best_result"] = self.stats["results"][-1]
+                    state = self._state_dict(full)
+                    # the best checkpoint stores the EMA weights as the model
+                    if self.ema_params is not None:
+                        state["model"] = params_to_jax(self.ema_params)
+                    self._atomic_dump(state, self.best_path)
+            else:
+                self.log("[WARN] no evaluated results found, skip saving best checkpoint.")
+
+    def _atomic_dump(self, state, path):
+        t0 = time.perf_counter()
+        checkpoint_io.dump_state(state, path, self.ckpt_format)
+        self.run_log.append({"event": "save", "path": path, "bytes": os.path.getsize(path),
+                             "seconds": time.perf_counter() - t0})
+
+    def _load_weights(self, tree):
+        self.model.load_state_dict(params_from_jax(tree))
+
+    def load_checkpoint(self, checkpoint=None, model_only=False):
+        if checkpoint is None:
+            ckpts = sorted(glob.glob(f"{self.ckpt_path}/{self.name}_ep*.ckpt"))
+            # walk back over unreadable checkpoints (e.g. files truncated by
+            # a kill before the atomic write)
+            while ckpts:
+                checkpoint = ckpts.pop()
+                if checkpoint_io.probe(checkpoint):
+                    break
+                self.log(f"[WARN] corrupt checkpoint {checkpoint}, skipping.")
+                checkpoint = None
+            if checkpoint:
+                self.log(f"[INFO] Latest checkpoint is {checkpoint}")
+            else:
+                self.log("[WARN] No checkpoint found, model randomly initialized.")
+                return
+
+        t0 = time.perf_counter()
+        ckpt = checkpoint_io.load_state(checkpoint)
+
+        if "model" not in ckpt:
+            self._load_weights(ckpt)
+            self.log("[INFO] loaded model.")
+            return
+
+        self._load_weights(ckpt["model"])
+        self.log("[INFO] loaded model.")
+        if self.ema_params is not None and "ema" in ckpt:
+            for k, v in params_from_jax(ckpt["ema"]).items():
+                self.ema_params[k].copy_(v)
+        if self.occ_grid is not None and "occ_grid" in ckpt:
+            self.occ_grid = torch.as_tensor(ckpt["occ_grid"], dtype=torch.float32,
+                                            device=self.device)
+        if model_only:
+            return
+
+        self.stats = {**{"step_loss": [], "skipped": []}, **ckpt["stats"]}
+        self.epoch = ckpt["epoch"]
+        self.global_step = ckpt["global_step"]
+        self.ema_num_updates = ckpt.get("ema_num_updates", 0)
+        if "np_rng" in ckpt:
+            self._np_rng.set_state(ckpt["np_rng"])
+        rng = ckpt.get("rng_torch")
+        if rng is not None and rng["device"] == self.device.type:
+            self.generator.set_state(torch.from_numpy(np.array(rng["state"])))
+        else:
+            self.log(f"[WARN] the checkpoint holds no {self.device.type} generator state; "
+                     "the step draws restart from the seed.")
+        self.log(f"[INFO] load at epoch {self.epoch}, global step {self.global_step}")
+
+        if "optimizer_torch" in ckpt:
+            adam, sched = self.optimizer
+            adam.load_state_dict(_to_torch(ckpt["optimizer_torch"]["adam"]))
+            sched.load_state_dict(ckpt["optimizer_torch"]["schedule"])
+            self.log("[INFO] loaded optimizer.")
+        else:
+            self.log("[WARN] the checkpoint holds no optimizer state of the port (a JAX "
+                     "checkpoint's optax state is not carried across): Adam and its "
+                     "schedule start afresh.")
+        self.run_log.append({"event": "load", "path": checkpoint,
+                             "seconds": time.perf_counter() - t0})

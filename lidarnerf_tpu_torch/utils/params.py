@@ -6,6 +6,7 @@ The flax tree is the `state["model"]` a JAX checkpoint holds
 `{"params": {"hash_table": [L*B, 128], "<net>": {"Dense_i": {"kernel": [in, out]}}}}`.
 The port's NeRFNetwork keeps the table as is and stores each `Dense_i/kernel`
 transposed as `<net>.layers.i.weight` [out, in], the torch `nn.Linear` layout.
+`load_state` reads either package's pickle checkpoints without JAX.
 """
 
 import os
@@ -44,9 +45,28 @@ def params_to_jax(state_dict) -> dict:
     return {"params": p}
 
 
+class _OptaxState(tuple):
+    """Inert stand-in for an optax state class (a NamedTuple) in a JAX checkpoint.
+
+    A JAX checkpoint's `optimizer` entry holds optax states; they unpickle
+    as these, and `load_state` drops the entry. Anywhere else one is refused.
+    """
+
+    qualname = "optax"
+
+    def __new__(cls, *fields):
+        return super().__new__(cls, fields)
+
+    def __setstate__(self, state):
+        pass
+
+
 class _NumpyOnlyUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
-        if module.split(".")[0] in _FOREIGN:
+        root = module.split(".")[0]
+        if root == "optax":
+            return type(name, (_OptaxState,), {"qualname": f"{module}.{name}"})
+        if root in _FOREIGN:
             raise ValueError(
                 f"the checkpoint holds a {module}.{name} object, which needs the "
                 "JAX package to unpickle; save its trees with jax.device_get "
@@ -55,21 +75,47 @@ class _NumpyOnlyUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def _load_state(path) -> dict:
+def _find_optax(tree):
+    """The qualified name of the first optax stand-in in `tree`, or None."""
+    if isinstance(tree, _OptaxState):
+        return tree.qualname
+    children = tree.values() if isinstance(tree, dict) else (
+        tree if isinstance(tree, (list, tuple)) else ())
+    for x in children:
+        found = _find_optax(x)
+        if found:
+            return found
+    return None
+
+
+def load_state(path) -> dict:
+    """The state dict of a pickle checkpoint, without JAX.
+
+    Objects of jax, jaxlib, flax, orbax or lidarnerf_tpu raise. optax
+    states are allowed in the `optimizer` entry of a JAX checkpoint, which
+    is dropped (the port cannot use an optax state); an optax object
+    anywhere else raises.
+    """
     if os.path.isdir(path):
         raise NotImplementedError(f"{path} is an orbax checkpoint; only pickle checkpoints load here")
     with open(path, "rb") as f:
-        return _NumpyOnlyUnpickler(f).load()
+        state = _NumpyOnlyUnpickler(f).load()
+    if isinstance(state, dict):
+        state = {k: v for k, v in state.items() if k != "optimizer"}
+    found = _find_optax(state)
+    if found:
+        raise ValueError(f"the checkpoint holds a {found} object outside its 'optimizer' entry")
+    return state
 
 
 def load_jax_checkpoint(path) -> dict:
     """Model parameters (flax tree, numpy leaves) of a JAX pickle checkpoint.
 
-    Reads the `.ckpt` pickle the JAX trainer writes without importing JAX;
-    raises if unpickling would need a JAX, flax or optax class. Unpickle
-    only files this system wrote: unpickling can run code.
+    Reads the `.ckpt` pickle the JAX trainer writes without importing JAX,
+    under the rules of `load_state`. Unpickle only files this system wrote:
+    unpickling can run code.
     """
-    state = _load_state(path)
+    state = load_state(path)
     return state.get("model", state)
 
 
@@ -81,5 +127,5 @@ def load_jax_occ_grid(path):
     resume (lidarnerf_tpu/nerf/trainer.py:840-844, 914-915); the same
     unpickling rules as `load_jax_checkpoint` apply.
     """
-    grid = _load_state(path).get("occ_grid")
+    grid = load_state(path).get("occ_grid")
     return None if grid is None else np.asarray(grid, dtype=np.float32)

@@ -1,6 +1,6 @@
 """The port's entry points take the JAX package's parameters, in its order,
 and raise on the values they cannot honour yet (seam options, RGB frames,
-other encodings, the trainer's workspace and metrics)."""
+other encodings, the orbax checkpoint format)."""
 
 import dataclasses
 import inspect
@@ -53,9 +53,11 @@ def test_pano_renderer_raises_on_seam_flags(flag):
 @pytest.mark.parametrize("flag", list(SEAM_FLAGS))
 def test_trainer_raises_on_seam_flags(flag):
     net = NeRFNetwork(**TINY)
-    Trainer("t", _train_opt(seam_tie=False, seam_sync_hashed=0), net, device="cpu", mute=True)
+    Trainer("t", _train_opt(seam_tie=False, seam_sync_hashed=0), net, device="cpu", mute=True,
+            workspace=None)
     with pytest.raises(NotImplementedError, match=f"{flag}.*queue A item 5"):
-        Trainer("t", _train_opt(**{flag: SEAM_FLAGS[flag]}), net, device="cpu", mute=True)
+        Trainer("t", _train_opt(**{flag: SEAM_FLAGS[flag]}), net, device="cpu", mute=True,
+                workspace=None)
 
 
 def test_kitti360_dataset_fields_are_the_jax_dataclass_fields():
@@ -114,12 +116,11 @@ def test_nerf_network_raises_on_unported_values(kw, match):
 
 def test_trainer_signature_is_the_jax_signature():
     """JAX's parameter names in JAX's order (the fifth is `mute`), with its
-    defaults except `workspace`, None until the workspace is ported."""
+    defaults, `workspace="workspace"` included."""
     port, jax_ = inspect.signature(Trainer).parameters, inspect.signature(TrainerJ).parameters
     assert list(port) == list(jax_)
-    assert {k: p.default for k, p in port.items() if k != "workspace"} == {
-        k: p.default for k, p in jax_.items() if k != "workspace"}
-    assert port["workspace"].default is None
+    assert {k: p.default for k, p in port.items()} == {k: p.default for k, p in jax_.items()}
+    assert port["workspace"].default == "workspace"
 
 
 @pytest.mark.parametrize("kw", [
@@ -127,10 +128,24 @@ def test_trainer_signature_is_the_jax_signature():
     dict(ckpt_interval=2), dict(max_keep_ckpt=4), dict(workspace="ws"), dict(best_mode="max"),
     dict(use_checkpoint="scratch"), dict(use_tensorboardX=False), dict(ckpt_format="orbax"),
 ], ids=lambda kw: next(iter(kw)))
-def test_trainer_raises_on_unported_arguments(kw):
+def test_trainer_raises_on_unported_arguments(kw, tmp_path):
+    """Of the JAX trainer's arguments only ckpt_format="orbax" still raises
+    (orbax is a JAX library: ROADMAP.md queue A item 6); the others are
+    ported and kept as given."""
     net = NeRFNetwork(**TINY)
-    with pytest.raises(NotImplementedError, match=f"{next(iter(kw))}.*queue A item 3"):
-        Trainer("t", _train_opt(), net, device="cpu", mute=True, **kw)
+    kw = {k: str(tmp_path / v) if k == "workspace" else v for k, v in kw.items()}
+    kw = {"workspace": None, **kw}
+    if kw.get("ckpt_format") == "orbax":
+        with pytest.raises(NotImplementedError, match="orbax.*queue A item 6"):
+            Trainer("t", _train_opt(), net, device="cpu", mute=True, **kw)
+    else:
+        trainer = Trainer("t", _train_opt(), net, device="cpu", mute=True, **kw)
+        for k, v in kw.items():
+            if k != "use_checkpoint":  # read at construction only
+                assert getattr(trainer, k) == v, k
+        trainer.close()
+    if kw["workspace"] is not None:
+        assert (tmp_path / "ws" / "log_t.txt").exists() and (tmp_path / "ws" / "checkpoints").is_dir()
     # positionally, in the JAX order: name, opt, module, device, mute
-    trainer = Trainer("t", _train_opt(), net, "cpu", True, [], [], 0.95)
+    trainer = Trainer("t", _train_opt(), net, "cpu", True, [], [], 0.95, workspace=None)
     assert trainer.mute and trainer.ema_decay == 0.95 and trainer.model is net

@@ -654,3 +654,110 @@ def test_sort_merge_z_on_cuda_runs_b6_and_matches_the_cpu(require_cuda, monkeypa
     assert {k: after[k] - before[k] for k in after} == {"perm_gather_fwd": 1, "perm_gather_bwd": 1}
     for a, b in zip(gpu, cpu):
         assert torch.equal(a, b)
+
+
+def _pano_clouds(rs, H=66, W=1030):
+    """(pred, gt) point clouds of two full 66 x 1030 panos (depths 2-60 m, some
+    rays dropped), as PointsMeter makes them."""
+    from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar
+
+    gt = rs.uniform(2.0, 60.0, (H, W)) * (rs.uniform(size=(H, W)) > 0.1)
+    pred = np.clip(gt + rs.normal(0.0, 0.1, (H, W)), 0.0, None) * (rs.uniform(size=(H, W)) > 0.1)
+    return pano_to_lidar(pred, (2.0, 26.9)), pano_to_lidar(gt, (2.0, 26.9))
+
+
+@pytest.fixture(scope="module")
+def pano_chamfer_cpu():
+    """Two full-pano clouds and their Chamfer terms on the CPU, computed once
+    (and only where the GPU tests run: a module fixture is set up first)."""
+    from lidarnerf_tpu_torch.ops import chamfer
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+    pred, gt = _pano_clouds(np.random.RandomState(5))
+    d = chamfer.chamfer_distance(*(torch.from_numpy(x.astype(np.float32)) for x in (pred, gt)))
+    return pred, gt, [x.numpy() for x in d]
+
+
+@pytest.mark.parametrize("tf32", [False, True], ids=["tf32-off", "tf32-on-globally"])
+def test_chamfer_on_cuda_matches_the_cpu_at_full_pano_sizes(require_cuda, tf32, monkeypatch,
+                                                            pano_chamfer_cpu):
+    """The device Chamfer terms in full float32 whatever the global TF32 flag:
+    each point's distance within the float32 rounding bound of the
+    |a|^2 + |b|^2 - 2 a.b form (16 eps (|a|^2 + max |b|^2), as
+    tests/test_torch_metrics.py states), and the F-score's counts differ by
+    no more than the points whose distance lies within that bound of 0.05."""
+    from lidarnerf_tpu_torch.ops import chamfer
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", tf32)
+    pred, gt, d_cpu = pano_chamfer_cpu
+    assert 55000 < len(pred) < 66 * 1030
+    d_gpu = [d.cpu().numpy() for d in chamfer.chamfer_distance(
+        *(torch.from_numpy(x.astype(np.float32)).cuda() for x in (pred, gt)))]
+    assert torch.backends.cuda.matmul.allow_tf32 == tf32  # restored
+    eps = 2.0**-23
+    near = 0
+    for g, c, a, b in zip(d_gpu, d_cpu, (pred, gt), (gt, pred)):
+        bound = 16 * eps * ((a**2).sum(-1) + (b**2).sum(-1).max())
+        assert np.all(np.abs(g - c) <= bound)
+        near = max(near, int((np.abs(c - 0.05) <= bound).sum()))
+        assert abs(int((g < 0.05).sum()) - int((c < 0.05).sum())) <= near
+    # the padded path of the meter, against the CPU's terms
+    cd_gpu, f_gpu = chamfer.chamfer_and_fscore(pred, gt, device="cuda")
+    cd_cpu = float(d_cpu[0].mean() + d_cpu[1].mean())
+    f_cpu = float(chamfer.fscore(d_cpu[0][None], d_cpu[1][None], 0.05)[0][0])
+    assert abs(cd_gpu - cd_cpu) <= 16 * eps * 2 * (
+        (pred**2).sum(-1).mean() + (gt**2).sum(-1).max())
+    assert 0.0 < f_gpu < 1.0 and abs(f_gpu - f_cpu) <= 2 * near / min(len(pred), len(gt)) + 1e-12
+
+
+def test_checkpoint_saved_on_the_card_loads_on_the_cpu_and_back(require_cuda, tmp_path):
+    """A port checkpoint written from CUDA tensors holds numpy leaves: the CPU
+    trainer loads its weights, EMA and Adam state exactly (the CUDA
+    generator's state stays behind, with a warning), and its own checkpoint
+    loads back on the card."""
+    import json
+
+    from lidarnerf_tpu_torch import main_lidarnerf as cli
+    from lidarnerf_tpu_torch.dataset.kitti360 import KITTI360Dataset
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+
+    root = Path(__file__).resolve().parent.parent
+    with open(root / "data_synth_drive60" / "scene_constants.json") as f:
+        c = json.load(f)
+    opt = cli.get_arg_parser().parse_args([
+        "--config", str(root / "configs" / "kitti360_1908.txt"), "--iters", "120",
+        "--num_steps", "32", "--upsample_steps", "8", "--num_rays_lidar", "256",
+        "--desired_resolution", "256", "--log2_hashmap_size", "14"])
+    opt.min_near = opt.min_near_lidar = opt.scale = c["scale"]
+    opt.H_lidar, opt.W_lidar, opt.intrinsics_lidar = 66, 1030, (2.0, 26.9)
+    ds = KITTI360Dataset(root_path=str(root / "data_synth_drive60"), scale=c["scale"],
+                         offset=c["offset"], num_rays_lidar=256)
+
+    def trainer(device, ws):
+        return Trainer("lidar_nerf", opt, cli.build_model(opt), device=device, mute=True,
+                       ema_decay=0.95, workspace=str(ws))
+
+    def same(a, b):
+        for k, v in a.model.state_dict().items():
+            assert torch.equal(v.cpu(), b.model.state_dict()[k].cpu()), k
+        for k, v in a.ema_params.items():
+            assert torch.equal(v.cpu(), b.ema_params[k].cpu()), k
+        sa, sb = a.optimizer[0].state_dict()["state"], b.optimizer[0].state_dict()["state"]
+        for i in sa:
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(sa[i][k].cpu(), sb[i][k].cpu()), (i, k)
+        assert a.optimizer[1].state_dict() == b.optimizer[1].state_dict()
+
+    gpu = trainer("cuda", tmp_path)
+    gpu.train(ds, None, max_epochs=1)
+    cpu = trainer("cpu", tmp_path)
+    assert cpu.epoch == 1 and cpu.model.hash_table.device.type == "cpu"
+    same(gpu, cpu)
+    assert "no cpu generator state" in (tmp_path / "log_lidar_nerf.txt").read_text()
+    cpu.epoch = 2
+    cpu.save_checkpoint(full=True)
+    back = trainer("cuda", tmp_path)
+    assert back.epoch == 2 and back.model.hash_table.device.type == "cuda"
+    same(cpu, back)

@@ -86,8 +86,9 @@ def test_entry_points_do_not_default_to_cpu(monkeypatch):
         bound=1.0,
     )
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Trainer("t", train_opt, net)
-    assert Trainer("t", train_opt, net, device="cpu", mute=True).device.type == "cpu"
+        Trainer("t", train_opt, net, workspace=None)
+    assert Trainer("t", train_opt, net, device="cpu", mute=True,
+                   workspace=None).device.type == "cpu"
     # asked for explicitly, the CPU runs
     r = PanoRenderer(opt, params, device="cpu")
     raydrop, intensity, depth = r.render_frame(np.eye(4), 2, 8, (2.0, 26.9))

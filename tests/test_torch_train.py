@@ -439,7 +439,7 @@ def test_trainer_epochs_follow_the_patch_schedule(field):
     )
     net = NeRFNetwork(**NET)
     net.load_state_dict(params_from_jax(params))
-    trainer = Trainer("t", opt, net, device="cpu", ema_decay=0.95, mute=True)
+    trainer = Trainer("t", opt, net, device="cpu", ema_decay=0.95, mute=True, workspace=None)
     ema0 = {k: v.clone() for k, v in trainer.ema_params.items()}
     trainer.train(_TinyData(), None, max_epochs=2)
     assert trainer.epoch == 2 and trainer.global_step == 6
@@ -449,13 +449,10 @@ def test_trainer_epochs_follow_the_patch_schedule(field):
     assert trainer.stats["skipped"] == [0.0] * 6 and trainer.optimizer[1].last_epoch == 6
     assert trainer.ema_num_updates == 2
     assert not torch.equal(trainer.ema_params["hash_table"], ema0["hash_table"])
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        trainer.train(_TinyData(), _TinyData(), max_epochs=3)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        Trainer("t", opt, net, device="cpu", workspace="ws")
+    assert trainer.log_ptr is None and trainer.stats["checkpoints"] == []  # no workspace
     # --fast is ported: the Trainer builds the CLI's default occupancy config and a zero grid
     fast = Trainer("t", SimpleNamespace(**{**vars(opt), "occ_sampling": True}), net,
-                   device="cpu", mute=True)
+                   device="cpu", mute=True, workspace=None)
     assert fast.render_cfg.occ == OccConfig() and fast.occ_grid.shape == (128,) * 3
     assert not fast.occ_grid.any() and trainer.occ_grid is None
     _, _, _, rcfg = _configs()
@@ -480,7 +477,7 @@ def test_trainer_refreshes_the_occ_grid_every_interval(field, monkeypatch):
     )
     net = NeRFNetwork(**NET)
     net.load_state_dict(params_from_jax(params))
-    trainer = Trainer("t", opt, net, device="cpu", mute=True)
+    trainer = Trainer("t", opt, net, device="cpu", mute=True, workspace=None)
     assert trainer.render_cfg.occ == OccConfig(grid_size=8, update_interval=2, bins=16)
     refreshed, stepped = [], []
     refresh, make_step = trainer_module.update_occ_grid, trainer_module.make_train_step
