@@ -27,7 +27,16 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
     `LIDARNERF_WIN_KERNELS=1`), held against the default variant;
   - training-fast, serving-fast: `Trainer` with occupancy-prior sampling
     (`--fast`: 192 + 64 samples, a 128^3 grid refreshed every 16 steps) for
-    the same three epochs, then `PanoRenderer` on frame 0 with its grid.
+    the same three epochs, then `PanoRenderer` on frame 0 with its grid;
+  - cli: the CLI (`python -m lidarnerf_tpu_torch.main_lidarnerf`) with
+    configs/kitti360_1908.txt -L on the drive: train -> evaluate -> test ->
+    mesh, `--test_eval`, a resume, the device Chamfer;
+  - mvl: the CLI with configs/nerf_mvl.txt -L (256 x 1800 panos) on a
+    synthetic car that `lidarnerf_tpu_torch.tools.make_synth_mvl` traces on
+    the card: masked training, crop meters, OBB-cropped test clouds, mesh,
+    `--test_eval`, B1 and B2 on an MVL training chunk, one masked step with
+    no host read (`set_sync_debug_mode("error")`), a pano through
+    `PanoRenderer`.
 It checks that each path went through its kernels and that its output is
 right, and profiles one render chunk and one training step per variant.
 B1 and B2 are also checked on adversarial point sets (one cell, runs
@@ -1004,7 +1013,7 @@ def determinism_phase(spec, ds):
         for _ in range(2):
             trainer = Trainer("chip_smoke", opt, new_model(opt, fp16=FULL.fp16), mute=True,
                               workspace=None)
-            step = trainer._get_step_fn(1)
+            step = trainer._get_step_fn(1, False)
             draws = torch.Generator(device=dev).manual_seed(SEED + 9)
             m = step(poses, images, vi, vc, 0, generator=draws)
             adam = trainer.optimizer[0]
@@ -1715,6 +1724,245 @@ def cli_phase():
     return launches, test_launches
 
 
+# the mvl phase: the NeRF-MVL object path at full width (configs/nerf_mvl.txt
+# -L: 768 + 64 samples, a 2^19 table at 32768, 4096 rays and 4096-ray render
+# chunks, 256 x 1800 panos at (15, 40)) on a synthetic car traced on the card,
+# 12 train and 2 val / 2 test frames; ten 12-step epochs (30,000 steps in the
+# config's use) with the config's evaluation every 5 epochs, a 128^3 mesh.
+# --scale 0.1 puts the 5-7 m orbit inside bound 1 (the offset is the OBB's mean)
+MVL_FRAMES = (12, 2)  # train, val (= test)
+MVL_ARGV = ["--config", "configs/nerf_mvl.txt", "-L", "--iters", "120", "--scale", "0.1",
+            "--mesh_resolution", "128"]
+
+
+def mvl_argv(data, workspace, *extra):
+    return [*MVL_ARGV, "--path", data, "--workspace", workspace, *extra]
+
+
+def inside_obb(points, obb_local):
+    """Per point: within the OBB's z range and inside (or on) the convex
+    quadrilateral of its four lowest corners in the xy plane, the region
+    `filter_bbox_dataset` keeps, tested here by half-planes."""
+    z = obb_local[:, 2]
+    low = obb_local[np.argsort(z, kind="stable")[:4], :2]
+    ring = low[np.argsort(np.arctan2(*(low - low.mean(0)).T[::-1]))]  # counter-clockwise
+    edges = np.roll(ring, -1, axis=0) - ring
+    rel = points[:, None, :2] - ring[None]
+    cross = edges[None, :, 0] * rel[..., 1] - edges[None, :, 1] * rel[..., 0]
+    tol = 1e-9 * max(1.0, np.abs(obb_local).max()) ** 2
+    return ((points[:, 2] >= z.min()) & (points[:, 2] <= z.max())
+            & (cross >= -tol).all(axis=1))
+
+
+def mvl_train_phase(cli, data, ws):
+    """train (masked sampling) -> evaluate (crop meters; val every 5 epochs,
+    then test) -> test (OBB-cropped clouds) -> mesh. Returns (trainer,
+    launch counts, peak bytes)."""
+    from lidarnerf_tpu_torch.dataset.nerfmvl import NeRFMVLDataset
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer = cli.main(mvl_argv(data, ws))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    losses, steps = trainer.stats["step_loss"], trainer.global_step
+    if steps != 120 or len(losses) != steps:
+        raise AssertionError(f"mvl: trained {steps} steps, expected 120")
+    if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
+        raise AssertionError("mvl: a training loss was non-finite or a step was skipped")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    log(f"mvl: loss mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+        f"({100 * (1 - last / first):.1f}% lower)")
+    if not last <= 0.75 * first:
+        raise AssertionError("mvl: training lowered the loss by less than 25%")
+    evals, test, mesh = events(trainer, "eval"), events(trainer, "test"), events(trainer, "mesh")
+    if [e["epoch"] for e in evals] != [5, 10, 10] or len(test) != 1 or len(mesh) != 1:
+        raise AssertionError(f"mvl: evaluations {[e['epoch'] for e in evals]}, tests "
+                             f"{len(test)}, meshes {len(mesh)}")
+    for e in evals:
+        if not all(np.isfinite(v).all() for v in e["meters"].values()):
+            raise AssertionError(f"mvl: a meter of {e['name']} is not finite: {e['meters']}")
+    opt = trainer.opt
+    if (opt.H_lidar, opt.W_lidar, tuple(opt.intrinsics_lidar)) != (256, 1800, (15, 40)):
+        raise AssertionError(f"mvl: pano {opt.H_lidar} x {opt.W_lidar} {opt.intrinsics_lidar}")
+    chunks = -(-opt.H_lidar * opt.W_lidar // opt.max_ray_batch)
+    panos = sum(e["frames"] for e in evals) + test[0]["frames"]
+    queries = (-(-opt.mesh_resolution // 128)) ** 3
+    only_launches(launches, {"block_hash_fwd": 2 * steps + 2 * chunks * panos + queries,
+                             "block_hash_bwd": 2 * steps})
+    ds = NeRFMVLDataset(split="test", root_path=data, scale=opt.scale)
+    counts = []
+    for i in range(len(ds)):
+        cloud = np.load(f"{ws}/results/test_lidar_nerf_ep{trainer.epoch:04d}_{i:04d}"
+                        "_depth_lidar.npy")
+        counts.append(len(cloud))
+        outside = int((~inside_obb(cloud, ds.OBB_local[i][:, :3])).sum())
+        if not (len(cloud) and np.isfinite(cloud).all()) or outside:
+            raise AssertionError(f"mvl: test cloud {i} has {len(cloud)} points, {outside} "
+                                 "outside its frame's OBB")
+    log(f"mvl test clouds: {counts} points, every one inside its frame's OBB")
+    return trainer, launches, peak
+
+
+def mvl_kernel_phase(trainer, data):
+    """B1 and B2 against their plain versions on one MVL training chunk's
+    coarse queries (pool-sampled rays of train frame 0 through the object
+    at scale 0.1), with the trained table, at the B1 and B2 phases'
+    tolerances. Returns (B1 error, B2 worst error / slack)."""
+    from lidarnerf_tpu_torch.dataset.base import rays_from_indices
+    from lidarnerf_tpu_torch.dataset.nerfmvl import NeRFMVLDataset
+    from lidarnerf_tpu_torch.nerf.train_step import pool_draws
+    from lidarnerf_tpu_torch.ops import block_hash_cuda
+    from lidarnerf_tpu_torch.ops.block_hash import encode_bwd_plain, encode_plain
+    from lidarnerf_tpu_torch.ops.sampling import stratified_z_vals
+
+    dev = torch.device("cuda")
+    opt, cfg = trainer.opt, trainer.render_cfg
+    ds = NeRFMVLDataset(split="train", root_path=data, scale=opt.scale)
+    poses, _, vi, vc = ds.device_arrays(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    n = opt.num_rays_lidar
+    inds = vi[0][pool_draws(vc[0], n, gen)]
+    o, d = rays_from_indices(poses[0], inds, ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
+    near = torch.full((n, 1), cfg.min_near_lidar, device=dev)
+    z = stratified_z_vals(near, near * cfg.far_mult, cfg.num_steps, perturb=True, generator=gen)
+    xyz = torch.clamp(o[:, None] + d[:, None] * z[..., None], -cfg.bound, cfg.bound)
+    x = ((xyz + cfg.bound) / (2 * cfg.bound)).reshape(-1, 3).contiguous()
+    spec, table = trainer.model.block_spec, trainer.model.hash_table.detach()
+    out = block_hash_cuda.block_hash_fwd(x, table, spec)
+    err_f = (out - encode_plain(x, table, spec)).abs().max().item()
+    g = torch.randn((x.shape[0], spec.output_dim), generator=gen, device=dev)
+    grad = block_hash_cuda.block_hash_bwd(x, g, spec)
+    ref = encode_bwd_plain(x, g, spec)
+    slack = BWD_RTOL * encode_bwd_plain(x, g.abs(), spec) + BWD_ATOL
+    worst = ((grad - ref).abs() / slack).max().item()
+    log(f"mvl kernels on a training chunk (Q={x.shape[0]}, {touched_rows(x, spec)} table rows): "
+        f"block_hash_fwd max_abs_err={err_f:.3e} (tol {KERNEL_ATOL}); block_hash_bwd "
+        f"max_abs_err={(grad - ref).abs().max().item():.3e}, worst err / (1e-5 S + 1e-7) = "
+        f"{worst:.3f}")
+    if not (err_f <= KERNEL_ATOL and worst <= 1.0):
+        raise AssertionError("mvl: a kernel disagrees with its plain version on MVL inputs")
+    return err_f, worst
+
+
+def mvl_sync_phase(trainer, data):
+    """One masked training step's sampler, render, loss and backward under
+    torch.cuda.set_sync_debug_mode("error"): no host read (the update
+    guard's one read, `guarded_update`, lies outside)."""
+    from lidarnerf_tpu_torch.dataset.nerfmvl import NeRFMVLDataset
+    from lidarnerf_tpu_torch.nerf.train_step import make_loss_fn
+
+    ds = NeRFMVLDataset(split="train", root_path=data, scale=trainer.opt.scale)
+    poses, images, vi, vc, masked = trainer._device_data(ds)
+    loss_fn = make_loss_fn(trainer.model, trainer.train_cfg, trainer.render_cfg, 1, masked)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    pose, image_flat = poses[3], images[3].reshape(-1, images.shape[-1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = loss_fn(pose, image_flat, vi[3], vc[3], generator=gen)
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    trainer.model.zero_grad(set_to_none=True)
+    loss = float(loss.detach())
+    if not (masked and np.isfinite(loss)):
+        raise AssertionError(f"mvl sync: masked {masked}, loss {loss}")
+    log("mvl sync: a masked step's sampler, render, loss and backward ran under "
+        "set_sync_debug_mode('error') with no host read")
+
+
+def mvl_pano_phase(trainer, data):
+    """PanoRenderer.render_frame at 256 x 1800, (15, 40) from the trained
+    weights: equal to the trainer's render of the same frame bit for bit;
+    ms per warm pano (the median of 3, ending on the host)."""
+    from lidarnerf_tpu_torch.dataset.nerfmvl import NeRFMVLDataset
+    from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
+    from lidarnerf_tpu_torch.utils.params import params_to_jax
+
+    ds = NeRFMVLDataset(split="test", root_path=data, scale=trainer.opt.scale)
+    renderer = PanoRenderer(trainer.opt, params_to_jax(trainer.model.state_dict()))
+    pose = ds.poses_lidar[0]
+    frame = renderer.render_frame(pose, 256, 1800, (15, 40))
+    same = trainer._render_full_frame(ds, 0)
+    if not all(np.array_equal(a, b) for a, b in zip(frame, same)):
+        raise AssertionError("mvl: PanoRenderer's pano differs from the trainer's")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render_frame(pose, 256, 1800, (15, 40))  # ends on the host
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), ms
+
+
+def mvl_phase():
+    """The mvl phases in a temporary directory outside the repo, removed
+    afterwards. Returns the launch counts of the training run and of
+    --test_eval."""
+    import shutil
+    import tempfile
+
+    from lidarnerf_tpu_torch import main_lidarnerf as cli
+    from lidarnerf_tpu_torch.tools import make_synth_mvl
+
+    gpu = gpu_line()
+    root = tempfile.mkdtemp(prefix="lidarnerf_mvl_")
+    try:
+        data, ws = os.path.join(root, "data"), os.path.join(root, "run")
+        n_train, n_val = MVL_FRAMES
+        secs = make_synth_mvl.main(data, n_train, n_val)
+        log(f"mvl data on {gpu}: {len(secs)} frames of {make_synth_mvl.H} x {make_synth_mvl.W} "
+            f"traced and written, {np.mean(secs):.3f} s/frame (first {secs[0]:.3f}, median "
+            f"{np.median(secs):.3f})")
+        trained, launches, peak = mvl_train_phase(cli, data, ws)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        again = cli.main(mvl_argv(data, ws, "--test_eval"))
+        test_launches = launch_counts()
+        got, want = events(again, "eval"), events(trained, "eval")[-1]
+        opt = again.opt
+        chunks = -(-opt.H_lidar * opt.W_lidar // opt.max_ray_batch)
+        panos = got[0]["frames"] + events(again, "test")[0]["frames"]
+        only_launches(test_launches, {"block_hash_fwd": 2 * chunks * panos + 1})
+        if len(got) != 1 or not same_meters(got[0]["meters"], want["meters"]):
+            raise AssertionError(f"mvl --test_eval: meters {got[0]['meters']} differ from the "
+                                 f"trained run's {want['meters']}")
+        log("mvl --test_eval: the test-split meters equal the trained run's bit for bit")
+        del again
+
+        mvl_kernel_phase(trained, data)
+        mvl_sync_phase(trained, data)
+        pano_ms, pano_all = mvl_pano_phase(trained, data)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    epochs, evals = events(trained, "epoch"), events(trained, "eval")
+    per_step = [1e3 * e["seconds"] / e["steps"] for e in epochs]
+    log(f"mvl train on {gpu}: ms/step by epoch: {', '.join(f'{t:.2f}' for t in per_step)}; "
+        f"peak memory of train -> evaluate -> test -> mesh {peak / 2**30:.2f} GiB")
+    frames = sum(e["frames"] for e in evals)
+    render = 1e3 * sum(e["render_s"] for e in evals) / frames
+    meters = 1e3 * sum(e["meters_s"] for e in evals) / frames
+    log(f"mvl eval on {gpu}: {render + meters:.1f} ms/frame over {frames} frames = render "
+        f"{render:.1f} + meters {meters:.1f}")
+    log(f"mvl pano on {gpu}: PanoRenderer.render_frame 256 x 1800 (460,800 rays, 768 + 64 "
+        f"samples, 4096-ray chunks) {pano_ms:.1f} ms (runs {', '.join(f'{t:.1f}' for t in pano_all)})")
+    test, mesh = events(trained, "test")[0], events(trained, "mesh")[0]
+    log(f"mvl test on {gpu}: {1e3 * test['seconds'] / test['frames']:.1f} ms/frame "
+        f"({test['frames']} frames, render, crop and files)")
+    log(f"mvl mesh on {gpu}: {mesh['resolution']}^3 density query {mesh['query_s']:.2f} s, "
+        f"marching tetrahedra {mesh['tetrahedra_s']:.2f} s, PLY write {mesh['ply_s']:.2f} s, "
+        f"{mesh['triangles']} triangles")
+    for e in evals:
+        log(f"mvl meters {e['name']} ({e['frames']} frames) on {gpu}: " + "; ".join(
+            f"{k} {np.asarray(v).tolist()}" for k, v in e["meters"].items()))
+    return launches, test_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1790,6 +2038,10 @@ def main():
     # the CLI and the trainer's workspace
     torch.cuda.empty_cache()
     paths["cli"], paths["cli-test-eval"] = cli_phase()
+
+    # the NeRF-MVL object path
+    torch.cuda.empty_cache()
+    paths["mvl"], paths["mvl-test-eval"] = mvl_phase()
 
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())

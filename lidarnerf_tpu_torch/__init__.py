@@ -26,7 +26,11 @@ Ported so far:
 - the CLI (`python -m lidarnerf_tpu_torch.main_lidarnerf`, the counterpart
   of `main_lidarnerf.py`) and the trainer's workspace: evaluation with the
   LiDAR meters (`nerf/metrics.py`, `ops/chamfer.py`), test panos and point
-  clouds, mesh export, checkpoints that each package reads, and resume.
+  clouds, mesh export, checkpoints that each package reads, and resume;
+- NeRF-MVL (`dataset/nerfmvl.NeRFMVLDataset`, `--dataloader nerf_mvl`):
+  masked pixel sampling on the device, crop meters, test clouds cropped to
+  each frame's OBB (`utils/geometry.py`), and a synthetic NeRF-MVL car
+  traced on the card (`tools/make_synth_mvl.py`).
 """
 
 __version__ = "0.1.0"

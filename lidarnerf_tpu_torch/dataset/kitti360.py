@@ -1,12 +1,13 @@
-"""KITTI-360 LiDAR range-image dataset (counterpart of lidarnerf_tpu/dataset/kitti360.py:45-111,147-148).
+"""KITTI-360 LiDAR range-image dataset (counterpart of lidarnerf_tpu/dataset/kitti360.py).
 
 Loads `transforms_{seq}_{split}.json` and the pano `.npy`s into stacked
 arrays: images [F, H, W, 3] = (ray_drop, intensity, depth * scale) and
 lidar2world poses recentred and scaled as (t - offset) * scale. The fields
 are the JAX dataclass's, in its order. Training samples its rays on the
-device from `device_arrays` (nerf/train_step.py); the host API
-(`collate`, `dataloader`, `SimpleLoader`) is not ported yet (ROADMAP.md,
-queue A item 2).
+device from `device_arrays` (nerf/train_step.py). The host API of the
+reference, `collate` / `dataloader` over a `SimpleLoader`, returns tensors
+on the dataset's `device`; its pixel draws come from numpy's global stream,
+as the JAX package's do (`np.random.seed` makes them repeat).
 """
 
 import json
@@ -16,13 +17,37 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
+
 SEQUENCES = ("1538", "1728", "1908", "3353")
 INTRINSICS_LIDAR = (2.0, 26.9)  # fov_up, fov
 
 
+class SimpleLoader:
+    """Batch-1 loader over `dataset.collate`: frames in order, or shuffled by
+    a numpy stream seeded 0 at construction (one permutation per pass)."""
+
+    def __init__(self, dataset, shuffle):
+        self._data = dataset
+        self.shuffle = shuffle
+        self.batch_size = 1
+        self.has_gt = dataset.images_lidar is not None
+        self._rng = np.random.RandomState(0)
+
+    def __len__(self):
+        return len(self._data)
+
+    def __iter__(self):
+        order = np.arange(len(self._data))
+        if self.shuffle:
+            self._rng.shuffle(order)
+        for idx in order:
+            yield self._data.collate([int(idx)])
+
+
 @dataclass
 class KITTI360Dataset:
-    device: str = "cpu"  # the default device of `device_arrays`
+    device: str = "cpu"  # the default device of `device_arrays` and of `collate`'s tensors
     split: str = "train"
     root_path: str = "data/kitti360"
     sequence_id: str = "1908"
@@ -30,8 +55,8 @@ class KITTI360Dataset:
     scale: float = 1.0
     offset: list = field(default_factory=lambda: [0, 0, 0])
     fp16: bool = True  # not read, as in the JAX package
-    patch_size: int = 1  # read by the host collate only (not ported)
-    patch_size_lidar: int = 1  # read by the host collate only (not ported)
+    patch_size: int = 1  # not read, as in the JAX package
+    patch_size_lidar: int = 1  # read by the host `collate` only
     enable_lidar: bool = True
     num_rays: int = 4096
     num_rays_lidar: int = 4096
@@ -78,6 +103,32 @@ class KITTI360Dataset:
                 torch.as_tensor(self.images_lidar, dtype=torch.float32, device=device),
             )
         return self._device_cache[device]
+
+    def collate(self, index):
+        """Frames `index` as the reference's batch dict, tensors on `device`.
+
+        Training splits sample `num_rays_lidar` pixels (one draw shared by
+        the batch, from a generator seeded by numpy's global stream);
+        other splits give every pixel.
+        """
+        poses = torch.as_tensor(self.poses_lidar[index], device=self.device)
+        generator = None
+        if self.num_rays_lidar > 0:  # the JAX package's key: np.random.randint(0, 2**31 - 1)
+            generator = torch.Generator(device=poses.device).manual_seed(
+                int(np.random.randint(0, 2**31 - 1)))
+        rays = get_lidar_rays(poses, self.intrinsics_lidar, self.H_lidar, self.W_lidar,
+                              self.num_rays_lidar, self.patch_size_lidar, generator)
+        results = {"H_lidar": self.H_lidar, "W_lidar": self.W_lidar,
+                   "rays_o_lidar": rays["rays_o"], "rays_d_lidar": rays["rays_d"]}
+        images = torch.as_tensor(self.images_lidar[index], device=self.device)  # [B, H, W, 3]
+        if self.training:
+            flat = images.reshape(len(index), -1, images.shape[-1])
+            images = torch.gather(flat, 1, rays["inds"][..., None].expand(-1, -1, flat.shape[-1]))
+        results["images_lidar"] = images
+        return results
+
+    def dataloader(self):
+        return SimpleLoader(self, shuffle=self.training)
 
     def __len__(self):
         return len(self.poses_lidar)

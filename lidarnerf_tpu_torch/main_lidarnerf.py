@@ -1,6 +1,7 @@
 """LiDAR-NeRF training / evaluation CLI of the port (counterpart of main_lidarnerf.py).
 
     python -m lidarnerf_tpu_torch.main_lidarnerf --config configs/kitti360_1908.txt -L
+    python -m lidarnerf_tpu_torch.main_lidarnerf --config configs/nerf_mvl.txt -L
 
 The JAX CLI's parser, flags, defaults and config files, and its `main()`:
 train (a checkpoint every `--ckpt_interval` epochs, an evaluation every
@@ -8,15 +9,18 @@ train (a checkpoint every `--ckpt_interval` epochs, an evaluation every
 point clouds, export a mesh; `--test` / `--test_eval` load the workspace's
 checkpoint (`--ckpt`) and test (and evaluate) only. The workspace holds
 args.txt, log_lidar_nerf.txt, checkpoints/, validation/, results/ and
-meshes/.
+meshes/. `--dataloader kitti360` trains on KITTI-360 scenes; `--dataloader
+nerf_mvl` on NeRF-MVL objects (masked pixel sampling, crop meters, test
+clouds cropped to each frame's OBB; its offset is the OBB's mean, so
+`--offset` has no effect there).
 
 It runs on CUDA and raises without a GPU. LIDARNERF_PLATFORM=cpu, the JAX
 CLI's own switch, runs the plain PyTorch path on the CPU.
 
-Not ported yet, and raising with their ROADMAP.md item: `--dataloader
-nerf_mvl` (queue A item 2), `--encoding` other than blockhash (item 4), the
-seam options `--seam_tie`, `--seam_sync_hashed`, `--alpha_seam` (item 5)
-and `--ckpt_format orbax` (item 6). `--fuse_epoch` is accepted: both values
+Not ported yet, and raising with their ROADMAP.md item: `--encoding`
+other than blockhash (queue A item 4), the seam options `--seam_tie`,
+`--seam_sync_hashed`, `--alpha_seam` (item 5) and `--ckpt_format orbax`
+(item 6). `--fuse_epoch` is accepted: both values
 run the per-step loop, which performs the same optimisation steps (the
 one-dispatch epoch is item 1).
 """
@@ -26,23 +30,13 @@ import os
 import numpy as np
 import torch
 
+from lidarnerf_tpu_torch.dataset.nerfmvl import SEQUENCE_IDS as NERF_MVL_SEQUENCE_IDS
 from lidarnerf_tpu_torch.models.network import NeRFNetwork
 from lidarnerf_tpu_torch.nerf.metrics import DepthMeter, MAEMeter, PointsMeter, RMSEMeter
 from lidarnerf_tpu_torch.nerf.trainer import Trainer
 from lidarnerf_tpu_torch.utils.config import ConfigArgumentParser
 
 KITTI360_SEQUENCE_IDS = ["1538", "1728", "1908", "3353"]
-NERF_MVL_SEQUENCE_IDS = [
-    "bollard",
-    "car",
-    "pedestrian",
-    "pier",
-    "plant",
-    "tire",
-    "traffic_cone",
-    "warning_sign",
-    "water_safety_barrier",
-]
 
 
 def get_arg_parser():
@@ -230,7 +224,6 @@ def device_from_env():
 def check_ported(opt):
     """Raise NotImplementedError on the flags whose paths are not ported yet."""
     unported = [
-        (opt.dataloader == "nerf_mvl", "--dataloader nerf_mvl", "queue A item 2"),
         (opt.encoding != "blockhash", f"--encoding {opt.encoding}", "queue A item 4"),
         (bool(opt.seam_tie), "--seam_tie", "queue A item 5"),
         (opt.seam_sync_hashed > 0, "--seam_sync_hashed", "queue A item 5"),
@@ -243,9 +236,7 @@ def check_ported(opt):
 
 
 def build_dataset(opt, split, device):
-    from lidarnerf_tpu_torch.dataset.kitti360 import KITTI360Dataset
-
-    return KITTI360Dataset(
+    kwargs = dict(
         device=device,
         split=split,
         root_path=opt.path,
@@ -258,6 +249,13 @@ def build_dataset(opt, split, device):
         enable_lidar=opt.enable_lidar,
         num_rays_lidar=opt.num_rays_lidar,
     )
+    if opt.dataloader == "kitti360":
+        from lidarnerf_tpu_torch.dataset.kitti360 import KITTI360Dataset
+
+        return KITTI360Dataset(**kwargs)
+    from lidarnerf_tpu_torch.dataset.nerfmvl import NeRFMVLDataset
+
+    return NeRFMVLDataset(**kwargs)
 
 
 def build_model(opt):

@@ -85,9 +85,9 @@ class PanoRenderer:
             self.network, rays["rays_o"][0], rays["rays_d"][0], self.cfg,
             chunk=self.opt.max_ray_batch, occ_grid=self.occ_grid,
         )
-        image = out["image"].reshape(H, W, -1).cpu().numpy()
-        depth = out["depth"].reshape(H, W).cpu().numpy()
-        return image[..., 0], image[..., 1], depth
+        # one host copy of the whole pano: (raydrop, intensity, depth)
+        pano = torch.cat([out["image"], out["depth"][:, None]], -1).reshape(H, W, 3).cpu().numpy()
+        return pano[..., 0], pano[..., 1], pano[..., 2]
 
     def test_frames(self, poses, H, W, intrinsics):
         """Render each pose and post-process as `Trainer.test` does.

@@ -167,13 +167,25 @@ def patch_regularizers(cfg: TrainConfig, patch_size, pred_depth, gt_depth, gt_ra
     return loss
 
 
+def pool_draws(valid_count, n, generator=None):
+    """[n] positions uniform over [0, valid_count), drawn on valid_count's device.
+
+    valid_count is a 0-d integer tensor that stays on its device: each
+    position is a 62-bit draw reduced modulo the count (a bias below
+    count / 2^62), so no bound is read back to the host.
+    """
+    raw = torch.randint(0, 2**62, (n,), generator=generator, device=valid_count.device)
+    return raw % torch.clamp(valid_count, min=1)
+
+
 def sample_pixels(cfg: TrainConfig, patch_size, masked_sampling, sample_without_replacement,
                   valid_idx, valid_count, generator=None, draws=None):
     """A step's [N] flat training pixel indices (train_step.py:234-263).
 
     Dense datasets draw `sample_ray_indices`; masked ones (NeRF-MVL) draw
-    positions in the frame's valid-index pool, with replacement, or without
-    it through a gumbel top-k. `draws` may inject `inds` (the result),
+    positions in the frame's valid-index pool, with replacement
+    (`pool_draws`), or without it through a gumbel top-k; neither reads the
+    device. `draws` may inject `inds` (the result),
     `pool_draws` ([N] pool positions) or `gumbel` ([pool] values).
     """
     draws = draws or {}
@@ -203,7 +215,7 @@ def sample_pixels(cfg: TrainConfig, patch_size, masked_sampling, sample_without_
     if masked_sampling:
         pos = draws.get("pool_draws")
         if pos is None:
-            pos = torch.randint(0, int(valid_count), (N,), generator=generator, device=dev)
+            pos = pool_draws(valid_count, N, generator)
         return valid_idx[torch.as_tensor(pos, device=dev).long()]
     return sample_ray_indices(cfg.H_lidar, cfg.W_lidar, N, patch_size, generator, dev)
 

@@ -18,8 +18,10 @@ JAX trainer's epoch (:426-562), refreshes the occupancy grid every
 `evaluate_one_epoch` renders every frame with the EMA weights (swapped into
 the model and back; it draws nothing from the training generator) and feeds
 the depth meters (:566-706); `test` and `save_mesh` use the raw weights
-(:710-823). The NeRF-MVL branches of `evaluate_one_epoch` and `test` come
-with that dataset (ROADMAP.md, queue A item 2).
+(:710-823). On NeRF-MVL (`opt.dataloader == "nerf_mvl"`) training draws
+its pixels from each frame's unmasked pool (the dataset's `device_arrays`),
+evaluation takes the intensity and depth meters on the unmasked rectangle
+(the crop), and `test` crops each cloud to the frame's OBB.
 
 A checkpoint holds numpy leaves only, with `model` and `ema` in the flax
 layout (`utils/params.py`), so each package loads the other's: the JAX
@@ -51,10 +53,9 @@ from lidarnerf_tpu_torch.nerf.train_step import (
 from lidarnerf_tpu_torch.ops import losses as L
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
 from lidarnerf_tpu_torch.utils import checkpoint_io
+from lidarnerf_tpu_torch.utils.geometry import filter_bbox_dataset
 from lidarnerf_tpu_torch.utils.image_io import COLORMAP_BONE, COLORMAP_HSV, apply_color_map, imwrite
 from lidarnerf_tpu_torch.utils.params import params_from_jax, params_to_jax
-
-_MVL = "the NeRF-MVL branch of {} is not ported yet (ROADMAP.md, queue A item 2: datasets)"
 
 
 def is_ali_cluster():
@@ -261,25 +262,28 @@ class Trainer:
             self.log_ptr.close()
             self.log_ptr = None
 
-    def _get_step_fn(self, patch_size):
-        key = _patch_key(patch_size)
+    def _get_step_fn(self, patch_size, masked_sampling):
+        key = (_patch_key(patch_size), masked_sampling)
         if key not in self._step_fns:
             self._step_fns[key] = make_train_step(
                 self.model, self.train_cfg, self.render_cfg, patch_size=patch_size,
-                optimizer=self.optimizer, device=self.device,
+                masked_sampling=masked_sampling, optimizer=self.optimizer, device=self.device,
             )
         return self._step_fns[key]
 
     def _device_data(self, dataset):
-        """Frames on the device with the dense datasets' dummy valid-pixel pools
-        (the masked NeRF-MVL pools come with its dataset: ROADMAP.md queue A
-        item 2)."""
-        poses, images = dataset.device_arrays(self.device)
+        """(poses, images, valid_idx, valid_counts, masked) on the device: a
+        masked dataset's (NeRF-MVL's) four arrays, or a dense one's two with
+        dummy valid-pixel pools."""
+        arrs = dataset.device_arrays(self.device)
+        if len(arrs) == 4:
+            return (*arrs, True)
+        poses, images = arrs
         F = poses.shape[0]
         vi = torch.zeros((F, 1), dtype=torch.long, device=self.device)
         vc = torch.full((F,), images.shape[1] * images.shape[2], dtype=torch.long,
                         device=self.device)
-        return poses, images, vi, vc
+        return poses, images, vi, vc, False
 
     def _is_mvl(self):
         return getattr(self.opt, "dataloader", "kitti360") == "nerf_mvl"
@@ -364,8 +368,8 @@ class Trainer:
     def train_one_epoch(self, dataset, patch_size):
         lr_now = self.train_cfg.lr * 0.1 ** min(self.global_step / self.train_cfg.iters, 1.0)
         self.log(f"==> Start Training Epoch {self.epoch}, lr={lr_now:.6f} ...")
-        poses, images, vi, vc = self._device_data(dataset)
-        step_fn = self._get_step_fn(patch_size)
+        poses, images, vi, vc, masked = self._device_data(dataset)
+        step_fn = self._get_step_fn(patch_size, masked)
 
         order = self._np_rng.permutation(len(dataset))
         self.local_step = 0
@@ -429,9 +433,9 @@ class Trainer:
             self.model, rays["rays_o"][0], rays["rays_d"][0], self.render_cfg,
             chunk=self.opt.max_ray_batch, occ_grid=self.occ_grid,
         )
-        image = out["image"].reshape(H, W, -1).cpu().numpy()
-        depth = out["depth"].reshape(H, W).cpu().numpy()
-        return image[..., 0], image[..., 1], depth
+        # one host copy of the whole pano: (raydrop, intensity, depth)
+        pano = torch.cat([out["image"], out["depth"][:, None]], -1).reshape(H, W, 3).cpu().numpy()
+        return pano[..., 0], pano[..., 1], pano[..., 2]
 
     def _criterion_means(self, pred_depth, gt_depth, pred_raydrop, gt_raydrop,
                          pred_int, gt_int):
@@ -460,10 +464,13 @@ class Trainer:
         without an EMA) and feed the depth meters; with a workspace, write
         the validation panos and point clouds.
 
-        The meters' measurements and the times are appended to `run_log`.
+        On NeRF-MVL the masked pixels (-1) count as dropped in the gt and in
+        the prediction, and the intensity meters and the DepthMeter read the
+        unmasked rectangle only (the crop); the PointsMeter reads the whole
+        masked pano. The meters' measurements and the times are appended to
+        `run_log`.
         """
-        if self._is_mvl():
-            raise NotImplementedError(_MVL.format("evaluate_one_epoch"))
+        is_mvl = self._is_mvl()
         self.log(f"++> Evaluate at epoch {self.epoch} ...")
         t_eval0 = time.perf_counter()
         if name is None:
@@ -481,6 +488,14 @@ class Trainer:
                 self.local_step += 1
                 gt = dataset.images_lidar[i]  # [H, W, 3]
                 gt_raydrop = gt[..., 0].copy()
+                if is_mvl:
+                    # the unmasked pixels form a rectangle: its size is the crop's
+                    valid_crop = gt_raydrop != -1
+                    ys, xs = np.nonzero(valid_crop)
+                    crop_h = ys.max() - ys.min() + 1
+                    crop_w = xs.max() - xs.min() + 1
+                    valid_mask = np.where(gt_raydrop == -1, 0.0, 1.0)
+                    gt_raydrop = gt_raydrop * valid_mask
                 gt_intensity = gt[..., 1] * gt_raydrop
                 gt_depth = gt[..., 2] * gt_raydrop
 
@@ -489,6 +504,8 @@ class Trainer:
                 t1 = time.perf_counter()
                 render_s += t1 - t0
                 raydrop_mask = np.where(pred_raydrop > 0.5, 1.0, 0.0)
+                if is_mvl:
+                    raydrop_mask = raydrop_mask * valid_mask
                 if self.opt.alpha_r > 0 and raydrop_mask.any():
                     pred_intensity = pred_intensity * raydrop_mask
                     pred_depth = pred_depth * raydrop_mask
@@ -497,11 +514,19 @@ class Trainer:
                     pred_depth, gt_depth, pred_raydrop, gt_raydrop,
                     pred_intensity, gt_intensity,
                 )
-                pi, gi = pred_intensity[None], gt_intensity[None]
+                if is_mvl:
+                    pi = pred_intensity[valid_crop].reshape(1, crop_h, crop_w)
+                    gi = gt_intensity[valid_crop].reshape(1, crop_h, crop_w)
+                    pd_crop = pred_depth[valid_crop].reshape(1, crop_h, crop_w)
+                    gd_crop = gt_depth[valid_crop].reshape(1, crop_h, crop_w)
+                else:
+                    pi, gi = pred_intensity[None], gt_intensity[None]
                 pd, gd = pred_depth[None], gt_depth[None]
                 for mi, metric in enumerate(self.depth_metrics):
                     if mi < 2:  # MAE, RMSE on intensity
                         metric.update(pi, gi)
+                    elif is_mvl and mi == 2:  # DepthMeter on the crop
+                        metric.update(pd_crop, gd_crop)
                     else:
                         metric.update(pd, gd)
                 meters_s += time.perf_counter() - t1
@@ -553,11 +578,11 @@ class Trainer:
     # ------------------------------------------------------------------- test
 
     def test(self, dataset, save_path=None, name=None, write_video=True):
-        """Render every frame with the raw weights; write the point clouds,
-        and the panos as PNGs (or two mp4s when `write_video` and imageio
-        with its ffmpeg backend are installed)."""
-        if self._is_mvl():
-            raise NotImplementedError(_MVL.format("test"))
+        """Render every frame with the raw weights; write the point clouds
+        (on NeRF-MVL cropped to the frame's OBB), and the panos as PNGs (or
+        two mp4s when `write_video` and imageio with its ffmpeg backend are
+        installed)."""
+        is_mvl = self._is_mvl()
         if save_path is None:
             save_path = os.path.join(self.workspace, "results")
         if name is None:
@@ -578,6 +603,8 @@ class Trainer:
             it_img = (pred_intensity * 255).astype(np.uint8)
 
             pred_lidar = pano_to_lidar(pred_depth / self.opt.scale, dataset.intrinsics_lidar)
+            if is_mvl:
+                pred_lidar = filter_bbox_dataset(pred_lidar, dataset.OBB_local[i][:, :3])
             np.save(os.path.join(save_path, f"test_{name}_{i:04d}_depth_lidar.npy"), pred_lidar)
 
             dp_img = (pred_depth * 255).astype(np.uint8)

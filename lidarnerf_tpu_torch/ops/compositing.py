@@ -55,7 +55,7 @@ def merged_composite_weights(zA, sigA, zB, sigB, sample_dist, density_scale=1.0)
     Returns:
         (wA [N, TA], wB [N, TB])
     """
-    inf = torch.tensor(float("inf"), dtype=zA.dtype, device=zA.device)
+    inf = float("inf")  # a Python scalar: no host-to-device copy in the step
 
     # successor of A[i]: next within A, or the first B >= A[i] (B ties sort after A)
     nextA = torch.cat([zA[..., 1:], torch.full_like(zA[..., :1], float("inf"))], dim=-1)

@@ -124,13 +124,12 @@ def test_tiny_flow_writes_the_jax_cli_artifacts(data, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--dataloader", "nerf_mvl", "--sequence_id", "car"], "--dataloader nerf_mvl.*queue A item 2"),
     (["--encoding", "hashgrid"], "--encoding hashgrid.*queue A item 4"),
     (["--seam_tie", "1"], "--seam_tie.*queue A item 5"),
     (["--seam_sync_hashed", "8"], "--seam_sync_hashed.*queue A item 5"),
     (["--alpha_seam", "0.1"], "--alpha_seam.*queue A item 5"),
     (["--ckpt_format", "orbax"], "--ckpt_format orbax.*queue A item 6"),
-], ids=["nerf_mvl", "encoding", "seam_tie", "seam_sync_hashed", "alpha_seam", "orbax"])
+], ids=["encoding", "seam_tie", "seam_sync_hashed", "alpha_seam", "orbax"])
 def test_unported_flags_raise(flag, match, data, tmp_path, monkeypatch):
     monkeypatch.setenv("LIDARNERF_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match=match):

@@ -761,3 +761,90 @@ def test_checkpoint_saved_on_the_card_loads_on_the_cpu_and_back(require_cuda, tm
     back = trainer("cuda", tmp_path)
     assert back.epoch == 2 and back.model.hash_table.device.type == "cuda"
     same(cpu, back)
+
+
+def _mvl_small(tmp_path, monkeypatch):
+    """A small NeRF-MVL set (2 train frames of 32 x 128) traced on the card by
+    the port's tool, and an fp32 4-level field's configs for it."""
+    from lidarnerf_tpu_torch.dataset.nerfmvl import NeRFMVLDataset
+    from lidarnerf_tpu_torch.models.renderer import RenderConfig
+    from lidarnerf_tpu_torch.nerf.train_step import TrainConfig
+    from lidarnerf_tpu_torch.tools import make_synth_mvl
+
+    monkeypatch.setattr(make_synth_mvl, "H", 32)
+    monkeypatch.setattr(make_synth_mvl, "W", 128)
+    make_synth_mvl.main(str(tmp_path), n_train=2, n_val=1)
+    ds = NeRFMVLDataset(root_path=str(tmp_path), scale=0.1, num_rays_lidar=256)
+    cfg = TrainConfig(scale=0.1, num_rays_lidar=256, H_lidar=32, W_lidar=128,
+                      intrinsics_lidar=ds.intrinsics_lidar)
+    rcfg = RenderConfig(num_steps=64, upsample_steps=8, min_near_lidar=0.1, min_near=0.1)
+    return ds, cfg, rcfg
+
+
+def _mvl_net():
+    from lidarnerf_tpu_torch.models.network import NeRFNetwork
+
+    return NeRFNetwork(num_levels=4, log2_hashmap_size=14, desired_resolution=64, hidden_dim=32,
+                       generator=torch.Generator().manual_seed(0))
+
+
+def test_mvl_masked_step_on_cuda_matches_the_cpu(require_cuda, tmp_path, monkeypatch):
+    """One masked (NeRF-MVL) training step on the card (kernels B1, B2) and on
+    the CPU from the same weights and injected pool draws, noise and u: the
+    loss within 1e-4 relative and each gradient within 1e-3 of its tensor's
+    largest entry (5e-3 for the LiDAR head), chip_smoke.py's GPU-vs-CPU
+    tolerances for a training step."""
+    from lidarnerf_tpu_torch.nerf.train_step import make_train_step, pool_draws
+
+    ds, cfg, rcfg = _mvl_small(tmp_path, monkeypatch)
+    _, _, vi, vc = ds.device_arrays("cpu")
+    gen = torch.Generator().manual_seed(3)
+    draws = {"pool_draws": pool_draws(vc[1], 256, gen), "noise": torch.rand((256, 64), generator=gen),
+             "u": torch.rand((256, 8), generator=gen)}
+    results = {}
+    for dev in ("cuda", "cpu"):
+        net = _mvl_net()
+        step = make_train_step(net, cfg, rcfg, masked_sampling=True, device=dev)
+        m = step(*ds.device_arrays(dev), 1, draws={k: v.to(dev) for k, v in draws.items()})
+        assert m["skipped_nonfinite"] == 0.0
+        results[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in net.named_parameters()
+                                          if p.grad is not None})
+    (loss_g, grads_g), (loss_c, grads_c) = results["cuda"], results["cpu"]
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
+    assert grads_g.keys() == grads_c.keys()
+    for k, ref in grads_c.items():
+        peak = ref.abs().max().item()
+        tol = 5e-3 if k.startswith("lidar_color_net") else 1e-3
+        assert peak > 0 and (grads_g[k] - ref).abs().max().item() <= tol * peak, k
+
+
+def test_mvl_masked_step_reads_nothing_back(require_cuda, tmp_path, monkeypatch):
+    """The masked sampler draws its pool positions on the card: a step's
+    sampler, render, loss and backward run under
+    torch.cuda.set_sync_debug_mode("error") (the update guard's one host
+    read lies outside), and every drawn pixel is unmasked."""
+    from lidarnerf_tpu_torch.nerf import train_step
+
+    ds, cfg, rcfg = _mvl_small(tmp_path, monkeypatch)
+    poses, images, vi, vc = ds.device_arrays("cuda")
+    net = _mvl_net().cuda()
+    loss_fn = train_step.make_loss_fn(net, cfg, rcfg, masked_sampling=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    drawn = []
+    sample = train_step.sample_pixels
+
+    def keep(*args, **kw):
+        drawn.append(sample(*args, **kw))
+        return drawn[-1]
+
+    monkeypatch.setattr(train_step, "sample_pixels", keep)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = loss_fn(poses[0], images[0].reshape(-1, 3), vi[0], vc[0], generator=gen)
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert np.isfinite(loss.item()) and net.hash_table.grad is not None
+    valid = images[0, ..., 0].reshape(-1) > -1
+    assert valid[drawn[0]].all() and drawn[0].shape == (256,)

@@ -443,8 +443,10 @@ def test_trainer_epochs_follow_the_patch_schedule(field):
     ema0 = {k: v.clone() for k, v in trainer.ema_params.items()}
     trainer.train(_TinyData(), None, max_epochs=2)
     assert trainer.epoch == 2 and trainer.global_step == 6
-    # epoch 1 trains patch 1, epoch 2 the [2, 8] patches (trainer.py:367-378)
-    assert set(trainer._step_fns) == {1, (2, 8)}
+    # epoch 1 trains patch 1, epoch 2 the [2, 8] patches (trainer.py:367-378),
+    # both with the dense sampler (the step functions are keyed as the JAX
+    # trainer's: patch size, masked sampling)
+    assert set(trainer._step_fns) == {(1, False), ((2, 8), False)}
     assert len(trainer.stats["step_loss"]) == 6 and np.isfinite(trainer.stats["step_loss"]).all()
     assert trainer.stats["skipped"] == [0.0] * 6 and trainer.optimizer[1].last_epoch == 6
     assert trainer.ema_num_updates == 2
