@@ -21,7 +21,15 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
   - training: `Trainer` on the synthetic KITTI-360-format drive in
     `data_synth_drive60/` for three epochs (patch 1, patch [2, 8], patch 1),
     from the port's seeded init, then a render of a training frame from the
-    trained weights;
+    trained weights. Every training path trains through the fused epoch
+    (`--fuse_epoch 1`): each step replays a CUDA graph of the step, and its
+    launches are counted on the card in a torch.profiler trace (a replay
+    runs no Python, so the wrappers count only the warm-up and capture);
+  - training-graph: the default, --fast, seg and win steps (and, in the mvl
+    phase, the masked one), eager and captured from the same state in turns:
+    ms/step, the device's idle share of a replayed step, peak allocated and
+    reserved memory, the kernels on the card per replayed step, the update
+    guard's cost; losses and final state bit-equal;
   - serving-seg, serving-win, training-seg, training-win: one pano and one
     60-step epoch under each variant switch (`LIDARNERF_SEG_KERNELS=1`,
     `LIDARNERF_WIN_KERNELS=1`), held against the default variant;
@@ -35,8 +43,8 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
     synthetic car that `lidarnerf_tpu_torch.tools.make_synth_mvl` traces on
     the card: masked training, crop meters, OBB-cropped test clouds, mesh,
     `--test_eval`, B1 and B2 on an MVL training chunk, one masked step with
-    no host read (`set_sync_debug_mode("error")`), a pano through
-    `PanoRenderer`.
+    no host read (`set_sync_debug_mode("error")`), the masked step eager and
+    captured, a pano through `PanoRenderer`.
 It checks that each path went through its kernels and that its output is
 right, and profiles one render chunk and one training step per variant.
 B1 and B2 are also checked on adversarial point sets (one cell, runs
@@ -51,6 +59,7 @@ Prints one JSON line of per-kernel numbers and ends with a JSON status line.
 Exits non-zero, with no result, when there is no GPU or when any phase fails.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -155,6 +164,58 @@ def only_launches(counts, expected):
     want = {name: expected.get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"launches {counts}, expected {want}")
+
+
+# torch.profiler's trace loses the records of kernels that it receives after
+# it stops, even when they ran before (on the H100 up to ~35 ms of the last
+# kernels); waiting this long after the last synchronize lets them in
+TRACE_TAIL_S = 0.5
+
+
+@contextlib.contextmanager
+def device_launches():
+    """Count the port's kernels that run on the card within the block, in a
+    torch.profiler trace of the CUDA activity: each node of a replayed CUDA
+    graph is a kernel record of its own there, while the wrappers' counters,
+    which count where Python calls a wrapper, see no replay. Yields
+    {kernel name: kernels that ran}, filled when the block ends."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield counts
+        torch.cuda.synchronize()
+        time.sleep(TRACE_TAIL_S)
+    counts.update(kernel_records(prof.key_averages(), DeviceType))
+
+
+def kernel_records(averages, device_type):
+    """{kernel name: records} of the port's kernels in a profile's key averages."""
+    ran = [(e.key, e.count) for e in averages if e.device_type == device_type.CUDA]
+    return {k: sum(n for key, n in ran if key.startswith(k + "_kernel")) for k in launch_counts()}
+
+
+def training_launches(per_step, steps, extra=None):
+    """{kernel: launches} of `steps` training steps that launch `per_step`
+    each, plus `extra` (launches outside the steps)."""
+    extra = extra or {}
+    return {k: per_step.get(k, 0) * steps + extra.get(k, 0) for k in {*per_step, *extra}}
+
+
+def check_graphed_launches(what, counts, device, trainer, per_step, extra=None):
+    """The launches of a graphed training run (`--fuse_epoch 1`, the
+    default) that trained trainer.global_step steps: on the card (`device`,
+    a profile's records) `per_step` at every step; at the wrappers
+    (`counts`) only at the two steps per captured graph that Python ran
+    (the graph's eager warm-up and its capture, which records the launches);
+    `extra` in both. Returns the number of graphs."""
+    graphs = sum(len(f.graphs) for f in trainer._epoch_fns.values())
+    if not graphs:
+        raise AssertionError(f"{what}: the run captured no graph")
+    only_launches(device, training_launches(per_step, trainer.global_step, extra))
+    only_launches(counts, training_launches(per_step, 2 * graphs, extra))
+    return graphs
 
 
 def gpu_line():
@@ -668,7 +729,7 @@ def train_reference_phase(ds, variant="default", fast=False):
         m = step(poses, images, vi, vc, 3, draws={k: v.to(dev) for k, v in draws.items()},
                  occ_grid=None if grid is None else grid.to(dev))
         grads = {k: p.grad.cpu() for k, p in net.named_parameters() if p.grad is not None}
-        results[dev] = (float(m["loss"]), m["skipped_nonfinite"], grads)
+        results[dev] = (float(m["loss"]), float(m["skipped_nonfinite"]), grads)
     set_variant("default")
     (loss_g, skip_g, grads_g), (loss_c, skip_c, grads_c) = results["cuda"], results["cpu"]
     sampler = f"--fast, {100 * float((grid > 0).float().mean()):.2f}% of a 128^3 grid hit" \
@@ -705,10 +766,11 @@ def train_slice_phase(ds):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     epoch_s = []
-    for epoch in range(1, TRAIN_EPOCHS + 1):
-        t0 = time.perf_counter()
-        trainer.train(ds, None, max_epochs=epoch)  # ends on the host (loss fetch)
-        epoch_s.append(time.perf_counter() - t0)
+    with device_launches() as device:
+        for epoch in range(1, TRAIN_EPOCHS + 1):
+            t0 = time.perf_counter()
+            trainer.train(ds, None, max_epochs=epoch)  # ends on the host (loss fetch)
+            epoch_s.append(time.perf_counter() - t0)
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
@@ -722,7 +784,8 @@ def train_slice_phase(ds):
         f"({100 * (1 - last / first):.1f}% lower); per-epoch mean {trainer.stats['loss']}")
     if not last <= 0.75 * first:
         raise AssertionError("training lowered the loss by less than 25%")
-    only_launches(launches, {"block_hash_fwd": 2 * steps, "block_hash_bwd": 2 * steps})
+    graphs = check_graphed_launches("train", launches, device, trainer,
+                                    {"block_hash_fwd": 2, "block_hash_bwd": 2})
     n, samples = opt.num_rays_lidar, opt.num_steps + opt.upsample_steps
     per_step = [1e3 * t / len(ds) for t in epoch_s]
     warm = per_step[-1]  # epoch 3: patch 1, warm
@@ -731,8 +794,9 @@ def train_slice_phase(ds):
         f"2^{opt.log2_hashmap_size} table, bf16 MLPs; ms/step by epoch "
         f"(patch 1, [2, 8], 1): {', '.join(f'{t:.2f}' for t in per_step)}; warm "
         f"{warm:.2f} ms/step = {n / warm * 1e3:.0f} rays/s = "
-        f"{n * samples / warm / 1e3:.1f}M composited ray-samples/s; peak memory "
-        f"{peak / 2**30:.2f} GiB; launches {launches}")
+        f"{n * samples / warm / 1e3:.1f}M composited ray-samples/s (under a trace of the CUDA "
+        f"activity); peak memory {peak / 2**30:.2f} GiB; {graphs} graphs; launches at the "
+        f"wrappers {launches}, on the card {device}")
     return trainer, init_sd, launches, warm
 
 
@@ -805,10 +869,11 @@ def profile_train_step(ds, trainer, top=15):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        # ends on the host (update guard)
+        # one eager step (it reads nothing back: the synchronize ends it)
         step(poses, images, vi, vc, 1, generator=gen, occ_grid=trainer.occ_grid)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_TAIL_S)
     sampler = ", --fast" if trainer.occ_grid is not None else ""
     return profile_summary(prof, wall_ms, f"one {trainer.train_cfg.num_rays_lidar}-ray training "
                            f"step ({kernel_variant()} variant{sampler})", top)
@@ -830,6 +895,7 @@ def profile_phase(renderer, top=12):
         t0 = time.perf_counter()
         renderer.render_frame(pose, h, w, INTRINSICS)
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_TAIL_S)
     sampler = ", --fast" if renderer.occ_grid is not None else ""
     profile_summary(prof, wall_ms, f"one {FULL.max_ray_batch}-ray render chunk{sampler}", top)
 
@@ -1016,9 +1082,11 @@ def determinism_phase(spec, ds):
             step = trainer._get_step_fn(1, False)
             draws = torch.Generator(device=dev).manual_seed(SEED + 9)
             m = step(poses, images, vi, vc, 0, generator=draws)
-            adam = trainer.optimizer[0]
+            adam = trainer.optimizer
             named = dict(trainer.model.named_parameters())
-            state = {f"{k} {s}": v for k, p in named.items() for s, v in adam.state.get(p, {}).items()}
+            state = {f"{k} {kind}": v for kind, ts in (("mu", adam.mu), ("nu", adam.nu))
+                     for k, v in zip(adam.names, ts)}
+            state["count"], state["schedule count"] = adam.count, adam.schedule_count
             runs.append({"loss": m["loss"], **{f"{k} grad": p.grad for k, p in named.items()
                                                if p.grad is not None},
                          **{k: p.detach() for k, p in named.items()}, **state})
@@ -1077,9 +1145,10 @@ def variant_train_phase(ds, variant, default_epoch_loss):
                       workspace=None)
     torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
-    trainer.train(ds, None, max_epochs=1)  # ends on the host (loss fetch)
-    epoch_s = time.perf_counter() - t0
+    with device_launches() as device:
+        t0 = time.perf_counter()
+        trainer.train(ds, None, max_epochs=1)  # ends on the host (loss fetch)
+        epoch_s = time.perf_counter() - t0
     launches = launch_counts()
 
     losses, steps = trainer.stats["step_loss"], trainer.global_step
@@ -1087,8 +1156,8 @@ def variant_train_phase(ds, variant, default_epoch_loss):
         raise AssertionError(f"training-{variant}: {steps} steps, expected {len(ds)}")
     if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
         raise AssertionError(f"training-{variant}: a loss was non-finite or a step was skipped")
-    only_launches(launches, {f"block_hash_{variant}_fwd": 2 * steps,
-                             f"block_hash_{variant}_bwd": 2 * steps})
+    check_graphed_launches(f"training-{variant}", launches, device, trainer,
+                           {f"block_hash_{variant}_fwd": 2, f"block_hash_{variant}_bwd": 2})
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
     step_ms = 1e3 * epoch_s / steps
     profiled = profile_train_step(ds, trainer, top=6)
@@ -1098,10 +1167,214 @@ def variant_train_phase(ds, variant, default_epoch_loss):
         f"the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
         f"({100 * (1 - last / first):.1f}% lower); epoch mean {trainer.stats['loss'][0]:.4f} "
         f"(default variant's first epoch {default_epoch_loss:.4f}); block_hash_{variant}_bwd "
-        f"{bwd_ms:.3f} ms of device time per step; launches {launches}")
+        f"{bwd_ms:.3f} ms of device time per step; launches at the wrappers {launches}, on the "
+        f"card {device}")
     if not last <= 0.75 * first:
         raise AssertionError(f"training-{variant} lowered the loss by less than 25%")
     return launches, step_ms, bwd_ms
+
+
+# the training-graph phase: each training path eager (--fuse_epoch 0) and
+# captured (1) from one seeded state, epochs in turns
+GRAPH_EPOCHS = 4  # 1-2 capture the patch-1 and [2, 8] graphs; 3-4 are timed in turns
+
+
+def same_training_state(a, b):
+    """{what: max |a - b|} of everything two trainers hold that differs:
+    the step losses, weights, EMA, Adam moments and counts, the generator
+    and the occupancy grid; empty when all are equal bit for bit."""
+    differ = {}
+    la, lb = np.array(a.stats["step_loss"]), np.array(b.stats["step_loss"])
+    if la.shape != lb.shape or not np.array_equal(la, lb):
+        differ["step losses"] = float(np.abs(la - lb).max()) if la.shape == lb.shape else "length"
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    pairs = [*((f"weight {k}", v, b.model.state_dict()[k]) for k, v in a.model.state_dict().items()),
+             *((f"ema {k}", v, b.ema_params[k]) for k, v in a.ema_params.items()),
+             *((f"{kind} {k}", v, sb[kind][k]) for kind in ("mu", "nu") for k, v in sa[kind].items()),
+             ("generator", a.generator.get_state(), b.generator.get_state())]
+    if a.occ_grid is not None:
+        pairs.append(("occ grid", a.occ_grid, b.occ_grid))
+    for what, x, y in pairs:
+        if not torch.equal(x, y):
+            differ[what] = (x.float() - y.float()).abs().max().item()
+    if (sa["count"], sa["schedule_count"]) != (sb["count"], sb["schedule_count"]):
+        differ["counts"] = ((sa["count"], sa["schedule_count"]), (sb["count"], sb["schedule_count"]))
+    return differ
+
+
+def busy_ms_per_step(trainer, ds, epoch):
+    """One more epoch under torch.profiler: (device busy ms per step, the
+    device timeline's span per step from its first kernel to its last,
+    kernels, {kernel name: records of the port's kernels}). Busy is the union
+    of the kernels' intervals, so the idle share 1 - busy / span counts the
+    gaps between kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train(ds, None, max_epochs=epoch)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_TAIL_S)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = spans[-1][1] - spans[0][0] if spans else 0.0
+    return (busy / 1e3 / len(ds), span / 1e3 / len(ds), len(spans),
+            kernel_records(prof.key_averages(), DeviceType))
+
+
+def graph_pool_bytes(handle=None):
+    """Bytes reserved in the CUDA graph memory pool `handle` (None: in every
+    pool outside the default one), or None if the allocator snapshot does
+    not say."""
+    try:
+        segments = torch.cuda.memory._snapshot()["segments"]
+        return sum(seg["total_size"] for seg in segments
+                   if (tuple(seg["segment_pool_id"]) == tuple(handle) if handle is not None
+                       else tuple(seg["segment_pool_id"]) != (0, 0)))
+    except (KeyError, TypeError, RuntimeError):
+        return None
+
+
+def guard_cost(trainer):
+    """Device ms of the DeviceAdam step (PyTorch's fused Adam with the update
+    guard) on the trainer's gradients, of the guard's own pass in it (the
+    finite flag of the loss and of every gradient, through the AMP non-finite
+    check), and of a plain fused Adam step on the same tensors for scale.
+    Returns (step ms, guard ms, plain ms, bytes of the weights and moments)."""
+    adam = trainer.optimizer
+    loss = torch.ones((), device="cuda")
+    grads = [z if p.grad is None else p.grad for p, z in zip(adam.params, adam._zero_grads)]
+
+    def guard():
+        adam.found_inf.copy_((~torch.isfinite(loss)).float())
+        torch._amp_foreach_non_finite_check_and_unscale_(grads, adam.found_inf, adam._one)
+
+    step_ms = cuda_ms(lambda: adam.step(loss), reps=10)
+    guard_ms = cuda_ms(guard, reps=10)
+    plain = torch.optim.Adam(adam.params, lr=adam._lr, betas=adam.betas, eps=adam.eps, fused=True,
+                             capturable=True)
+    plain_ms = cuda_ms(plain.step, reps=10)
+    nbytes = sum(t.numel() * t.element_size() for t in (*adam.params, *adam.mu, *adam.nu))
+    return step_ms, guard_ms, plain_ms, nbytes
+
+
+def training_graph_phase(name, make_trainer, ds, per_step, refresh_every=None,
+                         epochs=GRAPH_EPOCHS, extra=None):
+    """One training path eager (--fuse_epoch 0) and captured (1), two
+    trainers from one seeded state: epochs 1-2 each (the captures), then
+    epochs in turns (eager, graph; graph, eager), then one profiled epoch
+    each. Their losses and final state must be equal bit for bit. Launches:
+    each step launches `per_step`, and the occupancy refresh every
+    `refresh_every` steps one B1 forward. The eager run's wrappers count
+    every step, the graphed run's the warm-up and the capture of each graph;
+    on the card, in the profiled epoch, both runs launch what the eager
+    wrappers count. Returns the graphed run's wrapper counts."""
+    runs = {"eager": make_trainer(0), "graph": make_trainer(1)}
+    secs = {m: {} for m in runs}
+    counts = {m: {} for m in runs}
+    peak = {m: 0 for m in runs}
+    reserved = {m: 0 for m in runs}
+    order = [(m, e) for e in (1, 2) for m in ("eager", "graph")]
+    for e in range(3, epochs + 1):
+        order += [(m, e) for m in (("eager", "graph") if e % 2 else ("graph", "eager"))]
+    for mode, epoch in order:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        runs[mode].train(ds, None, max_epochs=epoch)  # ends on the host: the epoch's one fetch
+        secs[mode][epoch] = time.perf_counter() - t0
+        for k, v in launch_counts().items():
+            counts[mode][k] = counts[mode].get(k, 0) + v
+        peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated())
+        reserved[mode] = max(reserved[mode], torch.cuda.max_memory_reserved())
+
+    def refreshes(first, n):  # one B1 forward before each step that refreshes
+        return {"block_hash_fwd": sum(1 for s in range(first, first + n)
+                                      if refresh_every and s % refresh_every == 0)}
+
+    steps = epochs * len(ds)
+    graphs = [g for f in runs["graph"]._epoch_fns.values() for g in f.graphs.values()]
+    only_launches(counts["eager"], training_launches(per_step, steps, refreshes(0, steps)))
+    only_launches(counts["graph"], training_launches(per_step, 2 * len(graphs),
+                                                     refreshes(0, steps)))
+    busy, wrappers = {}, {}
+    for m in runs:
+        reset_counts()
+        busy[m] = busy_ms_per_step(runs[m], ds, epochs + 1)
+        wrappers[m] = launch_counts()
+    # the profiled epoch: the graph replays every step, Python runs only the refreshes
+    epoch_launches = training_launches(per_step, len(ds), refreshes(steps, len(ds)))
+    for m in runs:
+        only_launches(busy[m][3], epoch_launches)
+    only_launches(wrappers["eager"], epoch_launches)
+    only_launches(wrappers["graph"], refreshes(steps, len(ds)))
+    differ = same_training_state(runs["eager"], runs["graph"])
+    gpu = gpu_line()
+    ms = {m: {e: 1e3 * t / len(ds) for e, t in secs[m].items()} for m in runs}
+    timed = list(range(3, epochs + 1))
+    line = {m: ", ".join(f"{ms[m][e]:.2f}" for e in sorted(ms[m])) for m in runs}
+    warm = {m: float(np.mean([ms[m][e] for e in timed])) for m in runs}
+    idle = {m: 100 * (1 - busy[m][0] / busy[m][1]) for m in runs}
+    pool = graph_pool_bytes(runs["graph"]._graph_pool.handle)
+    replayed = {k: n / len(ds) for k, n in busy["graph"][3].items() if n}
+    log(f"training-graph {name} on {gpu}: {steps} steps each, eager / graph ms/step by epoch "
+        f"{line['eager']} / {line['graph']}; epochs {timed[0]}-{timed[-1]} in turns: eager "
+        f"{warm['eager']:.2f}, graph {warm['graph']:.2f} ms/step; a profiled epoch: device busy "
+        f"{busy['eager'][0]:.2f} / {busy['graph'][0]:.2f} ms/step of a device span of "
+        f"{busy['eager'][1]:.2f} / {busy['graph'][1]:.2f} ms/step ({busy['eager'][2]} / "
+        f"{busy['graph'][2]} kernels), idle {idle['eager']:.1f}% / {idle['graph']:.1f}%; the "
+        f"port's kernels on the card per step of the profiled epoch {replayed} (wrapper counts "
+        f"there: eager {wrappers['eager']}, graph {wrappers['graph']}); peak allocated "
+        f"{peak['eager'] / 2**30:.2f} / {peak['graph'] / 2**30:.2f} GiB, peak reserved "
+        f"{reserved['eager'] / 2**30:.2f} / {reserved['graph'] / 2**30:.2f} GiB (the process, "
+        f"both trainers alive), the graphed trainer's pool "
+        f"{'not measured' if pool is None else f'{pool / 2**30:.2f} GiB'}; {len(graphs)} graphs; "
+        f"wrapper launches over the timed epochs eager {counts['eager']}, graph "
+        f"{counts['graph']}; losses and final state (weights, EMA, Adam moments and counts, "
+        f"generator{', grid' if runs['graph'].occ_grid is not None else ''}) equal bit for bit: "
+        f"{not differ}" + (f"; differ: {differ}" if differ else ""))
+    if differ:
+        raise AssertionError(f"training-graph {name}: the captured run differs from the eager "
+                             f"one: {differ}")
+    if extra is not None:
+        extra(runs["graph"])
+    return counts["graph"]
+
+
+def training_graph_phases(ds):
+    """The training-graph phase on the default, --fast, seg and win steps of
+    the training cell. Returns {path: launch counts of the graphed run}."""
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+
+    def trainer_of(**kw):
+        opt = train_opt(ds, **kw)
+        return lambda fuse: Trainer("chip_smoke", SimpleNamespace(**vars(opt), fuse_epoch=fuse),
+                                    new_model(opt, fp16=FULL.fp16), ema_decay=0.95,
+                                    workspace=None, mute=True)
+
+    def guard(trainer):
+        step_ms, guard_ms, plain_ms, nbytes = guard_cost(trainer)
+        log(f"update guard on {gpu_line()}: the DeviceAdam step {step_ms:.3f} ms (weights and "
+            f"both moments {nbytes / 2**20:.1f} MiB), of which the guard's pass over the "
+            f"gradients {guard_ms:.3f} ms; a plain fused Adam step {plain_ms:.3f} ms")
+
+    b1b2 = {"block_hash_fwd": 2, "block_hash_bwd": 2}
+    paths = {"training-graph": training_graph_phase("default", trainer_of(), ds, b1b2,
+                                                    extra=guard)}
+    paths["training-graph-fast"] = training_graph_phase("--fast", trainer_of(**FAST), ds, b1b2,
+                                                        FAST["occ_update_interval"])
+    for variant in VARIANT_ENV:
+        set_variant(variant)
+        paths[f"training-graph-{variant}"] = training_graph_phase(
+            variant, trainer_of(), ds,
+            {f"block_hash_{variant}_fwd": 2, f"block_hash_{variant}_bwd": 2})
+        set_variant("default")
+    return paths
 
 
 def full_network(params):
@@ -1386,10 +1659,11 @@ def train_fast_phase(ds, default_ms):
     torch.cuda.synchronize()
     reset_counts()
     epoch_s = []
-    for epoch in range(1, TRAIN_EPOCHS + 1):
-        t0 = time.perf_counter()
-        trainer.train(ds, None, max_epochs=epoch)  # ends on the host (loss fetch)
-        epoch_s.append(time.perf_counter() - t0)
+    with device_launches() as device:
+        for epoch in range(1, TRAIN_EPOCHS + 1):
+            t0 = time.perf_counter()
+            trainer.train(ds, None, max_epochs=epoch)  # ends on the host (loss fetch)
+            epoch_s.append(time.perf_counter() - t0)
     launches = launch_counts()
 
     losses, steps = trainer.stats["step_loss"], trainer.global_step
@@ -1398,8 +1672,9 @@ def train_fast_phase(ds, default_ms):
         raise AssertionError(f"training-fast: {steps} steps, expected {TRAIN_EPOCHS * len(ds)}")
     if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
         raise AssertionError("training-fast: a loss was non-finite or a step was skipped")
-    only_launches(launches, {"block_hash_fwd": 2 * steps + refreshes,
-                             "block_hash_bwd": 2 * steps})
+    check_graphed_launches("training-fast", launches, device, trainer,
+                           {"block_hash_fwd": 2, "block_hash_bwd": 2},
+                           {"block_hash_fwd": refreshes})
     if not trainer.occ_grid.any():
         raise AssertionError("training-fast: the occupancy grid is all zero after its refreshes")
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
@@ -1424,8 +1699,8 @@ def train_fast_phase(ds, default_ms):
         f"{', '.join(f'{t:.2f}' for t in per_step)} (default path warm {default_ms:.2f}); loss "
         f"mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
         f"({100 * (1 - last / first):.1f}% lower); grid occupied {100 * share:.2f}% "
-        f"({100 * dilated:.2f}% dilated), max {trainer.occ_grid.max().item():.1f}; launches "
-        f"{launches}")
+        f"({100 * dilated:.2f}% dilated), max {trainer.occ_grid.max().item():.1f} (under a trace "
+        f"of the CUDA activity); launches at the wrappers {launches}, on the card {device}")
     log(f"occupancy refresh: {refresh_ms:.3f} ms each (B1 alone at Q={x01.shape[0]} uniform "
         f"points: {b1_ms:.4f} ms, bound {b1_bound:.4f} ms by {b1_by}: {b1_bytes / 1e6:.1f} MB)")
     if not last <= 0.75 * first:
@@ -1522,13 +1797,14 @@ def events(trainer, kind):
 
 def cli_train_phase(cli, ws):
     """Phase 1: train -> evaluate (val each epoch, then test) -> test -> mesh.
-    Returns (trainer, launch counts, peak bytes)."""
+    Returns (trainer, launch counts, (peak bytes allocated, reserved))."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    trainer = cli.main(cli_argv(ws))
+    with device_launches() as device:
+        trainer = cli.main(cli_argv(ws))
     launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
 
     losses, steps = trainer.stats["step_loss"], trainer.global_step
     if steps != 180 or len(losses) != steps:
@@ -1551,8 +1827,10 @@ def cli_train_phase(cli, ws):
     chunks = -(-H * W // trainer.opt.max_ray_batch)
     panos = sum(e["frames"] for e in evals) + test[0]["frames"]
     queries = (-(-trainer.opt.mesh_resolution // 128)) ** 3  # extract_fields' 128^3 blocks
-    only_launches(launches, {"block_hash_fwd": 2 * steps + 2 * chunks * panos + queries,
-                             "block_hash_bwd": 2 * steps})
+    check_graphed_launches("cli", launches, device, trainer,
+                           {"block_hash_fwd": 2, "block_hash_bwd": 2},
+                           {"block_hash_fwd": 2 * chunks * panos + queries})
+    log(f"cli launches: at the wrappers {launches}, on the card {device}")
     files = {p.relative_to(ws).as_posix() for p in Path(ws).rglob("*") if p.is_file()}
     tag = f"lidar_nerf_ep{trainer.epoch:04d}"
     want = {"args.txt", "log_lidar_nerf.txt", "checkpoints/lidar_nerf.ckpt",
@@ -1693,8 +1971,9 @@ def cli_phase():
     epochs, evals = events(trained, "epoch"), events(trained, "eval")
     per_step = [1e3 * e["seconds"] / e["steps"] for e in epochs]
     log(f"cli train on {gpu}: ms/step by epoch (patch 1, [2, 8], 1): "
-        f"{', '.join(f'{t:.2f}' for t in per_step)}; peak memory of train -> evaluate -> test "
-        f"-> mesh {peak / 2**30:.2f} GiB")
+        f"{', '.join(f'{t:.2f}' for t in per_step)} (under a trace of the CUDA activity); peak "
+        f"memory of train -> evaluate -> test -> mesh (captured steps) {peak[0] / 2**30:.2f} GiB "
+        f"allocated, {peak[1] / 2**30:.2f} GiB reserved")
     frames = sum(e["frames"] for e in evals)
     render = 1e3 * sum(e["render_s"] for e in evals) / frames
     meters = 1e3 * sum(e["meters_s"] for e in evals) / frames
@@ -1757,15 +2036,16 @@ def inside_obb(points, obb_local):
 def mvl_train_phase(cli, data, ws):
     """train (masked sampling) -> evaluate (crop meters; val every 5 epochs,
     then test) -> test (OBB-cropped clouds) -> mesh. Returns (trainer,
-    launch counts, peak bytes)."""
+    launch counts, (peak bytes allocated, reserved))."""
     from lidarnerf_tpu_torch.dataset.nerfmvl import NeRFMVLDataset
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    trainer = cli.main(mvl_argv(data, ws))
+    with device_launches() as device:
+        trainer = cli.main(mvl_argv(data, ws))
     launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
 
     losses, steps = trainer.stats["step_loss"], trainer.global_step
     if steps != 120 or len(losses) != steps:
@@ -1790,8 +2070,10 @@ def mvl_train_phase(cli, data, ws):
     chunks = -(-opt.H_lidar * opt.W_lidar // opt.max_ray_batch)
     panos = sum(e["frames"] for e in evals) + test[0]["frames"]
     queries = (-(-opt.mesh_resolution // 128)) ** 3
-    only_launches(launches, {"block_hash_fwd": 2 * steps + 2 * chunks * panos + queries,
-                             "block_hash_bwd": 2 * steps})
+    check_graphed_launches("mvl", launches, device, trainer,
+                           {"block_hash_fwd": 2, "block_hash_bwd": 2},
+                           {"block_hash_fwd": 2 * chunks * panos + queries})
+    log(f"mvl launches: at the wrappers {launches}, on the card {device}")
     ds = NeRFMVLDataset(split="test", root_path=data, scale=opt.scale)
     counts = []
     for i in range(len(ds)):
@@ -1848,30 +2130,26 @@ def mvl_kernel_phase(trainer, data):
 
 
 def mvl_sync_phase(trainer, data):
-    """One masked training step's sampler, render, loss and backward under
-    torch.cuda.set_sync_debug_mode("error"): no host read (the update
-    guard's one read, `guarded_update`, lies outside)."""
+    """One whole masked training step (sampler, render, loss, backward, the
+    guarded Adam update) under torch.cuda.set_sync_debug_mode("error"): no
+    host read. The step trains the trainer it is given."""
     from lidarnerf_tpu_torch.dataset.nerfmvl import NeRFMVLDataset
-    from lidarnerf_tpu_torch.nerf.train_step import make_loss_fn
 
     ds = NeRFMVLDataset(split="train", root_path=data, scale=trainer.opt.scale)
     poses, images, vi, vc, masked = trainer._device_data(ds)
-    loss_fn = make_loss_fn(trainer.model, trainer.train_cfg, trainer.render_cfg, 1, masked)
+    step = trainer._get_step_fn(1, masked)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
-    pose, image_flat = poses[3], images[3].reshape(-1, images.shape[-1])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        loss, _ = loss_fn(pose, image_flat, vi[3], vc[3], generator=gen)
-        loss.backward()
+        m = step(poses, images, vi, vc, 3, generator=gen)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    trainer.model.zero_grad(set_to_none=True)
-    loss = float(loss.detach())
-    if not (masked and np.isfinite(loss)):
-        raise AssertionError(f"mvl sync: masked {masked}, loss {loss}")
-    log("mvl sync: a masked step's sampler, render, loss and backward ran under "
-        "set_sync_debug_mode('error') with no host read")
+    loss, skipped = float(m["loss"]), float(m["skipped_nonfinite"])
+    if not (masked and np.isfinite(loss) and skipped == 0.0):
+        raise AssertionError(f"mvl sync: masked {masked}, loss {loss}, skipped {skipped}")
+    log("mvl sync: a whole masked step (sampler, render, loss, backward, guarded update) ran "
+        "under set_sync_debug_mode('error') with no host read")
 
 
 def mvl_pano_phase(trainer, data):
@@ -1898,10 +2176,26 @@ def mvl_pano_phase(trainer, data):
     return float(np.median(ms)), ms
 
 
+def mvl_graph_phase(cli, trained):
+    """The training-graph phase on the masked (NeRF-MVL) step: the mvl
+    CLI's options and training set, six 12-step epochs each way."""
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+
+    opt = trained.opt
+    ds = cli.build_dataset(opt, "train", "cuda")
+
+    def make(fuse):
+        return Trainer("chip_smoke_mvl", SimpleNamespace(**{**vars(opt), "fuse_epoch": fuse}),
+                       cli.build_model(opt), ema_decay=0.95, workspace=None, mute=True)
+
+    return training_graph_phase("masked (NeRF-MVL)", make, ds,
+                                {"block_hash_fwd": 2, "block_hash_bwd": 2}, epochs=6)
+
+
 def mvl_phase():
     """The mvl phases in a temporary directory outside the repo, removed
-    afterwards. Returns the launch counts of the training run and of
-    --test_eval."""
+    afterwards. Returns the launch counts of the training run, of
+    --test_eval and of the masked training-graph run."""
     import shutil
     import tempfile
 
@@ -1937,13 +2231,15 @@ def mvl_phase():
         mvl_kernel_phase(trained, data)
         mvl_sync_phase(trained, data)
         pano_ms, pano_all = mvl_pano_phase(trained, data)
+        graph_launches = mvl_graph_phase(cli, trained)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     epochs, evals = events(trained, "epoch"), events(trained, "eval")
     per_step = [1e3 * e["seconds"] / e["steps"] for e in epochs]
-    log(f"mvl train on {gpu}: ms/step by epoch: {', '.join(f'{t:.2f}' for t in per_step)}; "
-        f"peak memory of train -> evaluate -> test -> mesh {peak / 2**30:.2f} GiB")
+    log(f"mvl train on {gpu}: ms/step by epoch: {', '.join(f'{t:.2f}' for t in per_step)} "
+        f"(under a trace of the CUDA activity); peak memory of train -> evaluate -> test -> mesh "
+        f"(captured steps) {peak[0] / 2**30:.2f} GiB allocated, {peak[1] / 2**30:.2f} GiB reserved")
     frames = sum(e["frames"] for e in evals)
     render = 1e3 * sum(e["render_s"] for e in evals) / frames
     meters = 1e3 * sum(e["meters_s"] for e in evals) / frames
@@ -1960,7 +2256,7 @@ def mvl_phase():
     for e in evals:
         log(f"mvl meters {e['name']} ({e['frames']} frames) on {gpu}: " + "; ".join(
             f"{k} {np.asarray(v).tolist()}" for k, v in e["meters"].items()))
-    return launches, test_launches
+    return launches, test_launches, graph_launches
 
 
 def main():
@@ -2035,13 +2331,17 @@ def main():
         train_reference_phase(ds, variant)
     train_reference_phase(ds, fast=True)
 
+    # each training path eager and captured, in turns
+    torch.cuda.empty_cache()
+    paths.update(training_graph_phases(ds))
+
     # the CLI and the trainer's workspace
     torch.cuda.empty_cache()
     paths["cli"], paths["cli-test-eval"] = cli_phase()
 
     # the NeRF-MVL object path
     torch.cuda.empty_cache()
-    paths["mvl"], paths["mvl-test-eval"] = mvl_phase()
+    paths["mvl"], paths["mvl-test-eval"], paths["training-graph-masked"] = mvl_phase()
 
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())

@@ -13,7 +13,8 @@ a CPU tensor the plain version (`ops/dispatch.py`).
 Ported so far:
 - full-pano LiDAR inference rendering (`nerf/infer.PanoRenderer`) with the
   block-hash forward kernel B1 (`csrc/block_hash_fwd.cu`);
-- training (`nerf/train_step.make_train_step`, `nerf/trainer.Trainer`,
+- training (`nerf/train_step.make_epoch_step` over `make_train_step`, a
+  CUDA graph of the step on the card; `nerf/trainer.Trainer`,
   `dataset/kitti360.KITTI360Dataset`) with the block-hash backward kernel
   B2 (`csrc/block_hash_bwd.cu`), whose table gradient is the same bit for
   bit from run to run, as the JAX package's;

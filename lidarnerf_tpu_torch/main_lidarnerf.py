@@ -15,14 +15,15 @@ clouds cropped to each frame's OBB; its offset is the OBB's mean, so
 `--offset` has no effect there).
 
 It runs on CUDA and raises without a GPU. LIDARNERF_PLATFORM=cpu, the JAX
-CLI's own switch, runs the plain PyTorch path on the CPU.
+CLI's own switch, runs the plain PyTorch path on the CPU. On CUDA,
+`--fuse_epoch 1` (the default) trains each epoch through a captured CUDA
+graph of the step (`nerf/train_step.make_epoch_step`); `--fuse_epoch 0`
+runs the same step eagerly, as the CPU always does.
 
 Not ported yet, and raising with their ROADMAP.md item: `--encoding`
 other than blockhash (queue A item 4), the seam options `--seam_tie`,
 `--seam_sync_hashed`, `--alpha_seam` (item 5) and `--ckpt_format orbax`
-(item 6). `--fuse_epoch` is accepted: both values
-run the per-step loop, which performs the same optimisation steps (the
-one-dispatch epoch is item 1).
+(item 6).
 """
 
 import os
@@ -143,9 +144,9 @@ def get_arg_parser():
         "--fuse_epoch",
         type=int,
         default=1,
-        help="accepted for the JAX CLI's sake: both values run the per-step loop, "
-        "which performs the same optimisation steps (the one-dispatch epoch is "
-        "ROADMAP.md queue A item 1)",
+        help="1: on CUDA, each training step replays a CUDA graph of the step, and the "
+        "epoch's metrics come back to the host once; 0: the same step runs eagerly "
+        "(the CPU always runs it eagerly)",
     )
     parser.add_argument("--patch_size", type=int, default=1)
 
@@ -360,9 +361,6 @@ def main(argv=None):
             ckpt_interval=opt.ckpt_interval,
             ckpt_format=opt.ckpt_format,
         )
-        if opt.fuse_epoch:
-            trainer.log("[INFO] --fuse_epoch 1: epochs run step by step here, the same "
-                        "optimisation steps; the one-dispatch epoch is ROADMAP.md queue A item 1")
         valid_dataset = build_dataset(opt, "val", device)
 
         max_epoch = int(np.ceil(opt.iters / len(train_dataset)))

@@ -1,18 +1,23 @@
-"""Training step: ray sampling -> render -> loss stack -> guarded Adam update
-(counterpart of lidarnerf_tpu/nerf/train_step.py:36-371,475-478).
+"""Training step and fused epoch: ray sampling -> render -> loss stack ->
+guarded Adam update (counterpart of lidarnerf_tpu/nerf/train_step.py).
 
 One step draws the frame's training pixels, renders them with the training
 randomness (`render_rays(train=True)`), takes the alpha_d/alpha_r/alpha_i
 LiDAR losses and the patch-based structural regularisers, backpropagates
 (the block-hash table's gradient goes through kernel B2 on CUDA) and applies
-Adam unless the loss or a gradient is non-finite. Every random draw of a
-step comes from a `torch.Generator` or is injected through `draws`, so a
-test can hand the port the JAX package's numbers. The model and optimizer
+optax's Adam unless the loss or a gradient is non-finite. The Adam state,
+its step count, the schedule count and the update guard live on the device
+(`DeviceAdam`), so a step reads nothing back to the host. Every random draw
+of a step comes from a `torch.Generator` or is injected through `draws`, so
+a test can hand the port the JAX package's numbers. The model and optimizer
 are updated in place.
 
-`make_epoch_step` of the JAX package, a `lax.scan` over an epoch to save
-dispatches, is not ported: its counterpart here would be CUDA-graph capture
-of the step.
+`make_train_step` takes one step. `make_epoch_step`, the counterpart of the
+JAX package's `lax.scan` epoch, takes K steps over a frame order, with the
+occupancy refreshes that fall inside them, and returns the K metrics on the
+device. Both run one step body. On CUDA the epoch captures that body as a
+CUDA graph at its first step and replays it for every later step; the CPU,
+and CUDA with `capture=False`, run it eagerly.
 """
 
 import contextlib
@@ -23,8 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from lidarnerf_tpu_torch.dataset.base import rays_from_indices, sample_ray_indices, patch_dims
+from lidarnerf_tpu_torch.models.occupancy import update_occ_grid
 from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays
 from lidarnerf_tpu_torch.ops import losses as L
+from lidarnerf_tpu_torch.ops.block_hash import kernel_variant
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
 
 
@@ -62,14 +69,20 @@ class TrainConfig:
     alpha_seam: float = 0.0
 
 
-_SOBEL_X = np.array([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], np.float32)
-_SOBEL_Y = np.array([[-1.0, -2.0, -1.0], [0.0, 0.0, 0.0], [1.0, 2.0, 1.0]], np.float32)
+_SOBEL = {"x": np.array([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], np.float32),
+          "y": np.array([[-1.0, -2.0, -1.0], [0.0, 0.0, 0.0], [1.0, 2.0, 1.0]], np.float32)}
+_sobel_cache = {}  # (axis, device, dtype) -> [1, 1, 3, 3] weights, uploaded once
 
 
-def _conv2d_same(img, kernel):
-    """[P, 1, H, W] 3x3 cross-correlation with padding 1 (F.conv2d does not flip)."""
-    w = torch.as_tensor(kernel, dtype=img.dtype, device=img.device)[None, None]
-    return F.conv2d(img, w, padding=1)
+def _conv2d_same(img, axis):
+    """[P, 1, H, W] 3x3 Sobel cross-correlation along `axis` ("x" or "y"),
+    padding 1 (F.conv2d does not flip). The weights are uploaded at the first
+    call on a device, never inside a captured step."""
+    key = (axis, img.device, img.dtype)
+    if key not in _sobel_cache:
+        _sobel_cache[key] = torch.as_tensor(_SOBEL[axis], dtype=img.dtype,
+                                            device=img.device)[None, None]
+    return F.conv2d(img, _sobel_cache[key], padding=1)
 
 
 @contextlib.contextmanager
@@ -83,15 +96,118 @@ def _fp32_convolutions():
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def make_optimizer(params, cfg: TrainConfig):
-    """Adam(betas=(0.9, 0.99), eps=1e-15) and a per-step LambdaLR of 0.1 ** min(step / iters, 1).
+INT32_MAX = 2**31 - 1
 
-    The k-th update (from 0) uses lr * 0.1 ** min(k / iters, 1), as the JAX
-    package's optax schedule does. Returns (optimizer, scheduler).
+
+class DeviceAdam:
+    """optax.adam(lr * 0.1 ** min(count / iters, 1), b1=0.9, b2=0.99, eps=1e-15)
+    with its whole state and its update guard on the device.
+
+    The state is optax's: the moments `mu` and `nu` (one per parameter),
+    `count` (ScaleByAdamState's, the bias correction's step) and
+    `schedule_count` (ScaleByScheduleState's); the k-th update (from 0)
+    uses lr(k) (main_lidarnerf.py:389-410 with a per-step schedule). The
+    update is PyTorch's fused Adam kernel (`torch.optim.Adam(fused=True)`:
+    optax's bias-corrected step, rounded in another order), given the lr as
+    a device tensor and the guard's flag as its `found_inf`: when the loss
+    or a gradient is non-finite, the kernel leaves the parameters and both
+    moments as they were, Adam undoes its step count, and the schedule count
+    stays (lidarnerf_tpu/nerf/train_step.py:290-313). Nothing is read back
+    to the host. A parameter without a gradient takes a zero one, as optax
+    updates every leaf.
+
+    Args:
+        params: parameters, or (name, parameter) pairs (`named_parameters()`);
+            the names key `state_dict`.
+        cfg: the TrainConfig (lr, iters).
     """
-    opt = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.99), eps=1e-15)
-    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda step: 0.1 ** min(step / cfg.iters, 1.0))
-    return opt, sched
+
+    betas, eps = (0.9, 0.99), 1e-15
+
+    def __init__(self, params, cfg):
+        pairs = [p if isinstance(p, tuple) else (str(i), p) for i, p in enumerate(params)]
+        self.names = [n for n, _ in pairs]
+        self.params = [p for _, p in pairs]
+        self.lr, self.iters = cfg.lr, cfg.iters
+        dev = self.params[0].device
+        self._lr = torch.full((), cfg.lr, dtype=torch.float32, device=dev)
+        self.found_inf = torch.zeros((), dtype=torch.float32, device=dev)
+        self._one = torch.ones((), dtype=torch.float32, device=dev)
+        self._zero_grads = [torch.zeros_like(p) for p in self.params]
+        self.schedule_count = torch.zeros((), dtype=torch.int32, device=dev)
+        self._adam = torch.optim.Adam(self.params, lr=self._lr, betas=self.betas, eps=self.eps,
+                                      fused=True, capturable=dev.type == "cuda")
+        self._adam.found_inf = self.found_inf
+        for p in self.params:  # the state exists from the start: loads and captures see it
+            self._adam.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32, device=dev),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+        state = [self._adam.state[p] for p in self.params]
+        self.mu = [s["exp_avg"] for s in state]
+        self.nu = [s["exp_avg_sq"] for s in state]
+        self._steps = [s["step"] for s in state]
+
+    @property
+    def count(self):
+        """Adam's step count, a 0-d tensor on the device (every parameter's)."""
+        return self._steps[0]
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def lr_now(self):
+        """The lr of the next update, a 0-d float32 tensor on the device."""
+        frac = torch.clamp(self.schedule_count.float() / self.iters, max=1.0)
+        return self.lr * torch.pow(0.1, frac)
+
+    @torch.no_grad()
+    def step(self, loss):
+        """Update from the parameters' `.grad` unless `loss` or a gradient is
+        non-finite. Returns that flag, a 0-d bool tensor on the device."""
+        missing = [p for p in self.params if p.grad is None]
+        for p, z in zip(self.params, self._zero_grads):
+            if p.grad is None:
+                p.grad = z
+        # the guard: one pass over the gradients (scaled by 1, unchanged)
+        self.found_inf.copy_((~torch.isfinite(loss)).float())
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            [p.grad for p in self.params], self.found_inf, self._one)
+        finite = self.found_inf == 0
+        self._lr.copy_(self.lr_now())
+        self._adam.step()
+        for p in missing:  # as the backward left them
+            p.grad = None
+        self.schedule_count.copy_(torch.where(
+            finite & (self.schedule_count < INT32_MAX), self.schedule_count + 1,
+            self.schedule_count))
+        return finite
+
+    def state_dict(self):
+        """{"count", "schedule_count": ints, "mu", "nu": {name: CPU tensor}}."""
+        return {"count": int(self.count), "schedule_count": int(self.schedule_count),
+                "mu": {n: m.detach().cpu() for n, m in zip(self.names, self.mu)},
+                "nu": {n: v.detach().cpu() for n, v in zip(self.names, self.nu)}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Copy `state_dict()`'s layout into the state tensors (a name missing
+        from mu/nu loads zeros)."""
+        for t in self._steps:
+            t.fill_(int(state["count"]))
+        self.schedule_count.fill_(int(state["schedule_count"]))
+        for n, mu, nu in zip(self.names, self.mu, self.nu):
+            for dst, src in ((mu, state["mu"]), (nu, state["nu"])):
+                if n in src:
+                    dst.copy_(torch.as_tensor(src[n]).reshape(dst.shape))
+                else:
+                    dst.zero_()
+
+
+def make_optimizer(params, cfg: TrainConfig):
+    """The DeviceAdam of `params` (parameters or `named_parameters()` pairs)."""
+    return DeviceAdam(params, cfg)
 
 
 def lidar_losses(cfg: TrainConfig, pred_depth, pred_image, gt):
@@ -129,8 +245,8 @@ def patch_regularizers(cfg: TrainConfig, patch_size, pred_depth, gt_depth, gt_ra
 
     d = _patches(pred_depth, px, py) / cfg.scale
     if cfg.sobel_grad:
-        pred_gx = _conv2d_same(d, _SOBEL_X)
-        pred_gy = _conv2d_same(d, _SOBEL_Y)
+        pred_gx = _conv2d_same(d, "x")
+        pred_gy = _conv2d_same(d, "y")
     else:
         pred_gy = torch.abs(d[:, :, :-1, :] - d[:, :, 1:, :])
         pred_gx = torch.abs(d[:, :, :, :-1] - d[:, :, :, 1:])
@@ -149,7 +265,7 @@ def patch_regularizers(cfg: TrainConfig, patch_size, pred_depth, gt_depth, gt_ra
         g = _patches(gt_depth, px, py) / cfg.scale
         rd = _patches(gt_raydrop, px, py)
         if cfg.sobel_grad:
-            gt_gx = _conv2d_same(g, _SOBEL_X)
+            gt_gx = _conv2d_same(g, "x")
         else:
             gt_gx = g[:, :, :, :-1] - g[:, :, :, 1:]  # signed (utils.py:851-852)
         # only the x-gradient is masked and used (utils.py:865-876)
@@ -255,22 +371,7 @@ def make_loss_fn(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_size=1
     return loss_fn
 
 
-def guarded_update(optimizer, scheduler, loss) -> bool:
-    """Apply the Adam update and advance the schedule unless loss or a gradient is non-finite.
-
-    The counterpart of the reference's AMP GradScaler skip: on a non-finite
-    step the parameters, the Adam state and the schedule count all stay as
-    they were (the JAX package rolls its schedule count back with the opt
-    state). Reads one flag back to the host. Returns whether it updated.
-    """
-    grads = [p.grad for group in optimizer.param_groups for p in group["params"]
-             if p.grad is not None]
-    flags = [torch.isfinite(loss).all()] + [torch.isfinite(g).all() for g in grads]
-    finite = bool(torch.stack(flags).all())
-    if finite:
-        optimizer.step()
-        scheduler.step()
-    return finite
+METRICS = ("loss", "depth_mae", "raydrop_err", "skipped_nonfinite")
 
 
 def make_train_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_size=1,
@@ -280,19 +381,21 @@ def make_train_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
 
     Args:
         model: NeRFNetwork; moved to `device` and updated in place.
-        optimizer: (optimizer, scheduler) from `make_optimizer`, shared by
-            the step functions of several patch sizes; made here if None.
+        optimizer: the `DeviceAdam` of `make_optimizer`, shared by the step
+            functions of several patch sizes; made here if None.
         device: None runs on CUDA and raises if there is none; pass "cpu"
             to run the plain PyTorch path on the CPU.
 
     Returns:
         step(poses, images, valid_idx, valid_counts, frame_idx, draws=None,
-        generator=None, occ_grid=None) -> metrics dict (loss, depth_mae,
-        raydrop_err as 0-d tensors; skipped_nonfinite as a float). poses
-        [F, 4, 4] and images [F, H, W, 3] lie on the device; valid_idx
-        [F, P] and valid_counts [F] are the masked-sampling pools (zeros and
-        H*W for dense datasets); occ_grid is the `--fast` occupancy grid.
-        `step.optimizer` is the (optimizer, scheduler) pair.
+        generator=None, occ_grid=None) -> {"loss", "depth_mae",
+        "raydrop_err", "skipped_nonfinite"}, 0-d float32 tensors on the
+        device. poses [F, 4, 4] and images [F, H, W, 3] lie on the device;
+        valid_idx [F, P] and valid_counts [F] are the masked-sampling pools
+        (zeros and H*W for dense datasets); frame_idx is an int or a [1]
+        int64 device tensor (read on the device); occ_grid is the `--fast`
+        occupancy grid. The step reads nothing back to the host.
+        `step.optimizer` is the DeviceAdam.
     """
     device = resolve_device(device)
     if cfg.alpha_seam > 0.0:
@@ -301,26 +404,177 @@ def make_train_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
             "(ROADMAP.md, queue A item 5: off-main-path options)"
         )
     model.to(device)
-    if optimizer is None:
-        optimizer = make_optimizer(model.parameters(), cfg)
-    adam, sched = optimizer
+    adam = make_optimizer(model.named_parameters(), cfg) if optimizer is None else optimizer
     loss_fn = make_loss_fn(model, cfg, render_cfg, patch_size, masked_sampling,
                            sample_without_replacement)
 
     def step(poses, images, valid_idx, valid_counts, frame_idx, draws=None, generator=None,
              occ_grid=None):
-        pose = poses[frame_idx]
-        image_flat = images[frame_idx].reshape(-1, images.shape[-1])
-        adam.zero_grad(set_to_none=True)
+        if torch.is_tensor(frame_idx):
+            def pick(t):
+                return t.index_select(0, frame_idx)[0]
+        else:
+            def pick(t):
+                return t[frame_idx]
+        image_flat = pick(images).reshape(-1, images.shape[-1])
+        adam.zero_grad()
         with _fp32_convolutions():  # the sobel regulariser's forward and backward
-            loss, aux = loss_fn(pose, image_flat, valid_idx[frame_idx], valid_counts[frame_idx],
+            loss, aux = loss_fn(pick(poses), image_flat, pick(valid_idx), pick(valid_counts),
                                 draws, generator, occ_grid)
             loss.backward()
-        finite = guarded_update(adam, sched, loss)
-        return {"loss": loss.detach(), **aux, "skipped_nonfinite": 0.0 if finite else 1.0}
+        finite = adam.step(loss)
+        return {"loss": loss.detach(), **aux, "skipped_nonfinite": 1.0 - finite.float()}
 
-    step.optimizer = optimizer
+    step.optimizer = adam
     return step
+
+
+class GraphPool:
+    """The memory pool and side stream that all graphs of one trainer share.
+    Their replays never overlap: the epochs run one after another."""
+
+    def __init__(self, device):
+        self.handle = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+
+
+class _CapturedStep:
+    """One step of `make_train_step` captured as a CUDA graph and replayed.
+
+    Static buffers hold the epoch's frame order (uploaded once an epoch), a
+    device step counter that picks each step's frame, and the metrics [4, K]
+    that each replay writes at its step. The graph also holds pointers to
+    poses, images, the pools, the occupancy grid, the model's parameters and
+    the DeviceAdam state, so these are updated in place; other input
+    tensors, another generator or another K capture anew.
+
+    The first step of the first epoch is the warm-up: it runs eagerly on the
+    side stream (building the kernels' libraries and every lazy state), and
+    is a real training step. Capture follows (`torch.cuda.graph` empties the
+    allocator's cache first, so the warm-up's blocks, cached for the side
+    stream, go back to the card), then one replay per step. A later graph's
+    warm-up runs while the pool holds the earlier graphs' memory.
+
+    Launch counts: the CUDA wrappers count where Python calls them, so at
+    the warm-up and at the capture (which records the launch into the
+    graph); a replay runs no Python and counts nothing. Its launches are
+    seen on the device, in a profile of the replayed steps.
+    """
+
+    def __init__(self, step, pool):
+        self.step, self.pool = step, pool
+        self.graph, self.key = None, None
+
+    def _one_step(self, poses, images, valid_idx, valid_counts, generator, occ_grid):
+        fi = self.order.index_select(0, self.pos)
+        m = self.step(poses, images, valid_idx, valid_counts, fi, generator=generator,
+                      occ_grid=occ_grid)
+        self.metrics.index_copy_(1, self.pos, torch.stack([m[k] for k in METRICS])[:, None])
+        self.pos.add_(1)
+
+    def _capture(self, args):
+        side, cur = self.pool.stream, torch.cuda.current_stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):  # the warm-up: a real step
+            self._one_step(*args)
+        cur.wait_stream(side)
+        generator = args[4]
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:  # each replay draws afresh from it
+            graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, pool=self.pool.handle, stream=side):
+            self._one_step(*args)
+        self.graph = graph
+
+    def epoch(self, poses, images, valid_idx, valid_counts, order, generator, occ_grid,
+              before_step):
+        """K = len(order) steps; before_step(i) runs eagerly before step i.
+        Returns the metrics [4, K] on the device."""
+        K, dev = len(order), poses.device
+        key = (K, generator) + tuple(None if t is None else (t.data_ptr(), tuple(t.shape))
+                                     for t in (poses, images, valid_idx, valid_counts, occ_grid))
+        if key != self.key:
+            self.graph, self.key = None, key
+            self.order = torch.zeros(K, dtype=torch.long, device=dev)
+            self.pos = torch.zeros(1, dtype=torch.long, device=dev)
+            self.metrics = torch.zeros((len(METRICS), K), dtype=torch.float32, device=dev)
+        self.order.copy_(torch.as_tensor(np.asarray(order), dtype=torch.long))
+        self.pos.zero_()
+        args = (poses, images, valid_idx, valid_counts, generator, occ_grid)
+        first = 0
+        if self.graph is None:
+            before_step(0)
+            self._capture(args)
+            first = 1
+        for i in range(first, K):
+            before_step(i)
+            self.graph.replay()
+        return self.metrics.clone()
+
+
+def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_size=1,
+                    masked_sampling=False, sample_without_replacement=False,
+                    optimizer=None, device=None, capture=True, graph_pool=None):
+    """Build the fused epoch for one (patch_size, sampling-mode) configuration
+    (lidarnerf_tpu/nerf/train_step.py:374-470).
+
+    Args:
+        model, optimizer, device: as `make_train_step`.
+        capture: on CUDA, capture the step as a CUDA graph (the CLI's
+            `--fuse_epoch 1`); False, and always on the CPU, runs it eagerly.
+            A capture or replay that fails raises.
+        graph_pool: the `GraphPool` the graphs share (one per trainer); made
+            here if None.
+
+    Returns:
+        epoch_fn(poses, images, valid_idx, valid_counts, order, step0=0,
+        generator=None, occ_grid=None, draws=None) -> {"loss", "depth_mae",
+        "raydrop_err", "skipped_nonfinite"}, each [K] float32 on the device.
+        An epoch is K = len(order) steps on the frames `order` (numpy ints),
+        the first at global step `step0`. Under `--fast` (render_cfg.occ)
+        the grid is refreshed in place, eagerly, before each step whose
+        global step is a multiple of the update interval. `draws` (eager
+        only) is a list of K per-step draws as `make_train_step` takes them;
+        an "occ_jitter" entry [G, G, G, 3] is that step's refresh jitter.
+        One graph is kept per block-hash variant (`kernel_variant()`, which
+        a graph freezes). `epoch_fn.step` is the step function.
+    """
+    device = resolve_device(device)
+    step = make_train_step(model, cfg, render_cfg, patch_size, masked_sampling,
+                           sample_without_replacement, optimizer, device)
+    capture = capture and device.type == "cuda"
+    if capture and graph_pool is None:
+        graph_pool = GraphPool(device)
+    occ = render_cfg.occ
+    graphs = {}  # kernel variant -> _CapturedStep
+
+    def refresh(global_step, occ_grid, generator, jitter=None):
+        if occ is not None and occ_grid is not None and global_step % occ.update_interval == 0:
+            occ_grid.copy_(update_occ_grid(model, occ_grid, occ, render_cfg.bound,
+                                           generator=generator, jitter=jitter))
+
+    def epoch_fn(poses, images, valid_idx, valid_counts, order, step0=0, generator=None,
+                 occ_grid=None, draws=None):
+        if capture:
+            if draws is not None:
+                raise ValueError("injected draws need the eager epoch (capture=False)")
+            variant = kernel_variant()
+            if variant not in graphs:
+                graphs[variant] = _CapturedStep(step, graph_pool)
+            m = graphs[variant].epoch(poses, images, valid_idx, valid_counts, order, generator,
+                                      occ_grid, lambda i: refresh(step0 + i, occ_grid, generator))
+            return dict(zip(METRICS, m))
+        ms = []
+        for i, frame in enumerate(order):
+            d = draws[i] if draws is not None else None
+            refresh(step0 + i, occ_grid, generator, None if d is None else d.get("occ_jitter"))
+            ms.append(step(poses, images, valid_idx, valid_counts, int(frame), draws=d,
+                           generator=generator, occ_grid=occ_grid))
+        return {k: torch.stack([m[k] for m in ms]) for k in METRICS}
+
+    epoch_fn.step = step
+    epoch_fn.graphs = graphs
+    return epoch_fn
 
 
 @torch.no_grad()

@@ -12,9 +12,12 @@ epoch in `profile/`.
 `train` runs epochs under the per-epoch patch-size schedule, with a full
 checkpoint every `ckpt_interval` epochs and an evaluation every
 `eval_interval` epochs (:341-394); `train_one_epoch` visits every frame once
-in a seeded order with one optimisation step each, the per-step path of the
-JAX trainer's epoch (:426-562), refreshes the occupancy grid every
-`occ_update_interval` steps, updates the EMA once and logs rays/s.
+in a seeded order with one optimisation step each through
+`make_epoch_step` (:426-562): on CUDA under `opt.fuse_epoch` (default 1)
+each step replays a captured CUDA graph, else, and on the CPU, the same
+step body runs eagerly. The occupancy grid is refreshed in place every
+`occ_update_interval` steps; the epoch's metrics come back to the host in
+one fetch; then the EMA is updated once and rays/s logged.
 `evaluate_one_epoch` renders every frame with the EMA weights (swapped into
 the model and back; it draws nothing from the training generator) and feeds
 the depth meters (:566-706); `test` and `save_mesh` use the raw weights
@@ -26,10 +29,10 @@ evaluation takes the intensity and depth meters on the unmasked rectangle
 A checkpoint holds numpy leaves only, with `model` and `ema` in the flax
 layout (`utils/params.py`), so each package loads the other's: the JAX
 trainer's keys (`epoch`, `global_step`, `stats`, `ema_num_updates`,
-`np_rng`, `occ_grid`), and the port's own Adam and schedule state under
-`optimizer_torch` and its generator state under `rng_torch`. A JAX
-checkpoint's `optimizer` (optax) and `rng` (a JAX key) are not carried
-across.
+`np_rng`, `occ_grid`, and `optimizer`: the Adam moments and both counts as
+optax's leaves), and the port's generator state under `rng_torch`. A JAX
+checkpoint's `rng` (a JAX key) is not carried across; the `optimizer_torch`
+entry of older port checkpoints still loads.
 """
 
 import glob
@@ -42,20 +45,28 @@ import torch
 from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
 from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar
 from lidarnerf_tpu_torch.models.network import check_seam_flags
-from lidarnerf_tpu_torch.models.occupancy import init_occ_grid, occ_config_from_opt, update_occ_grid
+from lidarnerf_tpu_torch.models.occupancy import init_occ_grid, occ_config_from_opt
 from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays_staged
 from lidarnerf_tpu_torch.nerf.train_step import (
+    METRICS,
+    GraphPool,
     TrainConfig,
     ema_update,
+    make_epoch_step,
     make_optimizer,
-    make_train_step,
 )
 from lidarnerf_tpu_torch.ops import losses as L
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
 from lidarnerf_tpu_torch.utils import checkpoint_io
 from lidarnerf_tpu_torch.utils.geometry import filter_bbox_dataset
 from lidarnerf_tpu_torch.utils.image_io import COLORMAP_BONE, COLORMAP_HSV, apply_color_map, imwrite
-from lidarnerf_tpu_torch.utils.params import params_from_jax, params_to_jax
+from lidarnerf_tpu_torch.utils.params import (
+    optimizer_from_jax,
+    optimizer_from_torch_adam,
+    optimizer_to_jax,
+    params_from_jax,
+    params_to_jax,
+)
 
 
 def is_ali_cluster():
@@ -67,28 +78,6 @@ def is_ali_cluster():
 
 def _patch_key(p):
     return p if isinstance(p, int) else tuple(p)
-
-
-def _to_numpy(tree):
-    """Every tensor of a nested dict/list/tuple -> numpy on the host."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
-    if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_numpy(v) for v in tree)
-    return tree
-
-
-def _to_torch(tree):
-    """Every numpy array of a nested dict/list/tuple -> a CPU tensor."""
-    if isinstance(tree, np.ndarray):
-        return torch.from_numpy(tree)
-    if isinstance(tree, dict):
-        return {k: _to_torch(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_torch(v) for v in tree)
-    return tree
 
 
 class Trainer:
@@ -186,7 +175,7 @@ class Trainer:
 
         seed = getattr(opt, "seed", 0)
         self.model = module.to(self.device)
-        self.optimizer = make_optimizer(self.model.parameters(), self.train_cfg)
+        self.optimizer = make_optimizer(self.model.named_parameters(), self.train_cfg)
         self.ema_params = (
             {k: v.detach().clone() for k, v in self.model.state_dict().items()}
             if ema_decay is not None else None
@@ -197,7 +186,9 @@ class Trainer:
         # order from a numpy stream, as in the JAX trainer
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._np_rng = np.random.RandomState(seed)
-        self._step_fns = {}
+        self._epoch_fns = {}
+        self._graph_pool = None
+        self._data = None  # (dataset, its arrays on the device)
         self.writer = None
 
         self.epoch = 0
@@ -262,28 +253,44 @@ class Trainer:
             self.log_ptr.close()
             self.log_ptr = None
 
-    def _get_step_fn(self, patch_size, masked_sampling):
+    def _get_epoch_fn(self, patch_size, masked_sampling):
+        """The epoch function of (patch size, sampler); all of them share the
+        DeviceAdam and, on CUDA, one graph memory pool."""
         key = (_patch_key(patch_size), masked_sampling)
-        if key not in self._step_fns:
-            self._step_fns[key] = make_train_step(
+        if key not in self._epoch_fns:
+            capture = bool(getattr(self.opt, "fuse_epoch", 1)) and self.device.type == "cuda"
+            if capture and self._graph_pool is None:
+                self._graph_pool = GraphPool(self.device)
+            self._epoch_fns[key] = make_epoch_step(
                 self.model, self.train_cfg, self.render_cfg, patch_size=patch_size,
                 masked_sampling=masked_sampling, optimizer=self.optimizer, device=self.device,
+                capture=capture, graph_pool=self._graph_pool,
             )
-        return self._step_fns[key]
+        return self._epoch_fns[key]
+
+    def _get_step_fn(self, patch_size, masked_sampling):
+        """The one-step function of (patch size, sampler) on the trainer's
+        state: the eager body that the epoch function runs or captures."""
+        return self._get_epoch_fn(patch_size, masked_sampling).step
 
     def _device_data(self, dataset):
         """(poses, images, valid_idx, valid_counts, masked) on the device: a
         masked dataset's (NeRF-MVL's) four arrays, or a dense one's two with
-        dummy valid-pixel pools."""
-        arrs = dataset.device_arrays(self.device)
-        if len(arrs) == 4:
-            return (*arrs, True)
-        poses, images = arrs
-        F = poses.shape[0]
-        vi = torch.zeros((F, 1), dtype=torch.long, device=self.device)
-        vc = torch.full((F,), images.shape[1] * images.shape[2], dtype=torch.long,
-                        device=self.device)
-        return poses, images, vi, vc, False
+        dummy valid-pixel pools. Kept for the last dataset, so that a
+        captured step finds the same tensors every epoch."""
+        if self._data is None or self._data[0] is not dataset:
+            arrs = dataset.device_arrays(self.device)
+            if len(arrs) == 4:
+                out = (*arrs, True)
+            else:
+                poses, images = arrs
+                F = poses.shape[0]
+                vi = torch.zeros((F, 1), dtype=torch.long, device=self.device)
+                vc = torch.full((F,), images.shape[1] * images.shape[2], dtype=torch.long,
+                                device=self.device)
+                out = (poses, images, vi, vc, False)
+            self._data = (dataset, out)
+        return self._data[1]
 
     def _is_mvl(self):
         return getattr(self.opt, "dataloader", "kitti360") == "nerf_mvl"
@@ -357,33 +364,23 @@ class Trainer:
             writer.close()
             self.writer = None
 
-    def _refresh_occ_grid(self):
-        """Before a step whose global_step is a multiple of the update interval
-        (step 0 first), refresh the grid from the live weights (trainer.py:480-491)."""
-        occ = self.render_cfg.occ
-        if occ is not None and self.global_step % occ.update_interval == 0:
-            self.occ_grid = update_occ_grid(self.model, self.occ_grid, occ,
-                                            self.render_cfg.bound, generator=self.generator)
-
     def train_one_epoch(self, dataset, patch_size):
         lr_now = self.train_cfg.lr * 0.1 ** min(self.global_step / self.train_cfg.iters, 1.0)
         self.log(f"==> Start Training Epoch {self.epoch}, lr={lr_now:.6f} ...")
         poses, images, vi, vc, masked = self._device_data(dataset)
-        step_fn = self._get_step_fn(patch_size, masked)
+        epoch_fn = self._get_epoch_fn(patch_size, masked)
 
         order = self._np_rng.permutation(len(dataset))
-        self.local_step = 0
-        pending = []
         t0 = time.perf_counter()
-        for frame_idx in order:
-            self._refresh_occ_grid()
-            self.local_step += 1
-            self.global_step += 1
-            pending.append(step_fn(poses, images, vi, vc, int(frame_idx),
-                                   generator=self.generator, occ_grid=self.occ_grid))
-
-        losses = [float(m["loss"]) for m in pending]  # ends on the host
-        skips = [m["skipped_nonfinite"] for m in pending]
+        # the grid is refreshed before each step whose global step is a
+        # multiple of the update interval, step 0 first (trainer.py:480-491)
+        ms = epoch_fn(poses, images, vi, vc, order, self.global_step, generator=self.generator,
+                      occ_grid=self.occ_grid)
+        fetched = torch.stack([ms[k] for k in METRICS]).cpu().numpy()  # the epoch's one fetch
+        losses = [float(x) for x in fetched[METRICS.index("loss")]]
+        skips = [float(x) for x in fetched[METRICS.index("skipped_nonfinite")]]
+        self.local_step = len(order)
+        self.global_step += len(order)
         first = self.global_step - len(skips) + 1
         if any(skips):
             bad = [first + i for i, s in enumerate(skips) if s]
@@ -696,11 +693,8 @@ class Trainer:
         if self.occ_grid is not None:
             state["occ_grid"] = self.occ_grid.cpu().numpy()
         if full:
-            adam, sched = self.optimizer
-            # never under "optimizer": the JAX trainer unflattens that entry
-            # into its optax tree
-            state["optimizer_torch"] = {"adam": _to_numpy(adam.state_dict()),
-                                        "schedule": sched.state_dict()}
+            # optax's leaves, which the JAX trainer unflattens into its state
+            state["optimizer"] = optimizer_to_jax(self.optimizer.state_dict())
         return state
 
     def save_checkpoint(self, name=None, full=False, best=False, remove_old=True):
@@ -772,6 +766,9 @@ class Trainer:
         if self.ema_params is not None and "ema" in ckpt:
             for k, v in params_from_jax(ckpt["ema"]).items():
                 self.ema_params[k].copy_(v)
+        # a load replaces state that captured steps point to: the next epoch
+        # captures its graphs anew
+        self._epoch_fns.clear()
         if self.occ_grid is not None and "occ_grid" in ckpt:
             self.occ_grid = torch.as_tensor(ckpt["occ_grid"], dtype=torch.float32,
                                             device=self.device)
@@ -792,14 +789,22 @@ class Trainer:
                      "the step draws restart from the seed.")
         self.log(f"[INFO] load at epoch {self.epoch}, global step {self.global_step}")
 
-        if "optimizer_torch" in ckpt:
-            adam, sched = self.optimizer
-            adam.load_state_dict(_to_torch(ckpt["optimizer_torch"]["adam"]))
-            sched.load_state_dict(ckpt["optimizer_torch"]["schedule"])
-            self.log("[INFO] loaded optimizer.")
+        if "optimizer" in ckpt or "optimizer_torch" in ckpt:
+            try:
+                if "optimizer" in ckpt:
+                    self.optimizer.load_state_dict(optimizer_from_jax(ckpt["optimizer"]))
+                else:  # the port's layout before the optax one (torch.optim.Adam, LambdaLR)
+                    self.optimizer.load_state_dict(optimizer_from_torch_adam(
+                        ckpt["optimizer_torch"], self.optimizer.names))
+                self.log(f"[INFO] loaded optimizer (Adam step {int(self.optimizer.count)}, "
+                         f"schedule count {int(self.optimizer.schedule_count)}).")
+            except (KeyError, ValueError, IndexError, RuntimeError) as e:
+                self.log(f"[WARN] Failed to load optimizer ({e}); Adam and its schedule "
+                         "start afresh.")
+                self.optimizer.load_state_dict({"count": 0, "schedule_count": 0, "mu": {},
+                                                "nu": {}})
         else:
-            self.log("[WARN] the checkpoint holds no optimizer state of the port (a JAX "
-                     "checkpoint's optax state is not carried across): Adam and its "
-                     "schedule start afresh.")
+            self.log("[WARN] the checkpoint holds no optimizer state: Adam and its schedule "
+                     "start afresh.")
         self.run_log.append({"event": "load", "path": checkpoint,
                              "seconds": time.perf_counter() - t0})

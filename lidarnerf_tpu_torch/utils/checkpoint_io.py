@@ -9,7 +9,8 @@ library: it raises here (ROADMAP.md, queue A item 6, beside the sharded
 table).
 
 `load_state` reads a checkpoint through `utils.params.load_state`, which
-refuses objects of the JAX libraries and drops a JAX optimizer state.
+refuses objects of the JAX libraries and reads a JAX optimizer state
+(optax's) as plain tuples.
 Unpickle only files this system wrote: unpickling can run code.
 """
 

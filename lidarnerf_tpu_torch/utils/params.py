@@ -6,7 +6,9 @@ The flax tree is the `state["model"]` a JAX checkpoint holds
 `{"params": {"hash_table": [L*B, 128], "<net>": {"Dense_i": {"kernel": [in, out]}}}}`.
 The port's NeRFNetwork keeps the table as is and stores each `Dense_i/kernel`
 transposed as `<net>.layers.i.weight` [out, in], the torch `nn.Linear` layout.
-`load_state` reads either package's pickle checkpoints without JAX.
+The optimizer state travels in optax's layout (`optimizer_to_jax`,
+`optimizer_from_jax`). `load_state` reads either package's pickle
+checkpoints without JAX.
 """
 
 import os
@@ -45,11 +47,48 @@ def params_to_jax(state_dict) -> dict:
     return {"params": p}
 
 
+def optimizer_to_jax(state) -> tuple:
+    """DeviceAdam.state_dict() -> the JAX trainer's `optimizer` entry, numpy leaves.
+
+    optax.adam with a schedule keeps (ScaleByAdamState(count, mu, nu),
+    ScaleByScheduleState(count)), mu and nu in the flax parameter layout;
+    written as plain tuples, they flatten to the same leaves in the same
+    order, [count, mu..., nu..., count] with flax's sorted keys, which the
+    JAX trainer unflattens into its own state (lidarnerf_tpu/nerf/trainer.py:929-935).
+    """
+    return ((np.asarray(state["count"], np.int32), params_to_jax(state["mu"]),
+             params_to_jax(state["nu"])), (np.asarray(state["schedule_count"], np.int32),))
+
+
+def optimizer_from_jax(entry) -> dict:
+    """The `optimizer` entry of either package's checkpoint -> DeviceAdam.state_dict()'s
+    layout (moments as state_dict names, kernels transposed)."""
+    (count, mu, nu), (schedule_count,) = entry
+    return {"count": int(np.asarray(count)), "schedule_count": int(np.asarray(schedule_count)),
+            "mu": params_from_jax(mu), "nu": params_from_jax(nu)}
+
+
+def optimizer_from_torch_adam(entry, names) -> dict:
+    """The `optimizer_torch` entry of the port's older checkpoints (torch.optim.Adam's
+    state_dict over the parameters `names` in order, and LambdaLR's) -> DeviceAdam's
+    layout: exp_avg and exp_avg_sq are Adam's moments, its step the count."""
+    state = entry["adam"]["state"]
+    steps = {int(np.asarray(s["step"])) for s in state.values()}
+    if len(steps) > 1:
+        raise ValueError(f"the parameters' Adam steps differ: {sorted(steps)}")
+    return {"count": steps.pop() if steps else 0,
+            "schedule_count": int(entry["schedule"]["last_epoch"]),
+            "mu": {names[i]: torch.from_numpy(np.asarray(s["exp_avg"])) for i, s in state.items()},
+            "nu": {names[i]: torch.from_numpy(np.asarray(s["exp_avg_sq"]))
+                   for i, s in state.items()}}
+
+
 class _OptaxState(tuple):
     """Inert stand-in for an optax state class (a NamedTuple) in a JAX checkpoint.
 
     A JAX checkpoint's `optimizer` entry holds optax states; they unpickle
-    as these, and `load_state` drops the entry. Anywhere else one is refused.
+    as these, and `load_state` turns them into plain tuples of their fields.
+    Anywhere else one is refused.
     """
 
     qualname = "optax"
@@ -88,21 +127,33 @@ def _find_optax(tree):
     return None
 
 
+def _plain(tree):
+    """`tree` with every optax stand-in turned into a plain tuple of its fields."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return (list if isinstance(tree, list) else tuple)(_plain(x) for x in tree)
+    return tree
+
+
 def load_state(path) -> dict:
     """The state dict of a pickle checkpoint, without JAX.
 
     Objects of jax, jaxlib, flax, orbax or lidarnerf_tpu raise. optax
-    states are allowed in the `optimizer` entry of a JAX checkpoint, which
-    is dropped (the port cannot use an optax state); an optax object
-    anywhere else raises.
+    states are allowed in the `optimizer` entry of a JAX checkpoint, and
+    come back as plain tuples of their fields (`optimizer_from_jax` reads
+    them); an optax object anywhere else raises.
     """
     if os.path.isdir(path):
         raise NotImplementedError(f"{path} is an orbax checkpoint; only pickle checkpoints load here")
     with open(path, "rb") as f:
         state = _NumpyOnlyUnpickler(f).load()
     if isinstance(state, dict):
-        state = {k: v for k, v in state.items() if k != "optimizer"}
-    found = _find_optax(state)
+        found = _find_optax({k: v for k, v in state.items() if k != "optimizer"})
+        if "optimizer" in state:
+            state["optimizer"] = _plain(state["optimizer"])
+    else:
+        found = _find_optax(state)
     if found:
         raise ValueError(f"the checkpoint holds a {found} object outside its 'optimizer' entry")
     return state

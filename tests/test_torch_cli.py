@@ -106,7 +106,9 @@ def test_tiny_flow_writes_the_jax_cli_artifacts(data, tmp_path, monkeypatch):
         tmp_path / "jax" / "args.txt").read_text().replace(str(tmp_path / "jax"),
                                                           str(tmp_path / "port"))
     log = (tmp_path / "port" / "log_lidar_nerf.txt").read_text()
-    assert "Finished Epoch 2" in log and "queue A item 1" in log
+    # the epochs go through make_epoch_step (eager on the CPU); the old "run
+    # step by step" notice is gone
+    assert "Finished Epoch 2" in log and "queue A item 1" not in log
     evals = [e for e in trainer.run_log if e["event"] == "eval"]
     assert [e["epoch"] for e in evals] == [2, 2]  # val in train, then test
     for e in evals:

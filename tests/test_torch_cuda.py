@@ -8,6 +8,7 @@ Each kernel is held against its plain PyTorch version on the same inputs.
 import ctypes
 import re
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -744,11 +745,11 @@ def test_checkpoint_saved_on_the_card_loads_on_the_cpu_and_back(require_cuda, tm
             assert torch.equal(v.cpu(), b.model.state_dict()[k].cpu()), k
         for k, v in a.ema_params.items():
             assert torch.equal(v.cpu(), b.ema_params[k].cpu()), k
-        sa, sb = a.optimizer[0].state_dict()["state"], b.optimizer[0].state_dict()["state"]
-        for i in sa:
-            for k in ("exp_avg", "exp_avg_sq"):
-                assert torch.equal(sa[i][k].cpu(), sb[i][k].cpu()), (i, k)
-        assert a.optimizer[1].state_dict() == b.optimizer[1].state_dict()
+        sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+        assert (sa["count"], sa["schedule_count"]) == (sb["count"], sb["schedule_count"])
+        for kind in ("mu", "nu"):
+            for k, v in sa[kind].items():
+                assert torch.equal(v, sb[kind][k]), (kind, k)
 
     gpu = trainer("cuda", tmp_path)
     gpu.train(ds, None, max_epochs=1)
@@ -819,16 +820,16 @@ def test_mvl_masked_step_on_cuda_matches_the_cpu(require_cuda, tmp_path, monkeyp
 
 
 def test_mvl_masked_step_reads_nothing_back(require_cuda, tmp_path, monkeypatch):
-    """The masked sampler draws its pool positions on the card: a step's
-    sampler, render, loss and backward run under
-    torch.cuda.set_sync_debug_mode("error") (the update guard's one host
-    read lies outside), and every drawn pixel is unmasked."""
+    """The masked sampler draws its pool positions on the card: a whole step
+    (sampler, render, loss, backward and the guarded Adam update, whose flag
+    stays on the device) runs under torch.cuda.set_sync_debug_mode("error"),
+    and every drawn pixel is unmasked."""
     from lidarnerf_tpu_torch.nerf import train_step
 
     ds, cfg, rcfg = _mvl_small(tmp_path, monkeypatch)
     poses, images, vi, vc = ds.device_arrays("cuda")
     net = _mvl_net().cuda()
-    loss_fn = train_step.make_loss_fn(net, cfg, rcfg, masked_sampling=True)
+    step = train_step.make_train_step(net, cfg, rcfg, masked_sampling=True)
     gen = torch.Generator(device="cuda").manual_seed(5)
     drawn = []
     sample = train_step.sample_pixels
@@ -841,10 +842,175 @@ def test_mvl_masked_step_reads_nothing_back(require_cuda, tmp_path, monkeypatch)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        loss, _ = loss_fn(poses[0], images[0].reshape(-1, 3), vi[0], vc[0], generator=gen)
-        loss.backward()
+        m = step(poses, images, vi, vc, 0, generator=gen)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert np.isfinite(loss.item()) and net.hash_table.grad is not None
+    assert np.isfinite(m["loss"].item()) and net.hash_table.grad is not None
+    assert m["skipped_nonfinite"].item() == 0.0 and int(step.optimizer.count) == 1
     valid = images[0, ..., 0].reshape(-1) > -1
     assert valid[drawn[0]].all() and drawn[0].shape == (256,)
+
+
+# --- the captured training step (nerf/train_step.make_epoch_step) ---
+
+def _graph_opt(**kw):
+    """The CLI's kitti360_1908 options at a small width (256 rays, 32 + 8
+    samples, a 2^14 table at 256) on data_synth_drive60."""
+    import json
+
+    from lidarnerf_tpu_torch import main_lidarnerf as cli
+
+    root = Path(__file__).resolve().parent.parent
+    with open(root / "data_synth_drive60" / "scene_constants.json") as f:
+        c = json.load(f)
+    opt = cli.get_arg_parser().parse_args([
+        "--config", str(root / "configs" / "kitti360_1908.txt"), "--iters", "120",
+        "--num_steps", "32", "--upsample_steps", "8", "--num_rays_lidar", "256",
+        "--desired_resolution", "256", "--log2_hashmap_size", "14", "--occ_grid_size", "32",
+        "--occ_update_interval", "4"])
+    opt.enable_lidar = True
+    cli.apply_macros(opt)
+    opt.min_near = opt.min_near_lidar = opt.scale = c["scale"]
+    opt.H_lidar, opt.W_lidar, opt.intrinsics_lidar = 66, 1030, (2.0, 26.9)
+    for k, v in kw.items():
+        setattr(opt, k, v)
+    return opt, c
+
+
+def _graph_case(case, tmp_path, monkeypatch):
+    """(options, training set) of a sampler/variant case: default, seg, win,
+    fast (--fast: a 32^3 grid refreshed every 4 steps) or masked (NeRF-MVL)."""
+    from lidarnerf_tpu_torch.dataset.kitti360 import KITTI360Dataset
+
+    for name in ("LIDARNERF_SEG_KERNELS", "LIDARNERF_WIN_KERNELS"):
+        monkeypatch.delenv(name, raising=False)
+    if case in ("seg", "win"):
+        monkeypatch.setenv(f"LIDARNERF_{case.upper()}_KERNELS", "1")
+    if case == "masked":
+        ds, cfg, _ = _mvl_small(tmp_path, monkeypatch)
+        opt, _ = _graph_opt(dataloader="nerf_mvl", H_lidar=32, W_lidar=128,
+                            intrinsics_lidar=ds.intrinsics_lidar, scale=0.1, min_near=0.1,
+                            min_near_lidar=0.1)
+        return opt, ds
+    opt, c = _graph_opt(**({"occ_sampling": True} if case == "fast" else {}))
+    root = Path(__file__).resolve().parent.parent
+    ds = KITTI360Dataset(root_path=str(root / "data_synth_drive60"), scale=c["scale"],
+                         offset=c["offset"], num_rays_lidar=256)
+    return opt, ds
+
+
+def _graph_trainer(opt, fuse, ws=None):
+    from types import SimpleNamespace
+
+    from lidarnerf_tpu_torch import main_lidarnerf as cli
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+
+    return Trainer("lidar_nerf", SimpleNamespace(**{**vars(opt), "fuse_epoch": fuse}),
+                   cli.build_model(opt), mute=True, ema_decay=0.95,
+                   workspace=None if ws is None else str(ws))
+
+
+def _same_state(a, b):
+    """Weights, EMA, both Adam moments and counts, the generator, the grid."""
+    assert a.stats["step_loss"] == b.stats["step_loss"] and a.global_step == b.global_step
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(v, b.model.state_dict()[k]), k
+    for k, v in a.ema_params.items():
+        assert torch.equal(v, b.ema_params[k]), k
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    assert (sa["count"], sa["schedule_count"]) == (sb["count"], sb["schedule_count"])
+    for kind in ("mu", "nu"):
+        for k, v in sa[kind].items():
+            assert torch.equal(v, sb[kind][k]), (kind, k)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    assert (a.occ_grid is None) == (b.occ_grid is None)
+    assert a.occ_grid is None or torch.equal(a.occ_grid, b.occ_grid)
+
+
+def _device_launches(fn):
+    """fn() under torch.profiler: {kernel wrapper name: its kernels that ran
+    on the card}, replays of a CUDA graph included (each graph node is a
+    kernel record of its own)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.5)  # the trace loses the kernels it receives after it stops
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+             for _ in range(e.count)]
+    return {k: sum(n.startswith(k + "_kernel") for n in names)
+            for k in block_hash_cuda.launch_counts()}
+
+
+@pytest.mark.parametrize("case", ["default", "seg", "win", "fast", "masked"])
+def test_captured_epochs_equal_the_eager_epochs(require_cuda, tmp_path, monkeypatch, case):
+    """Two epochs (patch 1, then the [2, 8] patches: two graphs) with the
+    step captured (`--fuse_epoch 1`) and eager (`0`), from the same state
+    and generator: the same step losses, weights, EMA, Adam state, generator
+    state and grid, bit for bit, and the same kernels run on the card as
+    the eager run's wrappers launch. The graphed run's wrappers count only
+    the warm-up and the capture of each graph: its replays run no Python."""
+    opt, ds = _graph_case(case, tmp_path, monkeypatch)
+    runs, counts, device = [], [], []
+    for fuse in (0, 1):
+        t = _graph_trainer(opt, fuse)
+        block_hash_cuda.reset_counts()
+        device.append(_device_launches(lambda: t.train(ds, None, max_epochs=2)))
+        runs.append(t)
+        counts.append(block_hash_cuda.launch_counts())
+    eager, graphed = runs
+    graphs = [g for f in graphed._epoch_fns.values() for g in f.graphs.values()]
+    assert len(graphs) == 2 and all(g.graph is not None for g in graphs)
+    assert not any(f.graphs for f in eager._epoch_fns.values())
+    _same_state(eager, graphed)
+    assert device[0] == device[1] == counts[0] and sum(counts[0].values()) > 0
+    steps = 2 * len(ds)
+    refresh = {"block_hash_fwd": len(range(0, steps, 4)) if case == "fast" else 0}
+    per_step = {k: (n - refresh.get(k, 0)) // steps for k, n in counts[0].items()}
+    assert counts[0] == {k: n * steps + refresh.get(k, 0) for k, n in per_step.items()}
+    assert counts[1] == {k: n * 2 * len(graphs) + refresh.get(k, 0) for k, n in per_step.items()}
+    assert not any(graphed.stats["skipped"]) and np.isfinite(graphed.stats["step_loss"]).all()
+
+
+def test_two_captured_runs_repeat_bit_for_bit(require_cuda, tmp_path, monkeypatch):
+    """Two trainers from the same seed, each capturing its own graphs: three
+    epochs (captures in the first two, replays only in the third) equal bit
+    for bit."""
+    opt, ds = _graph_case("default", tmp_path, monkeypatch)
+    runs = []
+    for _ in range(2):
+        t = _graph_trainer(opt, 1)
+        t.train(ds, None, max_epochs=3)
+        runs.append(t)
+    _same_state(*runs)
+
+
+def test_graph_resume_equals_the_uninterrupted_run(require_cuda, tmp_path, monkeypatch):
+    """Epochs 1-2 captured and replayed, then a new trainer resumes from the
+    checkpoint (the generator state after the replays included) and captures
+    anew: its third epoch repeats the uninterrupted captured run bit for bit."""
+    opt, ds = _graph_case("fast", tmp_path, monkeypatch)
+    whole = _graph_trainer(opt, 1, tmp_path / "whole")
+    whole.train(ds, None, max_epochs=3)
+    first = _graph_trainer(opt, 1, tmp_path / "resumed")
+    first.train(ds, None, max_epochs=2)
+    resumed = _graph_trainer(opt, 1, tmp_path / "resumed")
+    assert resumed.epoch == 2 and int(resumed.optimizer.count) == 2 * len(ds)
+    resumed.train(ds, None, max_epochs=3)
+    _same_state(resumed, whole)
+
+
+def test_capture_refuses_a_host_read(require_cuda):
+    """A step that reads the device inside the capture raises (no quiet
+    fall-back to the eager loop): the capture is what proves that a replayed
+    epoch reads nothing back."""
+    from lidarnerf_tpu_torch.nerf import train_step
+
+    step = lambda *a, **k: {m: torch.zeros((), device="cuda") + float(a[4].item())  # noqa: E731
+                            for m in train_step.METRICS}
+    captured = train_step._CapturedStep(step, train_step.GraphPool(torch.device("cuda")))
+    x = torch.zeros((3, 1), device="cuda")
+    with pytest.raises(Exception):
+        captured.epoch(x, x, x, x, np.arange(3), None, None, lambda i: None)

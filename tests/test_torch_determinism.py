@@ -95,8 +95,8 @@ def test_train_step_bitwise_deterministic(monkeypatch, variant):
         net = copy.deepcopy(net0)
         step = tst.make_train_step(net, cfg, rcfg, patch_size=[2, 8], device="cpu")
         m = step(poses, images, vi, vc, 0, generator=torch.Generator().manual_seed(7))
-        adam = step.optimizer[0]
-        state = [t for p in net.parameters() for t in adam.state.get(p, {}).values()]
+        adam = step.optimizer
+        state = [*adam.mu, *adam.nu, adam.count, adam.schedule_count]
         grads = [p.grad for p in net.parameters() if p.grad is not None]  # not the RGB head
         runs.append([m["loss"], *grads, *net.parameters(), *state])
     assert m["skipped_nonfinite"] == 0.0

@@ -29,7 +29,6 @@ from lidarnerf_tpu_torch.models.network import NeRFNetwork
 from lidarnerf_tpu_torch.models.occupancy import OccConfig
 from lidarnerf_tpu_torch.models.renderer import RenderConfig
 from lidarnerf_tpu_torch.nerf import train_step as tst
-from lidarnerf_tpu_torch.nerf import trainer as trainer_module
 from lidarnerf_tpu_torch.nerf.trainer import Trainer
 from lidarnerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 from test_torch_occupancy import shell_grid
@@ -119,17 +118,18 @@ def _configs(occ=False, **kw):
     return tcfg_j, tcfg, rcfg_j, rcfg
 
 
-def _draws(key, patch, masked, vc):
+def _draws(key, patch, masked, vc, n=N, t=T, s=S, h=H, w=W):
     """What make_loss_fn draws from `key` (train_step.py:234-263, renderer.py:115,
-    sampling.py:38,68), in the port's `draws` form."""
+    sampling.py:38,68), in the port's `draws` form: n rays of t + s samples
+    on an h x w pano."""
     k_pix, k_render = jax.random.split(key)
     k_strat, k_pdf = jax.random.split(k_render)
-    d = {"noise": np.asarray(jax.random.uniform(k_strat, (N, T), dtype=jnp.float32)),
-         "u": np.asarray(jax.random.uniform(k_pdf, (N, S), dtype=jnp.float32))}
+    d = {"noise": np.asarray(jax.random.uniform(k_strat, (n, t), dtype=jnp.float32)),
+         "u": np.asarray(jax.random.uniform(k_pdf, (n, s), dtype=jnp.float32))}
     if masked:
-        d["pool_draws"] = np.asarray(jax.random.randint(k_pix, (N,), 0, vc))
+        d["pool_draws"] = np.asarray(jax.random.randint(k_pix, (n,), 0, vc))
     else:
-        d["inds"] = np.asarray(sample_ray_indices_j(k_pix, H, W, N, patch))
+        d["inds"] = np.asarray(sample_ray_indices_j(k_pix, h, w, n, patch))
     return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
 
 
@@ -256,6 +256,9 @@ def test_train_step_matches_jax(field, case, variant, monkeypatch, request):
 
 
 def test_adam_and_schedule_match_optax():
+    """DeviceAdam against optax.adam with the schedule: the lr of each update
+    (a float32 on the device, equal to optax's), the parameters, both
+    moments and both counts."""
     cfg_j = tsj.TrainConfig(lr=1e-2, iters=4)
     rs = np.random.RandomState(3)
     p0 = {"a": rs.uniform(-1, 1, (5, 7)).astype(np.float32),
@@ -266,18 +269,25 @@ def test_adam_and_schedule_match_optax():
     pj = jax.tree.map(jnp.asarray, p0)
     state = tx.init(pj)
     tparams = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in p0.items()}
-    adam, sched = tst.make_optimizer(list(tparams.values()), tst.TrainConfig(lr=1e-2, iters=4))
+    adam = tst.make_optimizer(list(tparams.items()), tst.TrainConfig(lr=1e-2, iters=4))
     for i, g in enumerate(grads):
-        assert sched.get_last_lr()[0] == pytest.approx(1e-2 * 0.1 ** min(i / 4, 1.0), rel=1e-12)
+        lr_j = cfg_j.lr * 0.1 ** jnp.minimum(jnp.int32(i) / cfg_j.iters, 1.0)
+        assert float(adam.lr_now()) == float(lr_j)
         updates, state = tx.update(jax.tree.map(jnp.asarray, g), state, pj)
         pj = optax.apply_updates(pj, updates)
         for k, p in tparams.items():
             p.grad = torch.from_numpy(g[k])
-        adam.step()
-        sched.step()
-        # the same fp32 Adam arithmetic, grouped differently: ~1 ulp of p
+        assert bool(adam.step(torch.tensor(1.0)))
+        # the same fp32 Adam step, rounded in another order: ~1 ulp of p
         for k, p in tparams.items():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(pj[k]), rtol=0, atol=2e-7)
+    adam_state, sched_state = state
+    assert int(adam.count) == int(adam_state.count) == 3
+    assert int(adam.schedule_count) == int(sched_state.count) == 3
+    for i, k in enumerate(tparams):  # the fused kernel's fma: a few ulps of the peak
+        for got, ref in ((adam.mu[i], adam_state.mu[k]), (adam.nu[i], adam_state.nu[k])):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=4e-7 * np.abs(ref).max())
 
 
 def _small_step(field, images):
@@ -294,31 +304,33 @@ def _small_step(field, images):
 
 
 def _snapshot(net, step):
-    adam, sched = step.optimizer
-    state = {id(p): {k: (v.clone() if torch.is_tensor(v) else v) for k, v in s.items()}
-             for p, s in adam.state.items()}
-    return ({k: v.clone() for k, v in net.state_dict().items()}, state, sched.last_epoch)
+    adam = step.optimizer
+    state = {f"{kind} {n}": t.clone() for kind, ts in (("mu", adam.mu), ("nu", adam.nu))
+             for n, t in zip(adam.names, ts)}
+    return ({k: v.clone() for k, v in net.state_dict().items()}, state,
+            (adam.count.clone(), adam.schedule_count.clone()))
 
 
 def test_guarded_update_skips_nan_batch(field):
     """The counterpart of tests/test_train.py::TestNonFiniteGuard::test_nan_batch_skips_update:
-    parameters, Adam moments and the schedule count are all kept."""
+    parameters, Adam moments, Adam's step and the schedule count are all kept,
+    bit for bit, and the skip flag is a device value."""
     _, images = _scene()
     net, step, run = _small_step(field, images)
-    assert run(images)["skipped_nonfinite"] == 0.0  # Adam state exists now
+    assert run(images)["skipped_nonfinite"] == 0.0  # the Adam state is not zero now
     params0, state0, count0 = _snapshot(net, step)
     bad = images.copy()
     bad[..., 2] = np.nan  # poisoned gt depths -> NaN loss and grads
     m = run(bad)
+    assert torch.is_tensor(m["skipped_nonfinite"]) and m["skipped_nonfinite"].dim() == 0
     assert m["skipped_nonfinite"] == 1.0 and not np.isfinite(float(m["loss"]))
     params1, state1, count1 = _snapshot(net, step)
-    assert count1 == count0 == 1
+    assert [int(c) for c in count1] == [int(c) for c in count0] == [1, 1]
     for k in params0:
         torch.testing.assert_close(params1[k], params0[k], rtol=0, atol=0)
     assert state1.keys() == state0.keys()
-    for pid, s in state0.items():
-        for k, v in s.items():
-            torch.testing.assert_close(state1[pid][k], v, rtol=0, atol=0)
+    for k, v in state0.items():
+        torch.testing.assert_close(state1[k], v, rtol=0, atol=0)
 
 
 def test_guarded_update_keeps_healthy_batch(field):
@@ -328,7 +340,7 @@ def test_guarded_update_keeps_healthy_batch(field):
     params0 = {k: v.clone() for k, v in net.state_dict().items()}
     m = run(images)
     assert m["skipped_nonfinite"] == 0.0 and np.isfinite(float(m["loss"]))
-    assert step.optimizer[1].last_epoch == 1
+    assert int(step.optimizer.count) == int(step.optimizer.schedule_count) == 1
     assert any(not torch.equal(v, net.state_dict()[k]) for k, v in params0.items())
 
 
@@ -444,11 +456,12 @@ def test_trainer_epochs_follow_the_patch_schedule(field):
     trainer.train(_TinyData(), None, max_epochs=2)
     assert trainer.epoch == 2 and trainer.global_step == 6
     # epoch 1 trains patch 1, epoch 2 the [2, 8] patches (trainer.py:367-378),
-    # both with the dense sampler (the step functions are keyed as the JAX
+    # both with the dense sampler (the epoch functions are keyed as the JAX
     # trainer's: patch size, masked sampling)
-    assert set(trainer._step_fns) == {(1, False), ((2, 8), False)}
+    assert set(trainer._epoch_fns) == {(1, False), ((2, 8), False)}
     assert len(trainer.stats["step_loss"]) == 6 and np.isfinite(trainer.stats["step_loss"]).all()
-    assert trainer.stats["skipped"] == [0.0] * 6 and trainer.optimizer[1].last_epoch == 6
+    assert trainer.stats["skipped"] == [0.0] * 6
+    assert int(trainer.optimizer.count) == int(trainer.optimizer.schedule_count) == 6
     assert trainer.ema_num_updates == 2
     assert not torch.equal(trainer.ema_params["hash_table"], ema0["hash_table"])
     assert trainer.log_ptr is None and trainer.stats["checkpoints"] == []  # no workspace
@@ -482,26 +495,28 @@ def test_trainer_refreshes_the_occ_grid_every_interval(field, monkeypatch):
     trainer = Trainer("t", opt, net, device="cpu", mute=True, workspace=None)
     assert trainer.render_cfg.occ == OccConfig(grid_size=8, update_interval=2, bins=16)
     refreshed, stepped = [], []
-    refresh, make_step = trainer_module.update_occ_grid, trainer_module.make_train_step
+    refresh, make_step = tst.update_occ_grid, tst.make_train_step
+    grid = trainer.occ_grid
 
     def counting_refresh(model, grid, *args, **kw):
         assert model is trainer.model  # the live weights, not the EMA
-        refreshed.append(trainer.global_step)
+        refreshed.append(len(stepped))  # the global step of the next step
         return refresh(model, grid, *args, **kw)
 
     def recording_step(*args, **kw):
         step = make_step(*args, **kw)
 
         def run(*a, occ_grid=None, **k):
-            stepped.append(occ_grid is trainer.occ_grid and occ_grid is not None)
+            stepped.append(occ_grid is grid)
             return step(*a, occ_grid=occ_grid, **k)
 
         return run
 
-    monkeypatch.setattr(trainer_module, "update_occ_grid", counting_refresh)
-    monkeypatch.setattr(trainer_module, "make_train_step", recording_step)
+    monkeypatch.setattr(tst, "update_occ_grid", counting_refresh)
+    monkeypatch.setattr(tst, "make_train_step", recording_step)
     trainer.train(_TinyData(), None, max_epochs=2)  # 2 x 3 steps
     assert trainer.global_step == 6 and refreshed == [0, 2, 4]
-    assert stepped == [True] * 6
+    # every step reads the one grid, which the refreshes update in place
+    assert stepped == [True] * 6 and trainer.occ_grid is grid
     assert trainer.occ_grid.shape == (8,) * 3 and trainer.occ_grid.any()
     assert np.isfinite(trainer.stats["step_loss"]).all() and not any(trainer.stats["skipped"])

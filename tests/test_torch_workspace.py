@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import main_lidarnerf as cli_j  # noqa: E402
 from lidarnerf_tpu.dataset.kitti360 import KITTI360Dataset as KITTI360DatasetJ  # noqa: E402
 from lidarnerf_tpu.nerf import metrics as metrics_j  # noqa: E402
+from lidarnerf_tpu.nerf import train_step as tsj  # noqa: E402
 from lidarnerf_tpu.nerf.trainer import Trainer as TrainerJ  # noqa: E402
 from lidarnerf_tpu_torch import main_lidarnerf as cli  # noqa: E402
 from lidarnerf_tpu_torch.dataset.kitti360 import KITTI360Dataset  # noqa: E402
@@ -110,9 +111,9 @@ def _leaves(tree):
 
 @pytest.mark.parametrize("fast", [False, True], ids=["default", "fast"])
 def test_checkpoint_round_trips_the_state(data, tmp_path, fast):
-    """Weights, EMA, Adam, LambdaLR, the generator, np_rng, the counters,
-    the stats and (--fast) the occupancy grid come back from a checkpoint
-    exactly; its leaves are numpy, never torch tensors."""
+    """Weights, EMA, the Adam moments and both counts, the generator, np_rng,
+    the counters, the stats and (--fast) the occupancy grid come back from a
+    checkpoint exactly; its leaves are numpy, never torch tensors."""
     opt = _opt(data, *(FAST if fast else []))
     a = _trainer(opt, tmp_path)
     a.train(_dataset(data, "train"), None, max_epochs=2)
@@ -120,13 +121,13 @@ def test_checkpoint_round_trips_the_state(data, tmp_path, fast):
     assert (b.epoch, b.global_step, b.ema_num_updates) == (2, 6, 2)
     _assert_equal_dicts(_weights(a), _weights(b))
     _assert_equal_dicts(a.ema_params, b.ema_params)
-    (adam_a, sched_a), (adam_b, sched_b) = a.optimizer, b.optimizer
-    sa, sb = adam_a.state_dict(), adam_b.state_dict()
-    assert sa["param_groups"] == sb["param_groups"]
-    for i in sa["state"]:
-        for k in ("step", "exp_avg", "exp_avg_sq"):
-            assert torch.equal(sa["state"][i][k], sb["state"][i][k]), (i, k)
-    assert sched_a.state_dict() == sched_b.state_dict() and sched_b.last_epoch == 6
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    assert (sb["count"], sb["schedule_count"]) == (sa["count"], sa["schedule_count"]) == (6, 6)
+    for kind in ("mu", "nu"):
+        assert sa[kind].keys() == sb[kind].keys() == dict(a.model.named_parameters()).keys()
+        for k in sa[kind]:
+            assert torch.equal(sa[kind][k], sb[kind][k]), (kind, k)
+    assert sa["mu"]["hash_table"].any()
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
     ra, rb = a._np_rng.get_state(), b._np_rng.get_state()
     assert ra[0] == rb[0] and np.array_equal(ra[1], rb[1]) and ra[2:] == rb[2:]
@@ -138,10 +139,10 @@ def test_checkpoint_round_trips_the_state(data, tmp_path, fast):
     with open(tmp_path / "checkpoints" / "lidar_nerf_ep0002.ckpt", "rb") as f:
         state = pickle.load(f)
     assert not any(isinstance(x, torch.Tensor) for x in _leaves(state))
-    # the JAX trainer's keys and the port's own; nothing under the JAX
-    # trainer's "optimizer" or "rng"
+    # the JAX trainer's keys, "optimizer" in optax's layout, and the port's
+    # generator; nothing under the JAX trainer's "rng"
     assert set(state) == {"epoch", "global_step", "stats", "ema_num_updates", "np_rng",
-                          "rng_torch", "model", "ema", "optimizer_torch",
+                          "rng_torch", "model", "ema", "optimizer",
                           *(["occ_grid"] if fast else [])}
     assert set(state["model"]["params"]) == {"hash_table", "sigma_net", "color_net",
                                              "lidar_color_net"}
@@ -193,7 +194,7 @@ def test_checkpoint_ring_and_best_checkpoint(data, tmp_path):
     assert t.stats["best_result"] == min(t.stats["results"]) and len(t.stats["results"]) == 4
     with open(tmp_path / "checkpoints" / "lidar_nerf.ckpt", "rb") as f:
         best = pickle.load(f)
-    assert "optimizer_torch" not in best  # not a full checkpoint
+    assert "optimizer" not in best  # not a full checkpoint
     for net in ("hash_table",):
         np.testing.assert_array_equal(best["model"]["params"][net], best["ema"]["params"][net])
     best_epoch = 1 + t.stats["results"].index(t.stats["best_result"])
@@ -241,11 +242,12 @@ def _jax_trainer(opt, workspace, **kw):
 
 
 def test_jax_checkpoint_loads_into_the_port(data, tmp_path):
-    """A full checkpoint the JAX Trainer writes (optax state included) loads
-    into the port: weights, EMA, counters and stats, not the optimizer (one
-    log line). The port's `evaluate` then gives the JAX trainer's meters on
-    those weights: the panos agree within the render tolerance, and the
-    meters, means over the panos' pixels and points, within its rtol 1e-4."""
+    """A full checkpoint the JAX Trainer writes loads into the port: weights,
+    EMA, counters and stats, and its optax state (both moments, bit for
+    bit, and both counts) into the port's Adam. The port's `evaluate` then
+    gives the JAX trainer's meters on those weights: the panos agree within
+    the render tolerance, and the meters, means over the panos' pixels and
+    points, within its rtol 1e-4."""
     opt = _opt(data)
     # a field with structure: the port's weights after three epochs
     src = _trainer(opt, None)
@@ -257,6 +259,13 @@ def test_jax_checkpoint_loads_into_the_port(data, tmp_path):
     tj.params = jax.tree.map(jnp.asarray, params_to_jax(src.model.state_dict()))
     tj.ema_params = jax.tree.map(jnp.asarray, params_to_jax(src.ema_params))
     tj.epoch, tj.global_step, tj.ema_num_updates = 3, 9, 3
+    # an optax state three updates in, on gradients from a seed
+    rs = np.random.RandomState(5)
+    tx = tsj.make_optimizer(tj.train_cfg)
+    for _ in range(3):
+        g = jax.tree.map(lambda p: jnp.asarray(rs.normal(size=p.shape).astype(np.float32)),
+                         tj.params)
+        _, tj.opt_state = tx.update(g, tj.opt_state, tj.params)
     tj.save_checkpoint(full=True)
     path = tmp_path / "jax" / "checkpoints" / "lidar_nerf_ep0003.ckpt"
     with open(path, "rb") as f:
@@ -267,7 +276,16 @@ def test_jax_checkpoint_loads_into_the_port(data, tmp_path):
     assert (port.epoch, port.global_step, port.ema_num_updates) == (3, 9, 3)
     _assert_equal_dicts(_weights(port), _weights(src))
     _assert_equal_dicts(port.ema_params, src.ema_params)
-    assert "optax state is not carried across" in (
+    (count_j, mu_j, nu_j), (sched_j,) = tj.opt_state
+    assert int(port.optimizer.count) == int(count_j) == 3
+    assert int(port.optimizer.schedule_count) == int(sched_j) == 3
+    for kind, tree in (("mu", mu_j), ("nu", nu_j)):
+        want = params_from_jax(jax.tree.map(np.asarray, tree))
+        got = port.optimizer.state_dict()[kind]
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (kind, k)
+    assert "loaded optimizer (Adam step 3, schedule count 3)" in (
         tmp_path / "port" / "log_lidar_nerf.txt").read_text()
 
     test_j = KITTI360DatasetJ(split="test", root_path=data, scale=SCALE, offset=[0, 0, 0])
