@@ -44,7 +44,17 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
     the card: masked training, crop meters, OBB-cropped test clouds, mesh,
     `--test_eval`, B1 and B2 on an MVL training chunk, one masked step with
     no host read (`set_sync_debug_mode("error")`), the masked step eager and
-    captured, a pano through `PanoRenderer`.
+    captured, a pano through `PanoRenderer`;
+  - onramp: the data on-ramp with no JAX: a raw KITTI-360 tree of sequence
+    1908's 64 frames (HDL-64 sweeps of ~131k points cast from the synthetic
+    street) through the host C++ projection (held against its numpy
+    version) and the port's check_dataset (its stage 5 a smoke train on the
+    card; B1 and B2 on one of its training chunks, at its 2^15 table), the
+    built dataset trained at configs/kitti360_1908.txt -L width with the
+    computed scale and offset, `--test_eval`, epochs of graph replay
+    untraced and traced; a raw NeRF-MVL `car`
+    tree through create_nerf_mvl_rangeview's calls and nerfmvl_to_nerf into a few
+    masked steps at 256 x 1800.
 It checks that each path went through its kernels and that its output is
 right, and profiles one render chunk and one training step per variant.
 B1 and B2 are also checked on adversarial point sets (one cell, runs
@@ -1795,6 +1805,65 @@ def events(trainer, kind):
     return [e for e in trainer.run_log if e["event"] == kind]
 
 
+def check_cli_run(what, trainer, launches, device, steps, evals_at):
+    """A CLI run's steps, finite losses, evaluations (`evals_at`: their
+    epochs), its one test and mesh, and its launches: B1 and B2 twice a step,
+    B1 twice per render chunk (max_ray_batch rays) of every evaluated or
+    tested pano and once per 128^3 mesh block (extract_fields' blocks), on
+    the card and at the wrappers (check_graphed_launches). Returns the means of the
+    first and the last 10 step losses."""
+    losses = trainer.stats["step_loss"]
+    if trainer.global_step != steps or len(losses) != steps:
+        raise AssertionError(f"{what}: trained {trainer.global_step} steps, expected {steps}")
+    if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
+        raise AssertionError(f"{what}: a training loss was non-finite or a step was skipped")
+    evals, test, mesh = events(trainer, "eval"), events(trainer, "test"), events(trainer, "mesh")
+    if [e["epoch"] for e in evals] != evals_at or len(test) != 1 or len(mesh) != 1:
+        raise AssertionError(f"{what}: evaluations {[e['epoch'] for e in evals]}, tests "
+                             f"{len(test)}, meshes {len(mesh)}")
+    for e in evals:
+        if not all(np.isfinite(v).all() for v in e["meters"].values()):
+            raise AssertionError(f"{what}: a meter of {e['name']} is not finite: {e['meters']}")
+    opt = trainer.opt
+    chunks = -(-opt.H_lidar * opt.W_lidar // opt.max_ray_batch)
+    panos = sum(e["frames"] for e in evals) + test[0]["frames"]
+    queries = (-(-opt.mesh_resolution // 128)) ** 3
+    check_graphed_launches(what, launches, device, trainer,
+                           {"block_hash_fwd": 2, "block_hash_bwd": 2},
+                           {"block_hash_fwd": 2 * chunks * panos + queries})
+    return float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+
+
+def loss_fell(what, first, last):
+    """Log the means of the first and last 10 step losses; raise unless the
+    last is at least 25% below the first."""
+    log(f"{what}: loss mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
+        f"({100 * (1 - last / first):.1f}% lower)")
+    if not last <= 0.75 * first:
+        raise AssertionError(f"{what}: training lowered the loss by less than 25%")
+
+
+def check_test_eval(what, cli, argv, trained):
+    """The CLI with `argv` and --test_eval on the trained run's workspace
+    (evaluate the test split, test, a 128^3 mesh): its meters equal the
+    trained run's last evaluation bit for bit, and only B1 ran, twice per
+    render chunk and once for the mesh. Returns its launch counts."""
+    torch.cuda.synchronize()
+    reset_counts()
+    again = cli.main([*argv, "--test_eval"])
+    launches = launch_counts()
+    got, want = events(again, "eval"), events(trained, "eval")[-1]
+    opt = again.opt
+    chunks = -(-opt.H_lidar * opt.W_lidar // opt.max_ray_batch)
+    panos = got[0]["frames"] + events(again, "test")[0]["frames"]
+    only_launches(launches, {"block_hash_fwd": 2 * chunks * panos + 1})
+    if len(got) != 1 or not same_meters(got[0]["meters"], want["meters"]):
+        raise AssertionError(f"{what} --test_eval: meters {got[0]['meters']} differ from the "
+                             f"trained run's {want['meters']}")
+    log(f"{what} --test_eval: the test-split meters equal the trained run's bit for bit")
+    return launches
+
+
 def cli_train_phase(cli, ws):
     """Phase 1: train -> evaluate (val each epoch, then test) -> test -> mesh.
     Returns (trainer, launch counts, (peak bytes allocated, reserved))."""
@@ -1806,31 +1875,9 @@ def cli_train_phase(cli, ws):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
 
-    losses, steps = trainer.stats["step_loss"], trainer.global_step
-    if steps != 180 or len(losses) != steps:
-        raise AssertionError(f"cli: trained {steps} steps, expected 180")
-    if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
-        raise AssertionError("cli: a training loss was non-finite or a step was skipped")
-    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    log(f"cli: loss mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
-        f"({100 * (1 - last / first):.1f}% lower)")
-    if not last <= 0.75 * first:
-        raise AssertionError("cli: training lowered the loss by less than 25%")
-    evals, test, mesh = events(trainer, "eval"), events(trainer, "test"), events(trainer, "mesh")
-    if [e["epoch"] for e in evals] != [1, 2, 3, 3] or len(test) != 1 or len(mesh) != 1:
-        raise AssertionError(f"cli: evaluations {[e['epoch'] for e in evals]}, tests "
-                             f"{len(test)}, meshes {len(mesh)}")
-    for e in evals:
-        if not all(np.isfinite(v).all() for v in e["meters"].values()):
-            raise AssertionError(f"cli: a meter of {e['name']} is not finite: {e['meters']}")
-    H, W = trainer.opt.H_lidar, trainer.opt.W_lidar
-    chunks = -(-H * W // trainer.opt.max_ray_batch)
-    panos = sum(e["frames"] for e in evals) + test[0]["frames"]
-    queries = (-(-trainer.opt.mesh_resolution // 128)) ** 3  # extract_fields' 128^3 blocks
-    check_graphed_launches("cli", launches, device, trainer,
-                           {"block_hash_fwd": 2, "block_hash_bwd": 2},
-                           {"block_hash_fwd": 2 * chunks * panos + queries})
+    loss_fell("cli", *check_cli_run("cli", trainer, launches, device, 180, [1, 2, 3, 3]))
     log(f"cli launches: at the wrappers {launches}, on the card {device}")
+    evals, test = events(trainer, "eval"), events(trainer, "test")
     files = {p.relative_to(ws).as_posix() for p in Path(ws).rglob("*") if p.is_file()}
     tag = f"lidar_nerf_ep{trainer.epoch:04d}"
     want = {"args.txt", "log_lidar_nerf.txt", "checkpoints/lidar_nerf.ckpt",
@@ -2047,32 +2094,10 @@ def mvl_train_phase(cli, data, ws):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
 
-    losses, steps = trainer.stats["step_loss"], trainer.global_step
-    if steps != 120 or len(losses) != steps:
-        raise AssertionError(f"mvl: trained {steps} steps, expected 120")
-    if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
-        raise AssertionError("mvl: a training loss was non-finite or a step was skipped")
-    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    log(f"mvl: loss mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
-        f"({100 * (1 - last / first):.1f}% lower)")
-    if not last <= 0.75 * first:
-        raise AssertionError("mvl: training lowered the loss by less than 25%")
-    evals, test, mesh = events(trainer, "eval"), events(trainer, "test"), events(trainer, "mesh")
-    if [e["epoch"] for e in evals] != [5, 10, 10] or len(test) != 1 or len(mesh) != 1:
-        raise AssertionError(f"mvl: evaluations {[e['epoch'] for e in evals]}, tests "
-                             f"{len(test)}, meshes {len(mesh)}")
-    for e in evals:
-        if not all(np.isfinite(v).all() for v in e["meters"].values()):
-            raise AssertionError(f"mvl: a meter of {e['name']} is not finite: {e['meters']}")
     opt = trainer.opt
     if (opt.H_lidar, opt.W_lidar, tuple(opt.intrinsics_lidar)) != (256, 1800, (15, 40)):
         raise AssertionError(f"mvl: pano {opt.H_lidar} x {opt.W_lidar} {opt.intrinsics_lidar}")
-    chunks = -(-opt.H_lidar * opt.W_lidar // opt.max_ray_batch)
-    panos = sum(e["frames"] for e in evals) + test[0]["frames"]
-    queries = (-(-opt.mesh_resolution // 128)) ** 3
-    check_graphed_launches("mvl", launches, device, trainer,
-                           {"block_hash_fwd": 2, "block_hash_bwd": 2},
-                           {"block_hash_fwd": 2 * chunks * panos + queries})
+    loss_fell("mvl", *check_cli_run("mvl", trainer, launches, device, 120, [5, 10, 10]))
     log(f"mvl launches: at the wrappers {launches}, on the card {device}")
     ds = NeRFMVLDataset(split="test", root_path=data, scale=opt.scale)
     counts = []
@@ -2088,13 +2113,15 @@ def mvl_train_phase(cli, data, ws):
     return trainer, launches, peak
 
 
-def mvl_kernel_phase(trainer, data):
-    """B1 and B2 against their plain versions on one MVL training chunk's
-    coarse queries (pool-sampled rays of train frame 0 through the object
-    at scale 0.1), with the trained table, at the B1 and B2 phases'
-    tolerances. Returns (B1 error, B2 worst error / slack)."""
-    from lidarnerf_tpu_torch.dataset.base import rays_from_indices
-    from lidarnerf_tpu_torch.dataset.nerfmvl import NeRFMVLDataset
+def trainer_kernel_phase(what, trainer, seed):
+    """B1 and B2 against their plain versions on the coarse queries of one
+    training chunk of the trainer's own data (the CLI's train split of its
+    options): num_rays_lidar rays of train frame 0, drawn from the frame's
+    valid-pixel pool where the dataset has one (NeRF-MVL), with the trained
+    table at the trainer's block spec, at the B1 and B2 phases' tolerances.
+    Returns (B1 error, B2 worst error / slack)."""
+    from lidarnerf_tpu_torch import main_lidarnerf as cli
+    from lidarnerf_tpu_torch.dataset.base import rays_from_indices, sample_ray_indices
     from lidarnerf_tpu_torch.nerf.train_step import pool_draws
     from lidarnerf_tpu_torch.ops import block_hash_cuda
     from lidarnerf_tpu_torch.ops.block_hash import encode_bwd_plain, encode_plain
@@ -2102,12 +2129,15 @@ def mvl_kernel_phase(trainer, data):
 
     dev = torch.device("cuda")
     opt, cfg = trainer.opt, trainer.render_cfg
-    ds = NeRFMVLDataset(split="train", root_path=data, scale=opt.scale)
-    poses, _, vi, vc = ds.device_arrays(dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    ds = cli.build_dataset(opt, "train", dev)
+    arrays = ds.device_arrays(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     n = opt.num_rays_lidar
-    inds = vi[0][pool_draws(vc[0], n, gen)]
-    o, d = rays_from_indices(poses[0], inds, ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
+    if len(arrays) == 4:  # (poses, images, valid-pixel pools, pool sizes)
+        inds = arrays[2][0][pool_draws(arrays[3][0], n, gen)]
+    else:
+        inds = sample_ray_indices(ds.H_lidar, ds.W_lidar, n, 1, gen, dev)
+    o, d = rays_from_indices(arrays[0][0], inds, ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
     near = torch.full((n, 1), cfg.min_near_lidar, device=dev)
     z = stratified_z_vals(near, near * cfg.far_mult, cfg.num_steps, perturb=True, generator=gen)
     xyz = torch.clamp(o[:, None] + d[:, None] * z[..., None], -cfg.bound, cfg.bound)
@@ -2120,12 +2150,13 @@ def mvl_kernel_phase(trainer, data):
     ref = encode_bwd_plain(x, g, spec)
     slack = BWD_RTOL * encode_bwd_plain(x, g.abs(), spec) + BWD_ATOL
     worst = ((grad - ref).abs() / slack).max().item()
-    log(f"mvl kernels on a training chunk (Q={x.shape[0]}, {touched_rows(x, spec)} table rows): "
+    log(f"{what} kernels on a training chunk (2^{opt.log2_hashmap_size} table, resolution "
+        f"{opt.desired_resolution}, Q={x.shape[0]}, {touched_rows(x, spec)} table rows): "
         f"block_hash_fwd max_abs_err={err_f:.3e} (tol {KERNEL_ATOL}); block_hash_bwd "
         f"max_abs_err={(grad - ref).abs().max().item():.3e}, worst err / (1e-5 S + 1e-7) = "
         f"{worst:.3f}")
     if not (err_f <= KERNEL_ATOL and worst <= 1.0):
-        raise AssertionError("mvl: a kernel disagrees with its plain version on MVL inputs")
+        raise AssertionError(f"{what}: a kernel disagrees with its plain version on its inputs")
     return err_f, worst
 
 
@@ -2213,22 +2244,9 @@ def mvl_phase():
             f"{np.median(secs):.3f})")
         trained, launches, peak = mvl_train_phase(cli, data, ws)
 
-        torch.cuda.synchronize()
-        reset_counts()
-        again = cli.main(mvl_argv(data, ws, "--test_eval"))
-        test_launches = launch_counts()
-        got, want = events(again, "eval"), events(trained, "eval")[-1]
-        opt = again.opt
-        chunks = -(-opt.H_lidar * opt.W_lidar // opt.max_ray_batch)
-        panos = got[0]["frames"] + events(again, "test")[0]["frames"]
-        only_launches(test_launches, {"block_hash_fwd": 2 * chunks * panos + 1})
-        if len(got) != 1 or not same_meters(got[0]["meters"], want["meters"]):
-            raise AssertionError(f"mvl --test_eval: meters {got[0]['meters']} differ from the "
-                                 f"trained run's {want['meters']}")
-        log("mvl --test_eval: the test-split meters equal the trained run's bit for bit")
-        del again
+        test_launches = check_test_eval("mvl", cli, mvl_argv(data, ws), trained)
 
-        mvl_kernel_phase(trained, data)
+        trainer_kernel_phase("mvl", trained, SEED + 12)
         mvl_sync_phase(trained, data)
         pano_ms, pano_all = mvl_pano_phase(trained, data)
         graph_launches = mvl_graph_phase(cli, trained)
@@ -2257,6 +2275,282 @@ def mvl_phase():
         log(f"mvl meters {e['name']} ({e['frames']} frames) on {gpu}: " + "; ".join(
             f"{k} {np.asarray(v).tolist()}" for k, v in e["meters"].items()))
     return launches, test_launches, graph_launches
+
+
+# the onramp phase: the port's data on-ramp on this machine, with no JAX. A raw
+# KITTI-360 tree of sequence 1908's 64-frame window (calibration, poses,
+# cam0_to_world.txt, one HDL-64 sweep of ~131k points a frame, cast from the
+# street of tools/make_synth_drive.py) -> the port's check_dataset with no
+# --max_frames (its stage 5 the check's reduced smoke train on the card) -> the
+# CLI at the full width of configs/kitti360_1908.txt -L on the built dataset,
+# with the scale and offset that stage 4 computed, two epochs (--iters 120;
+# 30,000 in use), then --test_eval. Then a raw NeRF-MVL tree of one class
+# (`car`: make_synth_mvl's traced panos turned into point clouds) ->
+# compute_dataset_bbox and generate_mvl_rangeviews (create_nerf_mvl_rangeview's
+# calls, on the one class) -> nerfmvl_to_nerf -> a few masked steps at
+# 256 x 1800 and one test frame. Cut to keep the script inside its time: the
+# MVL tree's 24 frames (the class's stride 3 keeps 8 for training, val and
+# test frame 0) and its 40 steps (5 epochs, evaluated after the 5th as the
+# config says; 8 steps on 4 frames left the test cloud empty).
+ONRAMP_ITERS = 120
+ONRAMP_MVL_FRAMES = (22, 1)  # make_synth_mvl's train, val (= test): 24 raw frames
+ONRAMP_MVL_ITERS = 40
+NATIVE_RTOL = 1e-6  # tests/test_native.py's: the library's double against numpy's float32 ranges
+
+
+def onramp_native_phase(root, frame_ids):
+    """The host projection of every raw frame through the native library and
+    through its numpy version, in turns, held as tests/test_native.py holds
+    them. Returns (native ms/frame, numpy ms/frame, worst relative depth
+    difference)."""
+    from lidarnerf_tpu_torch import native
+    from lidarnerf_tpu_torch.dataset import convert
+    from lidarnerf_tpu_torch.preprocess.kitti360_loader import KITTI360Loader
+
+    k3 = KITTI360Loader(root)
+    scans = [k3.load_lidar_points("2013_05_28_drive_0000", f) for f in frame_ids]
+    args = (66, 1030, INTRINSICS, 80.0)
+    ms = {"native": [], "numpy": []}
+    worst = 0.0
+    for pts in scans:
+        t0 = time.perf_counter()
+        pano_n, inten_n = native.lidar_to_pano_with_intensities(pts, *args)
+        t1 = time.perf_counter()
+        pano_p, inten_p = convert.lidar_to_pano_with_intensities(pts, *args)
+        t2 = time.perf_counter()
+        ms["native"].append(1e3 * (t1 - t0))
+        ms["numpy"].append(1e3 * (t2 - t1))
+        same = pano_n == pano_p
+        if not (np.allclose(pano_n, pano_p, rtol=NATIVE_RTOL, atol=1e-9)
+                and np.allclose(inten_n[same], inten_p[same], rtol=NATIVE_RTOL)):
+            raise AssertionError("onramp: the native projection disagrees with numpy's")
+        worst = max(worst, float((np.abs(pano_n - pano_p) / np.maximum(pano_p, 1e-9)).max()))
+    return float(np.median(ms["native"])), float(np.median(ms["numpy"])), worst
+
+
+def write_mvl_raw(traced, raw):
+    """The raw NeRF-MVL tree of make_synth_mvl's traced frames: per frame (in
+    train, val, test order) the hits of its pano as a [N, 4] float32 cloud
+    (intensity x 255, NeRF-MVL's units) in `raw/car/<i>.npy`, and the poses
+    in `raw/car/lidar2world.txt`. Returns the points per frame."""
+    from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar_with_intensities
+    from lidarnerf_tpu_torch.tools import make_synth_mvl
+
+    frames = []
+    for split in ("train", "val", "test"):
+        with open(os.path.join(traced, f"transforms_car_{split}.json")) as f:
+            frames += json.load(f)["frames"]
+    os.makedirs(os.path.join(raw, "car"))
+    counts = []
+    for i, fr in enumerate(frames):
+        data = np.load(os.path.join(traced, fr["lidar_file_path"]))["data"]
+        depth = np.where(data[..., 2] > 0, data[..., 2], 0.0)
+        pts = pano_to_lidar_with_intensities(depth, 255.0 * data[..., 1], make_synth_mvl.K_LIDAR)
+        np.save(os.path.join(raw, "car", f"{i}.npy"), pts.astype(np.float32))
+        counts.append(len(pts))
+    np.savetxt(os.path.join(raw, "car", "lidar2world.txt"),
+               np.stack([np.asarray(fr["lidar2world"]).ravel() for fr in frames]))
+    return counts
+
+
+def onramp_mvl_phase(cli, root, gpu):
+    """The NeRF-MVL on-ramp: traced frames -> a raw `car` tree -> the port's
+    compute_dataset_bbox, generate_mvl_rangeviews and nerfmvl_to_nerf -> the CLI with
+    configs/nerf_mvl.txt -L for a few steps, its test frame's cloud inside
+    the OBB. Returns the run's launch counts."""
+    from lidarnerf_tpu_torch.dataset.nerfmvl import NeRFMVLDataset
+    from lidarnerf_tpu_torch.preprocess import nerfmvl_to_nerf
+    from lidarnerf_tpu_torch.preprocess import rangeview as rv
+    from lidarnerf_tpu_torch.tools import make_synth_mvl
+
+    seconds = {}
+    t0 = time.perf_counter()
+    make_synth_mvl.main(os.path.join(root, "traced"), *ONRAMP_MVL_FRAMES)
+    parent = os.path.join(root, "mvl", "data", "nerf_mvl")
+    counts = write_mvl_raw(os.path.join(root, "traced"), os.path.join(parent, "nerf_mvl_7k"))
+    seconds["trace and raw tree"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # create_nerf_mvl_rangeview's two calls, on the tree's one class
+    bbox = rv.compute_dataset_bbox(["car"], os.path.join(parent, "nerf_mvl_7k"), parent)
+    rv.generate_mvl_rangeviews(["car"], bbox, parent, os.path.join(parent, "nerf_mvl_7k_pano"))
+    seconds["compute_dataset_bbox and generate_mvl_rangeviews"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nerfmvl_to_nerf.main(["--path", parent, "--classes", "car"])
+    seconds["nerfmvl_to_nerf"] = time.perf_counter() - t0
+    bbox = np.load(os.path.join(parent, "dataset_bbox_7k.npy"), allow_pickle=True).item()
+    panos = sorted(Path(parent, "nerf_mvl_7k_pano", "car").glob("*.npz"))
+    pano = np.load(panos[0])["data"]
+    if list(bbox) != ["car"] or len(panos) != len(counts) or pano.shape != (256, 1800, 3):
+        raise AssertionError(f"onramp mvl: bbox {list(bbox)}, {len(panos)} panos, {pano.shape}")
+    hits = int((pano[..., 2] > 0).sum())
+    if not hits > 0.5 * counts[0]:
+        raise AssertionError(f"onramp mvl: frame 0 has {hits} hits in its pano of {counts[0]} points")
+
+    ws = os.path.join(root, "mvl_run")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with device_launches() as device:
+        trainer = cli.main(["--config", "configs/nerf_mvl.txt", "-L", "--path", parent,
+                            "--workspace", ws, "--iters", str(ONRAMP_MVL_ITERS), "--scale", "0.1"])
+    seconds["train, evaluate, test, mesh"] = time.perf_counter() - t0
+    launches = launch_counts()
+    n_train = len(range(0, len(counts), 3))  # the class's stride: every third frame
+    epochs = -(-ONRAMP_MVL_ITERS // n_train)
+    first, last = check_cli_run("onramp mvl", trainer, launches, device, epochs * n_train,
+                                [*range(5, epochs + 1, 5), epochs])
+    loss_fell("onramp mvl", first, last)
+    ds = NeRFMVLDataset(split="test", root_path=parent, scale=trainer.opt.scale)
+    cloud = np.load(f"{ws}/results/test_lidar_nerf_ep{trainer.epoch:04d}_0000_depth_lidar.npy")
+    outside = int((~inside_obb(cloud, ds.OBB_local[0][:, :3])).sum())
+    if not (len(cloud) and np.isfinite(cloud).all()) or outside:
+        raise AssertionError(f"onramp mvl: test cloud of {len(cloud)} points, {outside} outside the OBB")
+    epochs = events(trainer, "epoch")
+    log(f"onramp mvl on {gpu}: {len(counts)} raw frames of {min(counts)}-{max(counts)} points -> "
+        f"{len(panos)} panos of 256 x 1800 (frame 0 {hits} hits); seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        + f"; {trainer.global_step} masked steps, ms/step by epoch "
+        + ", ".join(f"{1e3 * e['seconds'] / e['steps']:.2f}" for e in epochs)
+        + f", loss mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f}; "
+        f"test cloud {len(cloud)} points, all inside the OBB; launches at the wrappers "
+        f"{launches}, on the card {device}")
+    for e in events(trainer, "eval"):
+        log(f"onramp mvl meters {e['name']} ({e['frames']} frames) on {gpu}: " + "; ".join(
+            f"{k} {np.asarray(v).tolist()}" for k, v in e["meters"].items()))
+    return launches
+
+
+def onramp_replay_phase(trainer):
+    """Four more epochs of the trained run, each a replay of the graph that
+    the run captured for its patch size (1 in odd epochs, 2 x 8 in even
+    ones): two untraced, then two under torch.profiler (busy_ms_per_step),
+    which must run B1 and B2 twice a step on the card and neither at the
+    wrappers. No checkpoint is written: the trace's span holds the steps
+    alone. Returns [(epoch, patch, traced, ms/step, device busy ms/step,
+    span ms/step)], busy and span None where untraced."""
+    ds = trainer._data[0]  # the run's train split: its graphs read that split's tensors
+    trainer.workspace = None
+    graphs = sum(len(f.graphs) for f in trainer._epoch_fns.values())
+    reset_counts()
+    rows = []
+    for traced in (False, False, True, True):
+        busy = span = None
+        if traced:
+            busy, span, _, records = busy_ms_per_step(trainer, ds, trainer.epoch + 1)
+            only_launches(records, training_launches({"block_hash_fwd": 2, "block_hash_bwd": 2},
+                                                     len(ds)))
+        else:
+            trainer.train(ds, None, max_epochs=trainer.epoch + 1)
+        e = events(trainer, "epoch")[-1]
+        patch = "2 x 8" if e["epoch"] % trainer.opt.change_patch_size_epoch == 0 else "1"
+        rows.append((e["epoch"], patch, traced, 1e3 * e["seconds"] / e["steps"], busy, span))
+    if sum(len(f.graphs) for f in trainer._epoch_fns.values()) != graphs:
+        raise AssertionError("onramp replay: an epoch captured a new graph")
+    only_launches(launch_counts(), {})
+    return rows
+
+
+def onramp_phase():
+    """The onramp phases in a temporary directory outside the repo, removed
+    afterwards. Returns the launch counts of the check's smoke train, the
+    full-width run, its --test_eval and the MVL run."""
+    import shutil
+    import tempfile
+
+    from lidarnerf_tpu_torch import main_lidarnerf as cli
+    from lidarnerf_tpu_torch import native
+    from lidarnerf_tpu_torch.preprocess.to_nerf import KITTI_SEQUENCES
+    from lidarnerf_tpu_torch.tools.check_dataset import check_dataset
+    from lidarnerf_tpu_torch.tools.make_synth_drive import write_kitti360_raw
+
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    native.build()  # the phase needs the native route: a failed build raises here
+    if native.route() != "native":
+        raise AssertionError(f"onramp: the native library did not load: {native.build_error()}")
+    build_s = time.perf_counter() - t0
+    seq = KITTI_SEQUENCES["1908"]
+    frame_ids = list(range(seq["start"], seq["end"] + 1))
+    root = tempfile.mkdtemp(prefix="lidarnerf_onramp_")
+    try:
+        raw, out = os.path.join(root, "KITTI-360"), os.path.join(root, "kitti360")
+        t0 = time.perf_counter()
+        counts = write_kitti360_raw(raw, frame_ids)
+        raw_s = time.perf_counter() - t0
+        native_ms, numpy_ms, worst = onramp_native_phase(raw, frame_ids)
+        log(f"onramp raw tree on {gpu}: {len(counts)} frames of {min(counts)}-{max(counts)} "
+            f"points (mean {np.mean(counts):.0f}, {16 * sum(counts) / 2**20:.1f} MiB of scans) "
+            f"cast in {raw_s:.2f} s; native library built or found in {build_s:.2f} s; "
+            f"projection per frame native {native_ms:.2f} ms ({1e3 / native_ms:.1f} panos/s), "
+            f"numpy {numpy_ms:.2f} ms ({1e3 / numpy_ms:.1f} panos/s), worst relative depth "
+            f"difference {worst:.3e} (rtol {NATIVE_RTOL})")
+
+        # the check: stages 1-4 on the host, stage 5 the smoke train on the card
+        torch.cuda.synchronize()
+        reset_counts()
+        with device_launches() as check_device:
+            res = check_dataset(raw, out, sequence_id="1908",
+                                workspace=os.path.join(root, "check_ws"))
+        check_launches = launch_counts()
+        if res["route"] != "native":
+            raise AssertionError(f"onramp: stage 2 projected through {res['route']}")
+        loss_fell("onramp check", *check_cli_run("onramp check", res["trainer"], check_launches,
+                                                 check_device, len(frame_ids) - len(seq["val"]),
+                                                 [1]))
+        trainer_kernel_phase("onramp check", res["trainer"], SEED + 14)
+        secs = res["seconds"]
+        log(f"onramp check on {gpu}: seconds by stage " + ", ".join(
+            f"{k} {v:.2f}" for k, v in secs.items())
+            + f"; stage 2 {len(frame_ids) / secs[2]:.1f} panos/s (read, {res['route']} "
+            f"projection, write); last frame fill rate {res['fill_rate']:.3f}; computed scale "
+            f"{res['scale']!r} against the baked {res['baked_scale']!r} (ratio "
+            f"{res['scale'] / res['baked_scale']:.3f}), offset {[float(v) for v in res['offset']]}, "
+            f"near {res['near']:.3f}, far {res['far']:.3f}; smoke train "
+            f"{res['trainer'].global_step} steps (stage 5 under a trace of the CUDA activity); "
+            f"launches at the wrappers {check_launches}, on the card {check_device}")
+        offset, scale = res["offset"], res["scale"]
+        del res
+
+        # the built dataset at full width, with the constants stage 4 computed
+        num = np.format_float_positional
+        with open(os.path.join(out, "transforms_1908_train.json")) as f:
+            n_train = len(json.load(f)["frames"])
+        argv = ["--config", "configs/kitti360_1908.txt", "-L", "--path", out, "--workspace",
+                os.path.join(root, "run"), "--iters", str(ONRAMP_ITERS), "--scale", num(scale),
+                "--offset", *map(num, offset)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reset_counts()
+        with device_launches() as device:
+            trained = cli.main(argv)
+        train_launches = launch_counts()
+        epochs = -(-ONRAMP_ITERS // n_train)
+        loss_fell("onramp train", *check_cli_run("onramp train", trained, train_launches, device,
+                                                 epochs * n_train, [epochs]))
+        test_launches = check_test_eval("onramp", cli, argv, trained)
+        want = events(trained, "eval")[-1]
+        per_step = [1e3 * e["seconds"] / e["steps"] for e in events(trained, "epoch")]
+        replay = onramp_replay_phase(trained)
+        log(f"onramp train on {gpu}: {epochs * n_train} steps at "
+            f"configs/kitti360_1908.txt -L width, ms/step by epoch "
+            f"{', '.join(f'{t:.2f}' for t in per_step)} (each the first epoch of its patch size, "
+            f"its graph's eager warm-up and capture included; under a trace of the CUDA "
+            f"activity); launches at "
+            f"the wrappers {train_launches}, on the card {device}; --test_eval {test_launches}")
+        log(f"onramp train on {gpu}: epochs of graph replay only: " + "; ".join(
+            f"epoch {e} (patch {p}, {'traced' if t else 'untraced'}) {ms:.2f} ms/step"
+            + (f", device busy {busy:.2f} of a {span:.2f} ms/step span (idle share "
+               f"{1 - busy / span:.3f})" if t else "")
+            for e, p, t, ms, busy, span in replay))
+        log(f"onramp meters {want['name']} ({want['frames']} frames) on {gpu}: " + "; ".join(
+            f"{k} {np.asarray(v).tolist()}" for k, v in want["meters"].items()))
+        del trained
+        torch.cuda.empty_cache()
+
+        mvl_launches = onramp_mvl_phase(cli, root, gpu)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return check_launches, train_launches, test_launches, mvl_launches
 
 
 def main():
@@ -2342,6 +2636,11 @@ def main():
     # the NeRF-MVL object path
     torch.cuda.empty_cache()
     paths["mvl"], paths["mvl-test-eval"], paths["training-graph-masked"] = mvl_phase()
+
+    # the data on-ramp: raw trees -> panos, transforms, scene constants -> training
+    torch.cuda.empty_cache()
+    (paths["onramp-check"], paths["onramp-train"], paths["onramp-test-eval"],
+     paths["onramp-mvl"]) = onramp_phase()
 
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())

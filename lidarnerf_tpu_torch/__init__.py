@@ -31,7 +31,11 @@ Ported so far:
 - NeRF-MVL (`dataset/nerfmvl.NeRFMVLDataset`, `--dataloader nerf_mvl`):
   masked pixel sampling on the device, crop meters, test clouds cropped to
   each frame's OBB (`utils/geometry.py`), and a synthetic NeRF-MVL car
-  traced on the card (`tools/make_synth_mvl.py`).
+  traced on the card (`tools/make_synth_mvl.py`);
+- the data on-ramp (`preprocess/`, `native/`, `tools/check_dataset.py`,
+  `tools/make_synth_drive.py`): raw KITTI-360 / NeRF-MVL trees -> range-view
+  panos (a host C++ projection built with g++ at first use, else numpy) ->
+  transforms JSON -> scene constants, with no JAX on the machine.
 """
 
 __version__ = "0.1.0"

@@ -77,6 +77,24 @@ def apply_color_map(img, colormap):
     return COLORMAPS[colormap][img]
 
 
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def png_size(path):
+    """(height, width) from a PNG file's header (its IHDR chunk), or None
+    where the file is missing, unreadable or no PNG. Reads 24 bytes; the
+    image itself is not decoded."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(24)
+    except OSError:
+        return None
+    if len(head) < 24 or head[:8] != PNG_SIGNATURE or head[12:16] != b"IHDR":
+        return None
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
 def _chunk(kind, data):
     return (struct.pack(">I", len(data)) + kind + data
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
@@ -102,7 +120,7 @@ def imwrite(path, img):
     h, w = img.shape[:2]
     rows = np.ascontiguousarray(img).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()  # filter 0
-    png = (b"\x89PNG\r\n\x1a\n"
+    png = (PNG_SIGNATURE
            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
            + _chunk(b"IDAT", zlib.compress(raw, 6))
            + _chunk(b"IEND", b""))

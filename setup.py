@@ -21,7 +21,7 @@ setup(
         include=["lidarnerf_tpu", "lidarnerf_tpu.*", "lidarnvs",
                  "lidarnerf_tpu_torch", "lidarnerf_tpu_torch.*"]
     ),
-    package_data={"lidarnerf_tpu.native": ["*.cpp"], "lidarnerf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"lidarnerf_tpu.native": ["*.cpp"], "lidarnerf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

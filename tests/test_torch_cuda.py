@@ -1014,3 +1014,46 @@ def test_capture_refuses_a_host_read(require_cuda):
     x = torch.zeros((3, 1), device="cuda")
     with pytest.raises(Exception):
         captured.epoch(x, x, x, x, np.arange(3), None, None, lambda i: None)
+
+
+def test_native_library_projects_an_hdl64_frame_as_numpy(require_cuda, tmp_path):
+    """The host C++ projection builds on the card's machine (g++, nvcc's host
+    compiler) and projects one HDL-64-sized sweep of the synthetic street
+    (~131k points) to numpy's pano within tests/test_native.py's tolerance."""
+    from lidarnerf_tpu_torch import native
+    from lidarnerf_tpu_torch.dataset import convert
+    from lidarnerf_tpu_torch.preprocess.kitti360_loader import KITTI360Loader
+    from lidarnerf_tpu_torch.tools.make_synth_drive import write_kitti360_raw
+
+    native.build()
+    assert native.route() == "native", native.build_error()
+    (count,) = write_kitti360_raw(tmp_path, [1908])
+    pts = KITTI360Loader(tmp_path).load_lidar_points("2013_05_28_drive_0000", 1908)
+    assert pts.shape == (count, 4) and count > 110_000
+    pano_n, inten_n = native.lidar_to_pano_with_intensities(pts, 66, 1030, (2.0, 26.9))
+    pano_p, inten_p = convert.lidar_to_pano_with_intensities(pts, 66, 1030, (2.0, 26.9))
+    np.testing.assert_allclose(pano_n, pano_p, rtol=1e-6, atol=1e-9)
+    same = pano_n == pano_p
+    np.testing.assert_allclose(inten_n[same], inten_p[same], rtol=1e-6)
+    assert (pano_n > 0).mean() > 0.8
+
+
+def test_onramp_dataset_trains_on_cuda(require_cuda, tmp_path):
+    """A KITTI-like raw tree written into tmp_path goes through the port's
+    check: stages 1-4 build its panos, transforms and scene constants on the
+    host, stage 5 trains it four steps through the CLI on CUDA (B1, B2)."""
+    from lidarnerf_tpu_torch.tools.check_dataset import check_dataset
+    from lidarnerf_tpu_torch.tools.make_synth_drive import write_kitti360_raw
+
+    # the check's transforms take the whole window's poses (frames 1908-1971)
+    write_kitti360_raw(tmp_path / "KITTI-360", list(range(1908, 1972)), azimuth_steps=256)
+    block_hash_cuda.reset_counts()
+    res = check_dataset(str(tmp_path / "KITTI-360"), str(tmp_path / "out"), max_frames=2,
+                        train_steps=4, workspace=str(tmp_path / "ws"))
+    trainer = res["trainer"]
+    assert trainer.device.type == "cuda" and trainer.global_step == 4
+    assert np.isfinite(trainer.stats["step_loss"]).all() and not any(trainer.stats["skipped"])
+    counts = block_hash_cuda.launch_counts()
+    assert counts["block_hash_fwd"] > 0 and counts["block_hash_bwd"] > 0
+    assert res["route"] == "native" and 0 < res["scale"] < 1
+    assert (tmp_path / "ws" / "log_lidar_nerf.txt").is_file()
