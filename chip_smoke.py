@@ -25,8 +25,9 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
     (`--fuse_epoch 1`): each step replays a CUDA graph of the step, and its
     launches are counted on the card in a torch.profiler trace (a replay
     runs no Python, so the wrappers count only the warm-up and capture);
-  - training-graph: the default, --fast, seg and win steps (and, in the mvl
-    phase, the masked one), eager and captured from the same state in turns:
+  - training-graph: the default, --fast, seg and win steps (the last two on
+    20-frame epochs; and, in the mvl phase, the masked one), eager and
+    captured from the same state in turns:
     ms/step, the device's idle share of a replayed step, peak allocated and
     reserved memory, the kernels on the card per replayed step, the update
     guard's cost; losses and final state bit-equal;
@@ -54,7 +55,17 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
     computed scale and offset, `--test_eval`, epochs of graph replay
     untraced and traced; a raw NeRF-MVL `car`
     tree through create_nerf_mvl_rangeview's calls and nerfmvl_to_nerf into a few
-    masked steps at 256 x 1800.
+    masked steps at 256 x 1800;
+  - encodings: the CLI with configs/kitti360_1908.txt -L --encoding hashgrid
+    (the reference-exact hash grid, plain PyTorch with an order-free table
+    gradient: no kernel of the port runs) on the drive: train, evaluate every
+    epoch, test, mesh, `--test_eval`; a warm pano; the encoder at a training
+    chunk's shape (two table gradients bit-equal, the card against the CPU);
+    the step eager and captured in turns; two captured runs bit-equal; 20
+    steps each of tiledgrid, periodic_volume and frequency at full width;
+  - rgb: an RGB frame at KITTI-360's perspective size (376 x 1408) through
+    the full-width hashgrid model in fp32, over the background sphere and
+    over white, held against the CPU on a subset of its rays.
 It checks that each path went through its kernels and that its output is
 right, and profiles one render chunk and one training step per variant.
 B1 and B2 are also checked on adversarial point sets (one cell, runs
@@ -730,8 +741,9 @@ def train_reference_phase(ds, variant="default", fast=False):
     results = {}
     set_variant(variant)
     for dev in ("cuda", "cpu"):
-        net = NeRFNetwork(num_levels=4, log2_hashmap_size=14, desired_resolution=64,
-                          hidden_dim=32, generator=torch.Generator().manual_seed(SEED))
+        net = NeRFNetwork(encoding="blockhash", num_levels=4, log2_hashmap_size=14,
+                          desired_resolution=64, hidden_dim=32,
+                          generator=torch.Generator().manual_seed(SEED))
         step = make_train_step(net, cfg, rcfg, patch_size=patch, device=dev)
         poses, images = ds.device_arrays(dev)
         vi = torch.zeros((len(ds), 1), dtype=torch.long, device=dev)
@@ -1187,6 +1199,7 @@ def variant_train_phase(ds, variant, default_epoch_loss):
 # the training-graph phase: each training path eager (--fuse_epoch 0) and
 # captured (1) from one seeded state, epochs in turns
 GRAPH_EPOCHS = 4  # 1-2 capture the patch-1 and [2, 8] graphs; 3-4 are timed in turns
+VARIANT_GRAPH_FRAMES = 20  # the seg and win runs' epoch length (the default's is the drive's 60)
 
 
 def same_training_state(a, b):
@@ -1356,16 +1369,32 @@ def training_graph_phase(name, make_trainer, ds, per_step, refresh_every=None,
     return counts["graph"]
 
 
+def trainer_maker(ds, **kw):
+    """fuse -> a full-width Trainer on `ds` (train_opt(ds, **kw)) from the seeded
+    init, its step eager (fuse 0) or captured (1)."""
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+
+    opt = train_opt(ds, **kw)
+    return lambda fuse: Trainer("chip_smoke", SimpleNamespace(**vars(opt), fuse_epoch=fuse),
+                                new_model(opt, fp16=FULL.fp16), ema_decay=0.95,
+                                workspace=None, mute=True)
+
+
+def first_frames(ds, n):
+    """A view of the training set `ds` that holds its first n frames."""
+    import copy
+
+    view = copy.copy(ds)
+    view.poses_lidar, view.images_lidar = ds.poses_lidar[:n], ds.images_lidar[:n]
+    view._device_cache = {}
+    return view
+
+
 def training_graph_phases(ds):
     """The training-graph phase on the default, --fast, seg and win steps of
     the training cell. Returns {path: launch counts of the graphed run}."""
-    from lidarnerf_tpu_torch.nerf.trainer import Trainer
-
     def trainer_of(**kw):
-        opt = train_opt(ds, **kw)
-        return lambda fuse: Trainer("chip_smoke", SimpleNamespace(**vars(opt), fuse_epoch=fuse),
-                                    new_model(opt, fp16=FULL.fp16), ema_decay=0.95,
-                                    workspace=None, mute=True)
+        return trainer_maker(ds, **kw)
 
     def guard(trainer):
         step_ms, guard_ms, plain_ms, nbytes = guard_cost(trainer)
@@ -1378,10 +1407,11 @@ def training_graph_phases(ds):
                                                     extra=guard)}
     paths["training-graph-fast"] = training_graph_phase("--fast", trainer_of(**FAST), ds, b1b2,
                                                         FAST["occ_update_interval"])
+    # the variants on the first VARIANT_GRAPH_FRAMES frames: 20-step epochs
     for variant in VARIANT_ENV:
         set_variant(variant)
         paths[f"training-graph-{variant}"] = training_graph_phase(
-            variant, trainer_of(), ds,
+            variant, trainer_of(), first_frames(ds, VARIANT_GRAPH_FRAMES),
             {f"block_hash_{variant}_fwd": 2, f"block_hash_{variant}_bwd": 2})
         set_variant("default")
     return paths
@@ -1786,12 +1816,12 @@ CLI_ARGV = ["--config", "configs/kitti360_1908.txt", "-L", "--path", DATA, "--it
 CHAMFER_ULPS = 16  # the Chamfer rounding bound of tests/test_torch_metrics.py
 
 
-def cli_argv(workspace, *extra):
+def cli_argv(workspace, *extra, base=CLI_ARGV):
     with open(f"{DATA}/scene_constants.json") as f:
         c = json.load(f)
     # positional notation: argparse takes "-5.5e-09" for an option, "-0.0000000055" not
     num = np.format_float_positional
-    return [*CLI_ARGV, "--workspace", workspace, "--scale", num(c["scale"]),
+    return [*base, "--workspace", workspace, "--scale", num(c["scale"]),
             "--offset", *map(num, c["offset"]), *extra]
 
 
@@ -2553,6 +2583,344 @@ def onramp_phase():
     return check_launches, train_launches, test_launches, mvl_launches
 
 
+# the encodings phase: the reference-exact hash grid (`--encoding hashgrid`,
+# ops/hash_grid.py: plain PyTorch, no TPU kernel behind it) at the KITTI-360
+# model's full width (16 levels, base 16, 2^19 budget, desired resolution
+# 32768, hidden 64, bf16, 768 + 64 samples, 4096 rays) through the CLI on the
+# drive, --iters 120 with an evaluation every epoch, then --test_eval; then
+# the step eager and captured in turns, and 20 steps of each other encoding
+ENC_ARGV = ["--config", "configs/kitti360_1908.txt", "-L", "--path", DATA, "--iters", "120",
+            "--eval_interval", "1", "--encoding", "hashgrid"]
+OTHER_ENCODINGS = {"tiledgrid": {}, "periodic_volume": {"log2_hashmap_size": 18},
+                   "frequency": {}}
+OTHER_STEPS = 20
+# the hash grid's forward on the card vs the CPU: the same float32 products
+# (positions rounded once through float64 on both), the 8 corners summed in
+# another order; relative to the table's largest entry, which bounds a feature
+HASHGRID_RTOL = 1e-6
+CAPTURE_FRAMES = 10  # the steps of each of the two captured runs held bit-equal
+GRAPH_FRAMES = 10  # the steps of an epoch of the hashgrid training-graph run
+
+
+def hashgrid_kernel_phase(trainer, ds):
+    """The hash grid's encoder on one 4096-ray training chunk's coarse
+    queries (Q = 4096 x 768) with the trained table: the table gradient twice
+    on the card, bit-equal; forward and table gradient timed; the forward and
+    the table gradient on 131,072 of those queries on the card against the
+    CPU. Returns (forward ms, table-gradient ms, queries)."""
+    from lidarnerf_tpu_torch.ops import hash_grid as hg
+
+    spec, table = trainer.model.grid_spec, trainer.model.hash_table.detach()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    x = training_chunk_queries(ds, "cuda", gen)
+    g = torch.randn((x.shape[0], spec.output_dim), generator=gen, device="cuda")
+    a, b = hg.encode_bwd(x, g, spec), hg.encode_bwd(x, g, spec)
+    if not bit_equal(a, b):
+        raise AssertionError("hashgrid: two table-gradient calls on one input differ")
+    fwd_ms = cuda_ms(lambda: hg.hash_grid_encode(x, table, spec), reps=3)
+    bwd_ms = cuda_ms(lambda: hg.encode_bwd(x, g, spec), reps=3)
+    sub = slice(0, 131072)
+    gpu = hg.hash_grid_encode(x[sub], table, spec).cpu()
+    cpu = hg.hash_grid_encode(x[sub].cpu(), table.cpu(), spec)
+    scale = float(table.abs().max())
+    err = float((gpu - cpu).abs().max())
+    grad_g = hg.encode_bwd(x[sub], g[sub], spec).cpu()
+    grad_c = hg.encode_bwd(x[sub].cpu(), g[sub].cpu(), spec)
+    slack = BWD_RTOL * hg.encode_bwd(x[sub].cpu(), g[sub].abs().cpu(), spec) + BWD_ATOL
+    worst = float(((grad_g - grad_c).abs() / slack).max())
+    log(f"hashgrid encoder on {gpu_line()}: Q = {x.shape[0]} training-chunk queries, "
+        f"{spec.num_levels} levels, {spec.table_rows} x {spec.level_dim} table: forward "
+        f"{fwd_ms:.3f} ms, table gradient {bwd_ms:.3f} ms (two calls bit-equal); on "
+        f"{sub.stop} of them the card vs the CPU: forward max |diff| {err:.3e} (table scale "
+        f"{scale:.3e}), table gradient bit-equal {bit_equal(grad_g, grad_c)}, worst |diff| / "
+        f"slack {worst:.3e}")
+    if err > HASHGRID_RTOL * max(scale, 1.0) or worst > 1.0:
+        raise AssertionError("hashgrid: the card's encoder disagrees with the CPU's")
+    return fwd_ms, bwd_ms, x.shape[0]
+
+
+def encodings_cli_phase(cli, ws):
+    """The CLI with --encoding hashgrid at full width: train (120 steps, an
+    evaluation every epoch) -> evaluate -> test -> mesh, then --test_eval,
+    whose meters equal the trained run's bit for bit. No kernel of the port
+    is launched. Returns (trainer, (peak bytes
+    allocated, reserved), the --test_eval trainer)."""
+    argv = cli_argv(ws, base=ENC_ARGV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer = cli.main(argv)
+    peak = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    # a captured step's launches are counted at its capture: none here means
+    # none in any replay (the profiled epoch of the training-graph run below
+    # counts them on the card too)
+    only_launches(launch_counts(), {})
+    losses = trainer.stats["step_loss"]
+    if trainer.global_step != 120 or len(losses) != 120:
+        raise AssertionError(f"encodings: trained {trainer.global_step} steps, expected 120")
+    if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
+        raise AssertionError("encodings: a training loss was non-finite or a step was skipped")
+    if trainer.model.grid_spec is None or sum(len(f.graphs) for f in
+                                              trainer._epoch_fns.values()) != 2:
+        raise AssertionError("encodings: the run did not train a hash grid through two graphs")
+    evals = events(trainer, "eval")
+    if [e["epoch"] for e in evals] != [1, 2, 2] or len(events(trainer, "test")) != 1 or len(
+            events(trainer, "mesh")) != 1:
+        raise AssertionError(f"encodings: evaluations {[e['epoch'] for e in evals]}")
+    for e in evals:
+        if not all(np.isfinite(v).all() for v in e["meters"].values()):
+            raise AssertionError(f"encodings: a meter of {e['name']} is not finite")
+    loss_fell("encodings (hashgrid)", float(np.mean(losses[:10])), float(np.mean(losses[-10:])))
+    reset_counts()
+    again = cli.main([*argv, "--test_eval"])
+    only_launches(launch_counts(), {})
+    got = events(again, "eval")
+    if len(got) != 1 or not same_meters(got[0]["meters"], evals[-1]["meters"]):
+        raise AssertionError(f"encodings --test_eval: meters {got[0]['meters']} differ from "
+                             f"the trained run's {evals[-1]['meters']}")
+    log("encodings (hashgrid) --test_eval: the test-split meters equal the trained run's bit "
+        "for bit; no kernel of the port ran (B1-B6: 0 launches at the wrappers, warm-ups and "
+        "captures included)")
+    return trainer, peak, again
+
+
+def warm_pano_ms(trainer, ds):
+    """ms of a warm full-width pano of frame 0 through PanoRenderer from the
+    trained EMA weights (the second of two renders), and its launches."""
+    from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
+    from lidarnerf_tpu_torch.utils.params import params_to_jax
+
+    renderer = PanoRenderer(trainer.opt, params_to_jax(trainer.ema_params))
+    reset_counts()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = renderer.render_frame(ds.poses_lidar[0], ds.H_lidar, ds.W_lidar,
+                                      ds.intrinsics_lidar)  # ends on the host
+        times.append(1e3 * (time.perf_counter() - t0))
+    for name, a in zip(("raydrop", "intensity", "depth"), frame):
+        if a.shape != (ds.H_lidar, ds.W_lidar) or not np.isfinite(a).all():
+            raise AssertionError(f"encodings: the served {name} pano is not finite")
+    only_launches(launch_counts(), {})
+    return times
+
+
+def two_captured_runs_phase(ds):
+    """Two captured hashgrid trainers from one seeded state, CAPTURE_FRAMES
+    steps each: losses and final state bit-equal."""
+    make = trainer_maker(ds, encoding="hashgrid")
+    sub = first_frames(ds, CAPTURE_FRAMES)
+    runs = []
+    for _ in range(2):
+        t = make(1)
+        t.train(sub, None, max_epochs=1)
+        runs.append(t)
+    differ = same_training_state(*runs)
+    log(f"encodings (hashgrid): two captured runs of {CAPTURE_FRAMES} steps from one seeded "
+        f"state equal bit for bit (losses, weights, EMA, Adam, generator): {not differ}")
+    if differ:
+        raise AssertionError(f"encodings: two captured runs differ: {differ}")
+
+
+def other_encodings_phase(ds):
+    """OTHER_STEPS captured steps at full width under each other encoding:
+    ms/step (the graph's warm-up and capture included), finite losses, no
+    kernel of the port. Returns {encoding: ms/step}."""
+    sub = first_frames(ds, OTHER_STEPS)
+    out = {}
+    for name, kw in OTHER_ENCODINGS.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = trainer_maker(ds, encoding=name, **kw)(1)
+        t0 = time.perf_counter()
+        t.train(sub, None, max_epochs=1)  # ends on the host (the epoch's one fetch)
+        out[name] = 1e3 * (time.perf_counter() - t0) / OTHER_STEPS
+        losses = t.stats["step_loss"]
+        only_launches(launch_counts(), {})
+        if len(losses) != OTHER_STEPS or not np.isfinite(losses).all() or any(t.stats["skipped"]):
+            raise AssertionError(f"encodings ({name}): a loss was non-finite or a step skipped")
+        log(f"encodings ({name}{', ' + str(kw) if kw else ''}) on {gpu_line()}: {OTHER_STEPS} "
+            f"captured steps at full width, {out[name]:.2f} ms/step (warm-up and capture "
+            f"included); losses first {losses[0]:.4f}, last {losses[-1]:.4f}, all finite; peak "
+            f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+def encodings_phase(ds):
+    """The encodings phases in a temporary workspace outside the repo,
+    removed afterwards. Returns the launch counts (none) of the CLI run."""
+    import shutil
+    import tempfile
+
+    from lidarnerf_tpu_torch import main_lidarnerf as cli
+
+    root = tempfile.mkdtemp(prefix="lidarnerf_enc_")
+    try:
+        trained, peak, again = encodings_cli_phase(cli, os.path.join(root, "run"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gpu = gpu_line()
+    epochs = events(trained, "epoch")
+    per_step = [1e3 * e["seconds"] / e["steps"] for e in epochs]
+    evals = events(trained, "eval")
+    frames = sum(e["frames"] for e in evals)
+    render = 1e3 * sum(e["render_s"] for e in evals) / frames
+    test, mesh = events(again, "test")[0], events(trained, "mesh")[0]
+    log(f"encodings (hashgrid) cli on {gpu}: ms/step by epoch (patch 1, [2, 8]; capture "
+        f"included) {', '.join(f'{t:.2f}' for t in per_step)};"
+        f" peak memory of train -> evaluate -> test -> mesh {peak[0] / 2**30:.2f} GiB allocated, "
+        f"{peak[1] / 2**30:.2f} GiB reserved; eval render {render:.1f} ms/frame over {frames} "
+        f"frames; test {1e3 * test['seconds'] / test['frames']:.1f} ms/frame; mesh "
+        f"{mesh['resolution']}^3 query {mesh['query_s']:.2f} s")
+    for e in (evals[-1], *events(again, "eval")):
+        log(f"encodings (hashgrid) meters {e['name']} ({e['frames']} frames) on {gpu}: " + "; ".join(
+            f"{k} {np.asarray(v).tolist()}" for k, v in e["meters"].items()))
+    pano = warm_pano_ms(trained, ds)
+    log(f"encodings (hashgrid) serving on {gpu}: a full-width {ds.H_lidar}x{ds.W_lidar} pano "
+        f"of frame 0 from the trained EMA weights {pano[0]:.1f} ms cold, {pano[1]:.1f} ms warm")
+    fwd_ms, bwd_ms, q = hashgrid_kernel_phase(trained, ds)
+    del trained, again
+    torch.cuda.empty_cache()
+    # eager and captured in turns on the first GRAPH_FRAMES frames: epochs 1-2
+    # capture the patch-1 and [2, 8] graphs, epochs 3-4 are timed in turns, a
+    # fifth profiled (no kernel of the port on the card)
+    training_graph_phase("hashgrid", trainer_maker(ds, encoding="hashgrid"),
+                         first_frames(ds, GRAPH_FRAMES), {})
+    torch.cuda.empty_cache()
+    two_captured_runs_phase(ds)
+    torch.cuda.empty_cache()
+    other = other_encodings_phase(ds)
+    log(f"encodings summary on {gpu}: hashgrid encoder forward {fwd_ms:.3f} ms and table "
+        f"gradient {bwd_ms:.3f} ms at Q = {q}; the other encodings' ms/step "
+        + ", ".join(f"{k} {v:.2f}" for k, v in other.items()))
+    return {k: 0 for k in launch_counts()}
+
+
+# the rgb phase: RGB rendering (cal_lidar_color=False) of a pinhole frame at
+# KITTI-360's perspective size with the rectified camera 0's intrinsics
+# (perspective.txt P_rect_00, as tools/make_synth_drive.py writes it), through
+# the full-width hashgrid model in fp32 with seeded weights in the JAX layout,
+# once over the background sphere and once over white; a subset of the rays
+# rendered on the CPU from the same weights
+RGB_H, RGB_W = 376, 1408
+RGB_INTRINSICS = (552.554261, 552.554261, 682.049453, 238.769549)  # fx, fy, cx, cy
+RGB_BG_RADIUS = 32.0
+RGB_CPU_RAYS = 1024
+RGB_RTOL, RGB_ATOL = 2.5e-4, 1e-5
+
+
+def smooth_hash_levels(table, spec):
+    """Write a smooth O(1) field into the dense levels of a hash-grid table
+    (each corner row a smooth function of its position), as
+    smooth_dense_levels does for the block hash."""
+    for level in spec.levels:
+        if level.n_dense_dims != 3:
+            continue
+        k = level.resolution + 1  # corners per axis
+        c = np.stack(np.meshgrid(*[np.arange(k)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        rows = (c[:, 0] + c[:, 1] * k + c[:, 2] * k * k) % level.size + level.offset
+        p = 2.0 * (c - 0.5) / level.scale - 1.0
+        table[rows, 0] = np.sin(4 * p[:, 0] + 3 * p[:, 1]) + np.cos(5 * p[:, 2])
+        table[rows, 1] = np.cos(3 * p[:, 0] - 4 * p[:, 2]) * np.sin(2 * p[:, 1])
+
+
+def hashgrid_flax_params(seed, bg_radius):
+    """The full-width hashgrid model's parameters in the JAX package's flax
+    layout, drawn from `seed` (JAX init laws; the dense levels smooth, the
+    density output sharpened, the background grid's coarsest level O(1))."""
+    from lidarnerf_tpu_torch.ops.hash_grid import make_hash_grid_spec
+
+    rng = np.random.default_rng(seed)
+    spec = make_hash_grid_spec(log2_hashmap_size=FULL.log2_hashmap_size,
+                               desired_resolution=FULL.desired_resolution)
+
+    def mlp(dims):
+        return {f"Dense_{i}": {"kernel": rng.uniform(-1, 1, (a, b)).astype(np.float32)
+                               / np.sqrt(a)} for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))}
+
+    g, hd = FULL.geo_feat_dim, FULL.hidden_dim
+    table = rng.uniform(-1e-4, 1e-4, (spec.table_rows, 2)).astype(np.float32)
+    smooth_hash_levels(table, spec)
+    sigma_net = mlp([spec.output_dim, hd, 1 + g])
+    sigma_net["Dense_1"]["kernel"][:, 0] *= 8.0
+    p = {"hash_table": table, "sigma_net": sigma_net, "color_net": mlp([16 + g, 64, 64, 3]),
+         "lidar_color_net": mlp([75 + g, 64, 64, 2])}
+    if bg_radius > 0:
+        bg = make_hash_grid_spec(input_dim=2, num_levels=4, log2_hashmap_size=19,
+                                 desired_resolution=2048)
+        p["bg_table"] = rng.uniform(-1e-4, 1e-4, (bg.table_rows, 2)).astype(np.float32)
+        p["bg_table"][: bg.levels[1].offset] = rng.uniform(-1, 1, (bg.levels[1].offset, 2))
+        p["bg_net"] = mlp([16 + bg.output_dim, 64, 3])
+    return {"params": p}
+
+
+def rgb_network(params, bg_radius, device):
+    from lidarnerf_tpu_torch.models.network import NeRFNetwork
+    from lidarnerf_tpu_torch.utils.params import params_from_jax
+
+    net = NeRFNetwork(encoding="hashgrid", desired_resolution=FULL.desired_resolution,
+                      log2_hashmap_size=FULL.log2_hashmap_size, hidden_dim=FULL.hidden_dim,
+                      geo_feat_dim=FULL.geo_feat_dim, bg_radius=bg_radius, bound=FULL.bound)
+    net.load_state_dict(params_from_jax(params))
+    return net.to(device).eval()
+
+
+def rgb_phase():
+    """One RGB frame per background on the card, timed, held against the CPU
+    on RGB_CPU_RAYS of its rays. Returns the launch counts (none)."""
+    from lidarnerf_tpu_torch.dataset.base import get_rays
+    from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays_staged
+
+    pose = np.eye(4, dtype=np.float32)
+    a = 0.3
+    pose[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    pose[:3, 3] = [0.1, -0.05, 0.2]
+    pick = torch.linspace(0, RGB_H * RGB_W - 1, RGB_CPU_RAYS).long()
+    gpu = gpu_line()
+    reset_counts()
+    for name, bg_radius in (("background sphere", RGB_BG_RADIUS), ("white", -1.0)):
+        params = hashgrid_flax_params(SEED + 31, bg_radius)
+        cfg = RenderConfig(num_steps=FULL.num_steps, upsample_steps=FULL.upsample_steps,
+                           min_near=FULL.scale, bound=FULL.bound, cal_lidar_color=False,
+                           bg_radius=bg_radius)
+        net = rgb_network(params, bg_radius, "cuda")
+        rays = get_rays(torch.from_numpy(pose[None]).cuda(), RGB_INTRINSICS, RGB_H, RGB_W)
+        o, d = rays["rays_o"][0], rays["rays_d"][0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = render_rays_staged(net, o, d, cfg, chunk=FULL.max_ray_batch)
+        image = out["image"].cpu()  # ends on the host
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        if image.shape != (RGB_H * RGB_W, 3) or not torch.isfinite(image).all() or not (
+                image.min() >= 0 and image.max() <= 1 + 1e-5):
+            raise AssertionError(f"rgb ({name}): the frame is not finite RGB in [0, 1]")
+        cpu = render_rays_staged(rgb_network(params, bg_radius, "cpu"), o[pick].cpu(),
+                                 d[pick].cpu(), cfg, chunk=FULL.max_ray_batch)
+        wsum = out["weights_sum"].cpu()
+        err = {k: float((out[k].cpu()[pick] - cpu[k]).abs().max()) for k in cpu}
+        rel = float(((image[pick] - cpu["image"]).abs() / cpu["image"].abs().clamp(min=1e-12))
+                    .max())
+        log(f"rgb ({name}) on {gpu}: a {RGB_H}x{RGB_W} pinhole frame (fx, fy, cx, cy = "
+            f"{RGB_INTRINSICS}), {FULL.num_steps}+{FULL.upsample_steps} samples, 4096-ray "
+            f"chunks, fp32: {ms:.1f} ms/frame, peak allocated {peak / 2**30:.2f} GiB; weights "
+            f"sum in [{float(wsum.min()):.4f}, {float(wsum.max()):.4f}], mean "
+            f"{float(wsum.mean()):.4f}; vs the CPU on {RGB_CPU_RAYS} rays: max |diff| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in err.items()) + f", image max rel {rel:.3e}")
+        for k in cpu:
+            np.testing.assert_allclose(out[k].cpu()[pick].numpy(), cpu[k].numpy(),
+                                       rtol=RGB_RTOL, atol=RGB_ATOL, err_msg=f"rgb {name} {k}")
+        del net, out
+        torch.cuda.empty_cache()
+    only_launches(launch_counts(), {})
+    return launch_counts()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2568,6 +2936,10 @@ def main():
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
+
+    def phase_done(name):  # the script's clock at the end of each group of phases
+        log(f"[{time.perf_counter() - t0:.1f} s] {name} done")
+
     # all eight sources, one nvcc each, started together
     libs = cuda_lib.build(block_hash_cuda.SOURCES + (fused_mlp_cuda.SOURCE, perm_gather_cuda.SOURCE))
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -2584,6 +2956,7 @@ def main():
     for variant in VARIANT_ENV:
         kernels += variant_kernel_phase(spec, ds, variant)
     determinism_phase(spec, ds)
+    phase_done("kernel checks and determinism")
 
     # serving
     params = flax_layout_params(SEED, FULL)
@@ -2595,12 +2968,14 @@ def main():
     for variant in VARIANT_ENV:
         paths[f"serving-{variant}"] = variant_serving_phase(renderer, variant, default_frame)
     del renderer
+    phase_done("serving")
 
     # the entry points of B5 and B6 at the model's shapes
     paths["fused-mlp"], b5 = fused_mlp_phase(params, ds)
     paths["sort-merge"], b6 = perm_gather_phase(params, ds)
     kernels += [b5, *b6]
     torch.cuda.empty_cache()
+    phase_done("fused-mlp and sort-merge")
 
     # training
     trainer, init_sd, paths["training"], default_step_ms = train_slice_phase(ds)
@@ -2615,6 +2990,7 @@ def main():
         summary.append(f"{variant}: {step_ms:.2f} ms/step, block_hash_{variant}_bwd {bwd_ms:.3f} ms")
     log(f"table-gradient kernel device ms per training step on {gpu_line()}: "
         + "; ".join(summary))
+    phase_done("training and its variants")
 
     # --fast: occupancy-prior sampling, training then serving
     trainer, init_sd, paths["training-fast"] = train_fast_phase(ds, default_step_ms)
@@ -2624,23 +3000,36 @@ def main():
     for variant in ("default", *VARIANT_ENV):
         train_reference_phase(ds, variant)
     train_reference_phase(ds, fast=True)
+    phase_done("--fast and the fp32 reference steps")
 
     # each training path eager and captured, in turns
     torch.cuda.empty_cache()
     paths.update(training_graph_phases(ds))
+    phase_done("training-graph")
 
     # the CLI and the trainer's workspace
     torch.cuda.empty_cache()
     paths["cli"], paths["cli-test-eval"] = cli_phase()
+    phase_done("cli")
 
     # the NeRF-MVL object path
     torch.cuda.empty_cache()
     paths["mvl"], paths["mvl-test-eval"], paths["training-graph-masked"] = mvl_phase()
+    phase_done("mvl")
 
     # the data on-ramp: raw trees -> panos, transforms, scene constants -> training
     torch.cuda.empty_cache()
     (paths["onramp-check"], paths["onramp-train"], paths["onramp-test-eval"],
      paths["onramp-mvl"]) = onramp_phase()
+    phase_done("onramp")
+
+    # the other position encodings, then RGB rendering: no kernel of the port
+    torch.cuda.empty_cache()
+    paths["encodings"] = encodings_phase(ds)
+    phase_done("encodings")
+    torch.cuda.empty_cache()
+    paths["rgb"] = rgb_phase()
+    phase_done("rgb")
 
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())

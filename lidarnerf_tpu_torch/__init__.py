@@ -35,7 +35,12 @@ Ported so far:
 - the data on-ramp (`preprocess/`, `native/`, `tools/check_dataset.py`,
   `tools/make_synth_drive.py`): raw KITTI-360 / NeRF-MVL trees -> range-view
   panos (a host C++ projection built with g++ at first use, else numpy) ->
-  transforms JSON -> scene constants, with no JAX on the machine.
+  transforms JSON -> scene constants, with no JAX on the machine;
+- every position encoding of the JAX model (`ops/hash_grid.py`, the
+  default `hashgrid` and `tiledgrid`; `ops/periodic_volume.py`; frequency;
+  None; `ops/factory.get_encoder`), plain PyTorch with an order-free table
+  gradient (`ops/order_free.py`), and RGB rendering with the background
+  sphere (`models/renderer.py`, `dataset/base.get_rays`).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-"""LiDAR pano ray generation and training pixel sampling
-(counterpart of lidarnerf_tpu/dataset/base.py:22-114).
+"""Ray generation and training pixel sampling (counterpart of
+lidarnerf_tpu/dataset/base.py:22-140): LiDAR pano rays and pinhole camera rays.
 
 All trig runs in float32, as the reference pins ray generation to fp32.
 Random draws come from an explicit `torch.Generator`, or are injected.
@@ -112,3 +112,33 @@ def get_lidar_rays(poses, intrinsics, H, W, N=-1, patch_size=1, generator=None):
         "rays_d": torch.stack(rd),
         "inds": inds.expand(B, inds.shape[0]),
     }
+
+
+def get_rays(poses, intrinsics, H, W, N=-1, patch_size=1, generator=None, inds=None):
+    """Pinhole-camera rays of each pose: all H*W row-major (N = -1), or N
+    sampled pixels (`sample_ray_indices`, one draw shared by all poses).
+
+    Args:
+        poses: [B, 4, 4] camera2world (tensor; its device is the rays' device).
+        intrinsics: (fx, fy, cx, cy); a pixel's ray passes through its centre.
+        generator: the `torch.Generator` the sampled pixels come from.
+        inds: optional [N] injected flat pixel indices (N is then not read).
+
+    Returns:
+        dict(rays_o [B, N, 3], rays_d [B, N, 3] unit, inds [B, N])
+    """
+    poses = poses.float()
+    fx, fy, cx, cy = intrinsics
+    if inds is not None:
+        inds = torch.as_tensor(inds, device=poses.device).long()
+    elif N > 0:
+        inds = sample_ray_indices(H, W, min(N, H * W), patch_size, generator, poses.device)
+    else:
+        inds = torch.arange(H * W, device=poses.device)
+    i = (inds % W).float() + 0.5
+    j = torch.div(inds, W, rounding_mode="floor").float() + 0.5
+    dirs = torch.stack([(i - cx) / fx, (j - cy) / fy, torch.ones_like(i)], dim=-1)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    rays_d = torch.einsum("nc,brc->bnr", dirs, poses[:, :3, :3])
+    rays_o = poses[:, None, :3, 3].expand_as(rays_d)
+    return {"rays_o": rays_o, "rays_d": rays_d, "inds": inds.expand(poses.shape[0], inds.shape[0])}

@@ -64,9 +64,6 @@ class KITTI360Dataset:
     def __post_init__(self):
         if self.sequence_id not in SEQUENCES:
             raise ValueError(f"Invalid sequence id: {self.sequence_id}")
-        if not self.enable_lidar:
-            raise NotImplementedError("enable_lidar=False (RGB frames) is not ported yet "
-                                      "(ROADMAP.md, queue A item 4)")
         self.training = self.split in ["train", "all", "trainval"]
         self.num_rays = self.num_rays if self.training else -1
         self.num_rays_lidar = self.num_rays_lidar if self.training else -1
@@ -109,8 +106,11 @@ class KITTI360Dataset:
 
         Training splits sample `num_rays_lidar` pixels (one draw shared by
         the batch, from a generator seeded by numpy's global stream);
-        other splits give every pixel.
+        other splits give every pixel. Without `enable_lidar` (RGB frames) the
+        dict is empty and nothing is drawn, as in the JAX package.
         """
+        if not self.enable_lidar:
+            return {}
         poses = torch.as_tensor(self.poses_lidar[index], device=self.device)
         generator = None
         if self.num_rays_lidar > 0:  # the JAX package's key: np.random.randint(0, 2**31 - 1)

@@ -59,9 +59,6 @@ class NeRFMVLDataset:
     num_rays_lidar: int = 4096
 
     def __post_init__(self):
-        if not self.enable_lidar:
-            raise NotImplementedError("enable_lidar=False (RGB frames) is not ported yet "
-                                      "(ROADMAP.md, queue A item 4)")
         self.class_name = self.sequence_id
         self.training = self.split in ["train", "all", "trainval"]
         self.testing = self.split == "test"
@@ -142,18 +139,21 @@ class NeRFMVLDataset:
         Every pixel's rays; a training batch (one frame only) keeps the
         unmasked pixels, subsampled to `num_rays_lidar` by
         `np.random.permutation`; the test split adds the frame's
-        `OBB_local` [8, 4].
+        `OBB_local` [8, 4]. Without `enable_lidar` (RGB frames) only that
+        `OBB_local` is left, as in the JAX package.
         """
         B = len(index)
-        poses = torch.as_tensor(self.poses_lidar[index], device=self.device)
-        rays = get_lidar_rays(poses, self.intrinsics_lidar, self.H_lidar, self.W_lidar, -1,
-                              self.patch_size_lidar)
-        results = {"H_lidar": self.H_lidar, "W_lidar": self.W_lidar,
-                   "rays_o_lidar": rays["rays_o"], "rays_d_lidar": rays["rays_d"]}
+        results = {}
+        if self.enable_lidar:
+            poses = torch.as_tensor(self.poses_lidar[index], device=self.device)
+            rays = get_lidar_rays(poses, self.intrinsics_lidar, self.H_lidar, self.W_lidar, -1,
+                                  self.patch_size_lidar)
+            results = {"H_lidar": self.H_lidar, "W_lidar": self.W_lidar,
+                       "rays_o_lidar": rays["rays_o"], "rays_d_lidar": rays["rays_d"]}
         if self.testing:
             results["OBB_local"] = self.OBB_local[index].reshape(8, 4)
 
-        if self.images_lidar is not None:
+        if self.images_lidar is not None and self.enable_lidar:
             images = self.images_lidar[index]  # [B, H, W, 3]
             if self.training:
                 flat = images.reshape(B, -1, images.shape[-1])

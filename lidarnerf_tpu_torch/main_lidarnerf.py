@@ -20,10 +20,12 @@ CLI's own switch, runs the plain PyTorch path on the CPU. On CUDA,
 graph of the step (`nerf/train_step.make_epoch_step`); `--fuse_epoch 0`
 runs the same step eagerly, as the CPU always does.
 
-Not ported yet, and raising with their ROADMAP.md item: `--encoding`
-other than blockhash (queue A item 4), the seam options `--seam_tie`,
-`--seam_sync_hashed`, `--alpha_seam` (item 5) and `--ckpt_format orbax`
-(item 6).
+`--encoding` takes every position encoding of the JAX CLI: blockhash (the
+default, kernels B1-B4), hashgrid (the reference-exact hash grid),
+tiledgrid, periodic_volume (`--log2_hashmap_size` a multiple of 3) and
+frequency. Not ported yet, and raising with their ROADMAP.md item: the seam
+options `--seam_tie`, `--seam_sync_hashed`, `--alpha_seam` (item 5; they
+mean something under blockhash only) and `--ckpt_format orbax` (item 6).
 """
 
 import os
@@ -187,8 +189,9 @@ def get_arg_parser():
         default="blockhash",
         choices=["blockhash", "hashgrid", "tiledgrid", "frequency",
                  "periodic_volume"],
-        help="position encoding: only blockhash (the block-hash grid of kernels "
-        "B1-B4) is ported; the others raise (ROADMAP.md queue A item 4)",
+        help="position encoding: blockhash (the block-hash grid of kernels B1-B4), "
+        "hashgrid (the reference-exact hash grid), tiledgrid, frequency or "
+        "periodic_volume (log2_hashmap_size a multiple of 3)",
     )
 
     # dataset options
@@ -225,7 +228,6 @@ def device_from_env():
 def check_ported(opt):
     """Raise NotImplementedError on the flags whose paths are not ported yet."""
     unported = [
-        (opt.encoding != "blockhash", f"--encoding {opt.encoding}", "queue A item 4"),
         (bool(opt.seam_tie), "--seam_tie", "queue A item 5"),
         (opt.seam_sync_hashed > 0, "--seam_sync_hashed", "queue A item 5"),
         (opt.alpha_seam > 0, "--alpha_seam", "queue A item 5"),

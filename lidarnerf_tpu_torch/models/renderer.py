@@ -1,6 +1,8 @@
-"""LiDAR volume renderer (counterpart of lidarnerf_tpu/models/renderer.py:34-220).
+"""Volume renderer (counterpart of lidarnerf_tpu/models/renderer.py).
 
-- LiDAR rays: near = min_near_lidar, far = far_mult * min_near_lidar;
+- LiDAR rays (`cal_lidar_color`): near = min_near_lidar, far = far_mult *
+  min_near_lidar; RGB rays: the slab test's nears and fars against the AABB
+  (`near_far_from_aabb`, nears at least min_near);
 - num_steps stratified samples, jittered when training, or, with
   `RenderConfig.occ` and an occupancy grid (`--fast`), num_steps samples
   drawn from the grid's per-ray PDF (models/occupancy.py); xyz clipped to
@@ -8,15 +10,19 @@
 - one round of inverse-CDF upsampling on the detached coarse weights,
   deterministic at inference, with uniform draws when training;
 - order-free merged compositing of the coarse and fine lists;
-- depth = sum(w * z), image = sum(w * color), colors zeroed where w <= 1e-4.
+- depth = sum(w * z), image = sum(w * color), colors zeroed where w <= 1e-4;
+- RGB rays blend the background by (1 - weights_sum): the background
+  model's colour at the ray's hit on the sphere of radius `bg_radius`
+  (`sph_from_ray`), or white when bg_radius <= 0.
 
 `render_rays` with `train=True` is the training render; its randomness (the
 stratified jitter and the `u` of the inverse CDF) is injected or drawn from
 a `torch.Generator`, so tests can feed the JAX package's draws.
 `render_rays_staged` renders a full pano in fixed `chunk`-ray blocks, for
-inference only. RGB mode and the background sphere are not ported yet.
+inference only.
 """
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -37,10 +43,24 @@ class RenderConfig:
     cal_lidar_color: bool = True
     weight_mask_thresh: float = 1e-4
     far_mult: float = 81.0  # the reference's hard-coded far = 81 * min_near_lidar
-    bg_radius: float = -1.0
+    bg_radius: float = -1.0  # > 0: the background sphere model (RGB rays)
     # occupancy-prior sampling (--fast): with an occ_grid passed to
     # render_rays, the coarse samples come from the grid's per-ray PDF
     occ: OccConfig = None
+
+
+def sph_from_ray(rays_o, rays_d, radius):
+    """The ray's hit on the background sphere as (theta, phi) in [-1, 1], [N, 2]
+    (y up, the larger root of the quadratic)."""
+    A = (rays_d * rays_d).sum(-1)
+    B = (rays_o * rays_d).sum(-1)
+    C = (rays_o * rays_o).sum(-1) - radius * radius
+    t = (-B + torch.sqrt(torch.clamp(B * B - A * C, min=0.0))) / torch.clamp(A, min=1e-12)
+    p = rays_o + t[..., None] * rays_d
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    theta = torch.atan2(torch.sqrt(x * x + z * z), y)  # [0, pi)
+    phi = torch.atan2(z, x)  # [-pi, pi)
+    return torch.stack([2 * theta / math.pi - 1.0, phi / math.pi], dim=-1)
 
 
 def near_far_from_aabb(rays_o, rays_d, aabb_min, aabb_max, min_near):
@@ -57,7 +77,7 @@ def near_far_from_aabb(rays_o, rays_d, aabb_min, aabb_max, min_near):
 
 def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generator=None,
                 noise=None, u=None, occ_grid=None):
-    """Render a flat batch of LiDAR rays.
+    """Render a flat batch of LiDAR rays (`cfg.cal_lidar_color`) or RGB rays.
 
     Args:
         network: NeRFNetwork on the rays' device.
@@ -73,10 +93,9 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generat
             coarse samples are drawn from its per-ray PDF.
 
     Returns:
-        dict(depth [N], image [N, 2] = (raydrop, intensity), weights_sum [N])
+        dict(depth [N], image [N, 2] = (raydrop, intensity) or [N, 3] RGB,
+        weights_sum [N])
     """
-    if not cfg.cal_lidar_color or cfg.bg_radius > 0:
-        raise NotImplementedError("RGB rendering and the background sphere are not ported yet")
     N = rays_o.shape[0]
     dev = rays_o.device
     rays_o = rays_o.float()
@@ -84,8 +103,13 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generat
     aabb_min = torch.full((3,), -cfg.bound, dtype=torch.float32, device=dev)
     aabb_max = torch.full((3,), cfg.bound, dtype=torch.float32, device=dev)
 
-    nears = torch.full((N, 1), cfg.min_near_lidar, dtype=torch.float32, device=dev)
-    fars = torch.full((N, 1), cfg.min_near_lidar * cfg.far_mult, dtype=torch.float32, device=dev)
+    lidar = cfg.cal_lidar_color
+    if lidar:
+        nears = torch.full((N, 1), cfg.min_near_lidar, dtype=torch.float32, device=dev)
+        fars = torch.full((N, 1), cfg.min_near_lidar * cfg.far_mult, dtype=torch.float32,
+                          device=dev)
+    else:
+        nears, fars = near_far_from_aabb(rays_o, rays_d, aabb_min, aabb_max, cfg.min_near)
     if cfg.occ is not None and occ_grid is not None:
         pdf = occ_bin_pdf(occ_grid, rays_o, rays_d, nears, fars, cfg.occ, cfg.bound)
         z_vals = occ_z_vals(nears, fars, pdf, cfg.num_steps, perturb=train, xi=noise,
@@ -101,11 +125,11 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generat
         return network.density(xyz)
 
     sigmas, geo_feats = query_density(z_vals)  # [N, T], [N, T, G]
-    d_enc = network.encode_dir(rays_d)  # [N, E], once per ray
+    d_enc = network.encode_dir(rays_d, lidar)  # [N, E], once per ray
 
     def colors(geo, weights):
         d_enc_b = d_enc[:, None, :].expand(*geo.shape[:-1], d_enc.shape[-1])
-        rgbs = network.color_from_enc(d_enc_b, geo)  # [N, S, 2]
+        rgbs = network.color_from_enc(d_enc_b, geo, lidar)  # [N, S, 2 or 3]
         return torch.where((weights > cfg.weight_mask_thresh)[..., None], rgbs, 0.0)
 
     if cfg.upsample_steps > 0:
@@ -129,6 +153,13 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generat
         weights_sum = weights.sum(-1)
         depth = (weights * z_vals).sum(-1)
         image = (weights[..., None] * colors(geo_feats, weights)).sum(-2)
+
+    if not lidar:
+        if cfg.bg_radius > 0:
+            bg_color = network.background(sph_from_ray(rays_o, rays_d, cfg.bg_radius), rays_d)
+        else:
+            bg_color = 1.0  # white
+        image = image + (1.0 - weights_sum)[..., None] * bg_color
 
     return {"depth": depth, "image": image, "weights_sum": weights_sum}
 

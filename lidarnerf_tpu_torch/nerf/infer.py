@@ -7,8 +7,9 @@ of `Trainer.test` (:718-736): it renders every ray of a LiDAR pano in
 
 `opt` carries the JAX CLI's field names (main_lidarnerf.py): encoding,
 desired_resolution, log2_hashmap_size, num_layers, hidden_dim, geo_feat_dim,
-bound, scale, num_steps, upsample_steps, max_ray_batch, fp16, alpha_r, and
-for `--fast` occ_sampling with the occ_* fields (models/occupancy.py). As in
+bound, scale, num_steps, upsample_steps, max_ray_batch, fp16, alpha_r,
+n_features_per_level (2 if absent), and for `--fast` occ_sampling with the
+occ_* fields (models/occupancy.py). Every encoding of the CLI is served. As in
 the CLI, min_near_lidar = scale. The seam options `seam_tie` and
 `seam_sync_hashed`, not ported yet, raise when set.
 """
@@ -47,6 +48,7 @@ class PanoRenderer:
             encoding=opt.encoding,
             desired_resolution=opt.desired_resolution,
             log2_hashmap_size=opt.log2_hashmap_size,
+            n_features_per_level=getattr(opt, "n_features_per_level", 2),
             num_layers=opt.num_layers,
             hidden_dim=opt.hidden_dim,
             geo_feat_dim=opt.geo_feat_dim,

@@ -1,17 +1,18 @@
-"""Evaluation meters (counterpart of lidarnerf_tpu/nerf/metrics.py:23-175, 218-242).
+"""Evaluation meters (counterpart of lidarnerf_tpu/nerf/metrics.py).
 
 The meters of the evaluation protocol, with the JAX package's semantics,
 `report()` strings and `write()` calls: accumulation cadence, clamping
 constants, scale handling, and the Chamfer/F-score path through
 `pano_to_lidar`. They are host-side numpy; the Chamfer inner loop runs on
-the device through `ops/chamfer.py`. `LPIPSMeter` is not ported: it needs
-the `lpips` package and its pretrained weights, and it is RGB only
-(ROADMAP.md, queue A item 4).
+the device through `ops/chamfer.py`. `LPIPSMeter` (RGB only) needs the
+optional `lpips` package and its pretrained weights; without them its
+constructor raises ImportError, as the JAX package's does.
 """
 
 import os
 
 import numpy as np
+import torch
 
 from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar
 from lidarnerf_tpu_torch.ops.chamfer import chamfer_and_fscore
@@ -179,6 +180,45 @@ class PointsMeter:
 
     def report(self):
         return f"CD f-score = {self.measure()}"
+
+
+class LPIPSMeter:
+    """Mean perceptual similarity (the `lpips` package) over RGB updates.
+
+    RGB only (never on the LiDAR path); needs the optional `lpips` package
+    and its pretrained weights, so construction raises ImportError without
+    them.
+    """
+
+    def __init__(self, net="alex", device=None):
+        try:
+            import lpips
+        except ImportError as e:
+            raise ImportError(
+                "LPIPSMeter requires the optional 'lpips' package (RGB eval only)"
+            ) from e
+        self.V, self.N = 0, 0
+        self.net = net
+        self.fn = lpips.LPIPS(net=net).eval()
+
+    def clear(self):
+        self.V, self.N = 0, 0
+
+    def update(self, preds, truths):
+        p = torch.tensor(np.asarray(preds)).permute(0, 3, 1, 2).contiguous()
+        t = torch.tensor(np.asarray(truths)).permute(0, 3, 1, 2).contiguous()
+        self.V += self.fn(t, p, normalize=True).item()
+        self.N += 1
+
+    def measure(self):
+        return self.V / self.N
+
+    def write(self, writer, global_step, prefix=""):
+        writer.add_scalar(os.path.join(prefix, f"LPIPS ({self.net})"), self.measure(),
+                          global_step)
+
+    def report(self):
+        return f"LPIPS ({self.net}) = {self.measure():.6f}"
 
 
 class SSIMMeter:

@@ -536,8 +536,10 @@ def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
         global step is a multiple of the update interval. `draws` (eager
         only) is a list of K per-step draws as `make_train_step` takes them;
         an "occ_jitter" entry [G, G, G, 3] is that step's refresh jitter.
-        One graph is kept per block-hash variant (`kernel_variant()`, which
-        a graph freezes). `epoch_fn.step` is the step function.
+        A blockhash model keeps one graph per block-hash variant
+        (`kernel_variant()`, which a graph freezes); any other encoding
+        reads no variant and keeps one graph, whatever the switch says.
+        `epoch_fn.step` is the step function.
     """
     device = resolve_device(device)
     step = make_train_step(model, cfg, render_cfg, patch_size, masked_sampling,
@@ -558,7 +560,7 @@ def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
         if capture:
             if draws is not None:
                 raise ValueError("injected draws need the eager epoch (capture=False)")
-            variant = kernel_variant()
+            variant = kernel_variant() if model.encoding == "blockhash" else "default"
             if variant not in graphs:
                 graphs[variant] = _CapturedStep(step, graph_pool)
             m = graphs[variant].epoch(poses, images, valid_idx, valid_counts, order, generator,

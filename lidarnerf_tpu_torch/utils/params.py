@@ -3,9 +3,13 @@
 The flax tree is the `state["model"]` a JAX checkpoint holds
 (lidarnerf_tpu/nerf/trainer.py:837), beside `state["occ_grid"]` under
 `--fast` (:840-844): nested dicts of numpy arrays,
-`{"params": {"hash_table": [L*B, 128], "<net>": {"Dense_i": {"kernel": [in, out]}}}}`.
-The port's NeRFNetwork keeps the table as is and stores each `Dense_i/kernel`
-transposed as `<net>.layers.i.weight` [out, in], the torch `nn.Linear` layout.
+`{"params": {"hash_table": ..., "<net>": {"Dense_i": {"kernel": [in, out]}}}}`.
+The tables are kept as they are: `hash_table` is [L*B, 128] under
+blockhash, [table_rows, level_dim] under hashgrid and tiledgrid, [R^3 L, C]
+under periodic_volume, and absent under frequency and None; `bg_table`
+[table_rows, level_dim] and `bg_net` exist with the background sphere
+(bg_radius > 0). Each `Dense_i/kernel` is stored transposed as
+`<net>.layers.i.weight` [out, in], the torch `nn.Linear` layout.
 The optimizer state travels in optax's layout (`optimizer_to_jax`,
 `optimizer_from_jax`). `load_state` reads either package's pickle
 checkpoints without JAX.
@@ -17,19 +21,20 @@ import pickle
 import numpy as np
 import torch
 
-_NETS = ("sigma_net", "color_net", "lidar_color_net")
+_TABLES = ("hash_table", "bg_table")
+_NETS = ("sigma_net", "color_net", "lidar_color_net", "bg_net")
 _FOREIGN = ("jax", "jaxlib", "flax", "optax", "orbax", "lidarnerf_tpu")
 
 
 def params_from_jax(tree) -> dict:
     """Flax parameter tree (numpy leaves) -> NeRFNetwork state_dict (float32 CPU tensors)."""
     p = tree.get("params", tree)
-    unknown = set(p) - {"hash_table", *_NETS}
+    unknown = set(p) - {*_TABLES, *_NETS}
     if unknown:
         raise ValueError(f"parameters with no home in the port: {sorted(unknown)}")
-    sd = {"hash_table": torch.from_numpy(np.array(p["hash_table"], dtype=np.float32))}
+    sd = {t: torch.from_numpy(np.array(p[t], dtype=np.float32)) for t in _TABLES if t in p}
     for net in _NETS:
-        for name, layer in p[net].items():
+        for name, layer in p.get(net, {}).items():
             i = int(name.removeprefix("Dense_"))
             kernel = np.array(layer["kernel"], dtype=np.float32)
             sd[f"{net}.layers.{i}.weight"] = torch.from_numpy(kernel.T.copy())
@@ -38,7 +43,7 @@ def params_from_jax(tree) -> dict:
 
 def params_to_jax(state_dict) -> dict:
     """NeRFNetwork state_dict -> flax parameter tree with numpy leaves."""
-    p = {"hash_table": state_dict["hash_table"].detach().cpu().numpy()}
+    p = {t: state_dict[t].detach().cpu().numpy() for t in _TABLES if t in state_dict}
     for key, value in state_dict.items():
         net, _, rest = key.partition(".layers.")
         if net in _NETS:

@@ -1,6 +1,7 @@
 """The port's entry points take the JAX package's parameters, in its order,
-and raise on the values they cannot honour yet (seam options, RGB frames,
-other encodings, the orbax checkpoint format)."""
+and raise on the values they cannot honour yet (seam options, the orbax
+checkpoint format); every encoding, the background sphere and RGB frames
+construct."""
 
 import dataclasses
 import inspect
@@ -9,6 +10,9 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+
+import jax
+import jax.numpy as jnp
 
 from lidarnerf_tpu.dataset.kitti360 import KITTI360Dataset as KITTI360DatasetJ
 from lidarnerf_tpu.models.network import NeRFNetwork as NeRFNetworkJ
@@ -20,7 +24,7 @@ from lidarnerf_tpu_torch.nerf.trainer import Trainer
 from lidarnerf_tpu_torch.utils.params import params_to_jax
 
 DATA = "data_synth_drive60"
-TINY = dict(desired_resolution=64, log2_hashmap_size=10, hidden_dim=8)
+TINY = dict(encoding="blockhash", desired_resolution=64, log2_hashmap_size=10, hidden_dim=8)
 SEAM_FLAGS = {"seam_tie": True, "seam_sync_hashed": 16}
 
 
@@ -81,37 +85,60 @@ def test_kitti360_dataset_rays_off_the_train_split(split):
     assert poses.device == torch.device("cpu") and len(ds) == len(ref)
 
 
-def test_kitti360_dataset_raises_on_rgb_frames():
-    with pytest.raises(NotImplementedError, match="enable_lidar=False"):
-        KITTI360Dataset(root_path=DATA, enable_lidar=False)
+def test_kitti360_dataset_rgb_frames():
+    """enable_lidar=False loads the frames as the JAX dataset does, and its
+    collate returns no LiDAR keys and draws nothing."""
+    ds = KITTI360Dataset(root_path=DATA, enable_lidar=False)
+    ref = KITTI360DatasetJ(root_path=DATA, enable_lidar=False)
+    np.testing.assert_array_equal(ds.images_lidar, ref.images_lidar)
+    np.testing.assert_array_equal(ds.poses_lidar, ref.poses_lidar)
+    np.random.seed(0)
+    assert ds.collate([0]) == ref.collate([0]) == {}
+    assert np.random.randint(0, 2**31 - 1) == np.random.RandomState(0).randint(0, 2**31 - 1)
 
 
 def test_nerf_network_takes_every_jax_field():
     """Every field of the JAX module is a parameter, in the JAX order, with
-    the JAX default except the encoding (blockhash until the hash grid is
-    ported); `generator` follows."""
+    the JAX default (the encoding's is hashgrid); `generator` follows."""
     jax_fields = [f for f in dataclasses.fields(NeRFNetworkJ) if f.name not in ("parent", "name")]
     params = inspect.signature(NeRFNetwork).parameters
     assert list(params)[:len(jax_fields)] == [f.name for f in jax_fields]
     assert list(params)[len(jax_fields):] == ["generator"]
     for f in jax_fields:
-        if f.name not in ("encoding", "compute_dtype"):
+        if f.name != "compute_dtype":
             assert params[f.name].default == f.default, f.name
-    assert params["encoding"].default == "blockhash"
+    assert params["encoding"].default == "hashgrid"
     net = NeRFNetwork(**TINY, encoding_dir="sphere_harmonics", multires=6, n_features_per_level=2,
                       num_layers_bg=2, hidden_dim_bg=64, bg_radius=-1.0, seam_tie=False)
     assert net.block_spec.num_levels == 16
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(encoding="hashgrid"), "only 'blockhash'"),
     (dict(n_features_per_level=4), "n_features_per_level=4"),
-    (dict(bg_radius=1.0), "background sphere"),
     (dict(seam_tie=True), "seam_tie"),
-], ids=["encoding", "n_features_per_level", "bg_radius", "seam_tie"])
+], ids=["n_features_per_level", "seam_tie"])
 def test_nerf_network_raises_on_unported_values(kw, match):
+    """Under blockhash, whose table rows hold 2 features per level; seam_tie
+    waits for queue A item 5."""
     with pytest.raises(NotImplementedError, match=match):
         NeRFNetwork(**TINY, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(encoding="hashgrid"), dict(encoding="tiledgrid", n_features_per_level=4),
+    dict(encoding="periodic_volume", log2_hashmap_size=9), dict(encoding="frequency"),
+    dict(encoding="None"), dict(bg_radius=1.0),
+], ids=["encoding", "tiledgrid", "periodic_volume", "frequency", "None", "bg_radius"])
+def test_nerf_network_constructs_every_jax_value(kw):
+    """The values that raised before they were ported: every encoding of the
+    JAX module and the background sphere, with the JAX module's parameters."""
+    kw = {**TINY, **kw}
+    net = NeRFNetwork(**kw)
+    module = NeRFNetworkJ(**kw)
+    ref = jax.tree.map(np.shape, module.init(jax.random.PRNGKey(0), jnp.zeros((2, 3)),
+                                             jnp.zeros((2, 3))))
+    got = jax.tree.map(np.shape, params_to_jax(net.state_dict()))
+    assert got == ref
 
 
 def test_trainer_signature_is_the_jax_signature():

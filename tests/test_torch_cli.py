@@ -3,7 +3,8 @@ JAX package's `main_lidarnerf.py`: the same parser, the same flow and
 artifacts on the tiny flow of tests/test_e2e.py under
 LIDARNERF_PLATFORM=cpu, `--test_eval` reproducing the in-train meters bit
 for bit (the EMA weights of the latest checkpoint, a deterministic render),
-and the flags whose paths are not ported raising with their ROADMAP item.
+every `--encoding` through the same flow, and the flags whose paths are
+not ported raising with their ROADMAP item.
 """
 
 import glob
@@ -125,13 +126,50 @@ def test_tiny_flow_writes_the_jax_cli_artifacts(data, tmp_path, monkeypatch):
         np.testing.assert_array_equal(again.run_log[-1]["meters"][k], v, err_msg=k)
 
 
+# each encoding at the tiny flow's widths (periodic_volume: a table of 2^9 = 8^3 rows)
+# and the hash grid under --fast, whose grid refresh reads the field's density
+ENCODING_ARGV = {"hashgrid": [], "tiledgrid": [], "frequency": [],
+                 "periodic_volume": ["--log2_hashmap_size", "9"],
+                 "hashgrid-fast": ["--fast", "--occ_grid_size", "32"]}
+
+
+@pytest.mark.parametrize("encoding", list(ENCODING_ARGV))
+def test_every_encoding_trains_evaluates_and_tests(encoding, data, tmp_path, monkeypatch):
+    """--encoding other than blockhash: train -> evaluate -> test -> mesh with
+    the blockhash run's files (hashgrid: the JAX CLI's), finite losses and
+    meters, the model of that encoding, and --test_eval reproducing the
+    in-train meters bit for bit."""
+    monkeypatch.setenv("LIDARNERF_PLATFORM", "cpu")
+    monkeypatch.chdir(REPO)
+    argv = ["--encoding", encoding.removesuffix("-fast"), *ENCODING_ARGV[encoding]]
+    trainer = cli.main(_argv(data, tmp_path / "port", "tiny", *argv))
+    assert trainer.model.encoding == encoding.removesuffix("-fast")
+    assert (trainer.occ_grid is not None) == encoding.endswith("-fast")
+    assert ("hash_table" in trainer.model.state_dict()) == (encoding != "frequency")
+    assert len(trainer.stats["step_loss"]) == 4 and np.isfinite(trainer.stats["step_loss"]).all()
+    evals = [e for e in trainer.run_log if e["event"] == "eval"]
+    assert [e["epoch"] for e in evals] == [2, 2]
+    for e in evals:
+        assert all(np.isfinite(v).all() for v in e["meters"].values())
+    if encoding == "hashgrid":
+        monkeypatch.setattr(sys, "argv", ["main_lidarnerf.py",
+                                          *_argv(data, tmp_path / "ref", "tiny", *argv)])
+        cli_j.main()
+    else:  # blockhash with the same flags
+        cli.main(_argv(data, tmp_path / "ref", "tiny", *ENCODING_ARGV[encoding]))
+    assert _files(tmp_path / "port") == _files(tmp_path / "ref")
+    again = cli.main(_argv(data, tmp_path / "port", "tiny", *argv, "--test_eval"))
+    test_eval = [e for e in again.run_log if e["event"] == "eval"]
+    for k, v in evals[1]["meters"].items():
+        np.testing.assert_array_equal(test_eval[0]["meters"][k], v, err_msg=k)
+
+
 @pytest.mark.parametrize("flag,match", [
-    (["--encoding", "hashgrid"], "--encoding hashgrid.*queue A item 4"),
     (["--seam_tie", "1"], "--seam_tie.*queue A item 5"),
     (["--seam_sync_hashed", "8"], "--seam_sync_hashed.*queue A item 5"),
     (["--alpha_seam", "0.1"], "--alpha_seam.*queue A item 5"),
     (["--ckpt_format", "orbax"], "--ckpt_format orbax.*queue A item 6"),
-], ids=["encoding", "seam_tie", "seam_sync_hashed", "alpha_seam", "orbax"])
+], ids=["seam_tie", "seam_sync_hashed", "alpha_seam", "orbax"])
 def test_unported_flags_raise(flag, match, data, tmp_path, monkeypatch):
     monkeypatch.setenv("LIDARNERF_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match=match):

@@ -785,7 +785,8 @@ def _mvl_small(tmp_path, monkeypatch):
 def _mvl_net():
     from lidarnerf_tpu_torch.models.network import NeRFNetwork
 
-    return NeRFNetwork(num_levels=4, log2_hashmap_size=14, desired_resolution=64, hidden_dim=32,
+    return NeRFNetwork(encoding="blockhash", num_levels=4, log2_hashmap_size=14,
+                       desired_resolution=64, hidden_dim=32,
                        generator=torch.Generator().manual_seed(0))
 
 
@@ -1057,3 +1058,85 @@ def test_onramp_dataset_trains_on_cuda(require_cuda, tmp_path):
     assert counts["block_hash_fwd"] > 0 and counts["block_hash_bwd"] > 0
     assert res["route"] == "native" and 0 < res["scale"] < 1
     assert (tmp_path / "ws" / "log_lidar_nerf.txt").is_file()
+
+
+# --- the hash grid (plain PyTorch on both devices; no kernel of its own) ---
+
+def _hashgrid_case(Q, seed):
+    from lidarnerf_tpu_torch.ops import hash_grid
+
+    spec = hash_grid.make_hash_grid_spec(log2_hashmap_size=19, desired_resolution=32768)
+    gen = torch.Generator().manual_seed(seed)
+    x = _rays(np.random.RandomState(seed), Q, 768)  # sample runs along rays, as a chunk orders them
+    x = torch.from_numpy(np.clip(x, 0.0, 1.0).astype(np.float32))
+    table = torch.rand((spec.table_rows, 2), generator=gen) * 2 - 1
+    g = torch.randn((Q, spec.output_dim), generator=gen)
+    return hash_grid, spec, x, table, g
+
+
+def test_hashgrid_forward_on_cuda_matches_the_cpu(require_cuda):
+    """The full-width spec (dense and hashed levels) on the card and on the
+    CPU: the same float32 products, the corners summed in another order."""
+    hash_grid, spec, x, table, _ = _hashgrid_case(200_000, 0)
+    gpu = hash_grid.hash_grid_encode(x.cuda(), table.cuda(), spec).cpu()
+    cpu = hash_grid.hash_grid_encode(x, table, spec)
+    torch.testing.assert_close(gpu, cpu, rtol=0, atol=1e-6)
+
+
+def test_hashgrid_table_gradient_repeats_bit_for_bit_on_cuda(require_cuda):
+    """Two calls on one input (a NaN in g included) give the same bits on the
+    card, and the CPU's: every term is rounded once and added as an integer."""
+    hash_grid, spec, x, _, g = _hashgrid_case(200_000, 1)
+    g[7, 3] = float("nan")
+    g[9, 30] = float("inf")
+    a = hash_grid.encode_bwd(x.cuda(), g.cuda(), spec)
+    b = hash_grid.encode_bwd(x.cuda(), g.cuda(), spec)
+    assert torch.equal(a.isnan(), b.isnan()) and a.isnan().any()
+    assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    cpu = hash_grid.encode_bwd(x, g, spec)
+    assert torch.equal(torch.nan_to_num(a.cpu()), torch.nan_to_num(cpu))
+
+
+def test_captured_hashgrid_step_equals_the_eager_step(require_cuda, tmp_path, monkeypatch):
+    """--encoding hashgrid: two epochs captured and eager from one state are
+    equal bit for bit, no kernel of the port runs on the card, and the
+    block-hash variant switch keeps no graph of its own."""
+    opt, ds = _graph_case("seg", tmp_path, monkeypatch)  # the switch set: not read
+    opt.encoding = "hashgrid"
+    runs, device = [], []
+    for fuse in (0, 1):
+        t = _graph_trainer(opt, fuse)
+        block_hash_cuda.reset_counts()
+        device.append(_device_launches(lambda: t.train(ds, None, max_epochs=2)))
+        runs.append(t)
+        assert not any(block_hash_cuda.launch_counts().values())
+    eager, graphed = runs
+    assert not any(device[0].values()) and not any(device[1].values())
+    assert [list(f.graphs) for f in graphed._epoch_fns.values()] == [["default"], ["default"]]
+    _same_state(eager, graphed)
+    assert not any(graphed.stats["skipped"]) and np.isfinite(graphed.stats["step_loss"]).all()
+
+
+def test_rgb_render_on_cuda_matches_the_cpu(require_cuda):
+    """A small RGB frame (fp32 hashgrid field, the background sphere) on the
+    card and on the CPU from the same weights."""
+    from lidarnerf_tpu_torch.dataset.base import get_rays
+    from lidarnerf_tpu_torch.models.network import NeRFNetwork
+    from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays_staged
+
+    net = NeRFNetwork(desired_resolution=2048, log2_hashmap_size=16, hidden_dim=32, bg_radius=8.0,
+                      generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        net.hash_table.mul_(1e4)
+        net.bg_table.mul_(1e4)
+    cfg = RenderConfig(num_steps=64, upsample_steps=8, min_near=0.05, cal_lidar_color=False,
+                       bg_radius=8.0)
+    pose = torch.eye(4)
+    pose[:3, 3] = torch.tensor([0.1, -0.2, 0.05])
+    rays = get_rays(pose[None], (40.0, 40.0, 32.0, 24.0), 48, 64)
+    cpu = render_rays_staged(net, rays["rays_o"][0], rays["rays_d"][0], cfg, chunk=1024)
+    net.cuda()
+    gpu = render_rays_staged(net, rays["rays_o"][0].cuda(), rays["rays_d"][0].cuda(), cfg,
+                             chunk=1024)
+    for k in ("depth", "image", "weights_sum"):
+        torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=1e-3, atol=1e-5)

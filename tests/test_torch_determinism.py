@@ -24,8 +24,8 @@ from lidarnerf_tpu_torch.ops import block_hash as bh
 
 VARIANT_ENV = {"seg": "LIDARNERF_SEG_KERNELS", "win": "LIDARNERF_WIN_KERNELS"}
 SPEC = dict(num_levels=4, base_resolution=4, log2_hashmap_size=10, desired_resolution=64)
-NET = dict(num_levels=4, base_resolution=4, log2_hashmap_size=10, desired_resolution=64,
-           hidden_dim=16)
+NET = dict(encoding="blockhash", num_levels=4, base_resolution=4, log2_hashmap_size=10,
+           desired_resolution=64, hidden_dim=16)
 SCALE = 0.01
 H, W, N = 8, 32, 48
 

@@ -324,15 +324,19 @@ def _resumed_steps(port, tj, data):
     return m, out_j
 
 
-@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax", "jax_to_port-hashgrid",
+                                       "port_to_jax-hashgrid"])
 def test_resumed_step_matches_across_packages(data, tmp_path, direction):
     """C7: a full checkpoint of one package resumes in the other with its Adam
     moments and both counts (so its lr); then one step in each package from
     that checkpoint agrees: the loss and metrics at test_torch_train.py's
     rtol 1e-5, the counts exactly, the moments and the well-set parameters
     of the table, the sigma net and the LiDAR head as in the epoch test
-    above, at its tolerances for one step."""
-    opt = _opt(data)
+    above, at its tolerances for one step. Under the CLI's blockhash, and
+    under --encoding hashgrid (its [table_rows, 2] table in optax's leaf
+    order)."""
+    direction, _, encoding = direction.partition("-")
+    opt = _opt(data, "--encoding", encoding or "blockhash")
     ws = tmp_path / "ws"
     if direction == "port_to_jax":
         src = _trainer(opt, ws)

@@ -126,9 +126,21 @@ def test_mvl_dataset_matches_jax(data, split):
     assert arrs[2].dtype == arrs[3].dtype == torch.long
 
 
-def test_mvl_dataset_raises_on_rgb_frames(data):
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        NeRFMVLDataset(**_kw(data, "train", enable_lidar=False))
+@pytest.mark.parametrize("split", ["train", "test"])
+def test_mvl_dataset_rgb_frames(data, split):
+    """enable_lidar=False loads the frames as the JAX dataset does; collate
+    returns no LiDAR keys (the test split keeps its OBB_local) and draws
+    nothing."""
+    ds = NeRFMVLDataset(**_kw(data, split, enable_lidar=False))
+    ref = NeRFMVLDatasetJ(**_kw(data, split, enable_lidar=False))
+    np.testing.assert_array_equal(ds.images_lidar, ref.images_lidar)
+    np.testing.assert_array_equal(ds.poses_lidar, ref.poses_lidar)
+    np.random.seed(0)
+    out, want = ds.collate([0]), ref.collate([0])
+    assert out.keys() == want.keys() == ({"OBB_local"} if split == "test" else set())
+    for k in out:
+        np.testing.assert_array_equal(out[k], want[k])
+    assert np.random.randint(0, 2**31 - 1) == np.random.RandomState(0).randint(0, 2**31 - 1)
 
 
 def _assert_batches_equal(out, ref):

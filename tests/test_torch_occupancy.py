@@ -92,8 +92,18 @@ def test_occ_z_vals_matches_jax(perturb):
 def test_update_occ_grid_matches_jax():
     """The refresh through a flax-initialised field and the weight bridge,
     with the JAX key's jitter injected; the decay of the old grid too."""
+    _check_update_occ_grid("blockhash")
+
+
+def test_update_occ_grid_matches_jax_under_hashgrid():
+    """The refresh reads the field through `density` only, so --fast serves
+    every encoding: the same check on the hash grid."""
+    _check_update_occ_grid("hashgrid")
+
+
+def _check_update_occ_grid(encoding):
     cfg_j, cfg = _configs(grid_size=16, decay=0.9)
-    module = FlaxNeRF(encoding="blockhash", desired_resolution=64, log2_hashmap_size=12,
+    module = FlaxNeRF(encoding=encoding, desired_resolution=64, log2_hashmap_size=12,
                       num_levels=4, hidden_dim=16, compute_dtype=jnp.float32)
     params = jax.tree.map(np.array, module.init(jax.random.PRNGKey(0), jnp.zeros((4, 3)),
                                                 jnp.zeros((4, 3))))
@@ -102,7 +112,8 @@ def test_update_occ_grid_matches_jax():
     key = jax.random.PRNGKey(4)
     ref = np.asarray(oj.update_occ_grid(module, jax.tree.map(jnp.asarray, params),
                                         jnp.asarray(grid0), key, cfg_j, 1.0))
-    net = NeRFNetwork(desired_resolution=64, log2_hashmap_size=12, num_levels=4, hidden_dim=16)
+    net = NeRFNetwork(encoding=encoding, desired_resolution=64, log2_hashmap_size=12,
+                      num_levels=4, hidden_dim=16)
     net.load_state_dict(params_from_jax(params))
     jitter = torch.from_numpy(np.array(jax.random.uniform(key, (16, 16, 16, 3),
                                                             dtype=jnp.float32)))
@@ -119,7 +130,8 @@ def test_update_occ_grid_matches_jax():
 def test_occ_grid_rides_the_checkpoint(tmp_path):
     """A JAX-layout pickle with `model` and `occ_grid` reads back both; a
     --fast PanoRenderer needs the grid and renders with it."""
-    net = NeRFNetwork(desired_resolution=64, log2_hashmap_size=10, hidden_dim=8)
+    net = NeRFNetwork(encoding="blockhash", desired_resolution=64, log2_hashmap_size=10,
+                      hidden_dim=8)
     params = params_to_jax(net.state_dict())
     grid = shell_grid(16)
     path = tmp_path / "fast.ckpt"

@@ -68,13 +68,15 @@ def test_entry_points_do_not_default_to_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     opt = _tiny_opt()
     params = params_to_jax(
-        NeRFNetwork(desired_resolution=64, log2_hashmap_size=10, hidden_dim=8).state_dict()
+        NeRFNetwork(encoding="blockhash", desired_resolution=64, log2_hashmap_size=10,
+                    hidden_dim=8).state_dict()
     )
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dispatch.resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PanoRenderer(opt, params)
-    net = NeRFNetwork(desired_resolution=64, log2_hashmap_size=10, hidden_dim=8)
+    net = NeRFNetwork(encoding="blockhash", desired_resolution=64, log2_hashmap_size=10,
+                      hidden_dim=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_step(net, TrainConfig(), RenderConfig())
     train_opt = SimpleNamespace(

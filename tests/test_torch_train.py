@@ -105,6 +105,18 @@ def seamless_field():
     return _make_field(**SEAMLESS)
 
 
+# the reference-exact hash grid at the same widths: dense coarse levels,
+# hashed fine ones (65^3 corners pass the 2^14 budget)
+HASHGRID = dict(encoding="hashgrid")
+
+
+@pytest.fixture(scope="module")
+def hashgrid_field():
+    """`field`'s construction under --encoding hashgrid; the hash grid is
+    continuous across its cells, so every level holds O(1) values."""
+    return _make_field(**HASHGRID)
+
+
 OCC = dict(grid_size=16, bins=32)  # the --fast sampler at a small grid
 
 
@@ -166,7 +178,10 @@ CASES = {
     "masked": dict(patch=1, masked=True, kw={}),
     # occupancy-prior sampling on the seamless field: the coarse draw
     # doubles as occ_z_vals' xi
-    "fast": dict(patch=1, masked=False, kw={}, occ=True, net=SEAMLESS),
+    "fast": dict(patch=1, masked=False, kw={}, occ=True, net=SEAMLESS, field="seamless_field"),
+    # the hash grid's order-free table gradient against XLA's scatter-add
+    "hashgrid": dict(patch=[2, 8], masked=False, kw=dict(grad_loss=True), net=HASHGRID,
+                     field="hashgrid_field"),
 }
 
 
@@ -176,7 +191,8 @@ VARIANT_ENV = {"seg": "LIDARNERF_SEG_KERNELS", "win": "LIDARNERF_WIN_KERNELS"}
 @pytest.mark.parametrize(
     "case, variant",
     [pytest.param(c, v, id=c if v == "default" else f"{c}-{v}")
-     for v in ("default", "seg", "win") for c in CASES if v == "default" or c != "fast"],
+     for v in ("default", "seg", "win") for c in CASES
+     if v == "default" or c not in ("fast", "hashgrid")],
 )
 def test_train_step_matches_jax(field, case, variant, monkeypatch, request):
     """The port's step under each block-hash variant vs the JAX step.
@@ -190,7 +206,7 @@ def test_train_step_matches_jax(field, case, variant, monkeypatch, request):
     if variant != "default":
         monkeypatch.setenv(VARIANT_ENV[variant], "1")
     net_kw = {**NET, **CASES[case].get("net", {})}
-    module, params = request.getfixturevalue("seamless_field") if "net" in CASES[case] else field
+    module, params = request.getfixturevalue(CASES[case].get("field", "field"))
     patch, masked, kw = CASES[case]["patch"], CASES[case]["masked"], CASES[case]["kw"]
     occ = CASES[case].get("occ", False)
     tcfg_j, tcfg, rcfg_j, rcfg = _configs(occ, **kw)

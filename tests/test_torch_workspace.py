@@ -233,7 +233,8 @@ def _keeping(meter):
 
 
 def _jax_trainer(opt, workspace, **kw):
-    opt_j = cli_j.get_arg_parser().parse_args(TINY_ARGV + ["--path", opt.path])
+    opt_j = cli_j.get_arg_parser().parse_args(TINY_ARGV + ["--path", opt.path, "--encoding",
+                                                           opt.encoding])
     opt_j.enable_lidar = True
     opt_j.min_near = opt_j.min_near_lidar = opt_j.scale
     opt_j.H_lidar, opt_j.W_lidar, opt_j.intrinsics_lidar = 16, 64, (2.0, 26.9)
