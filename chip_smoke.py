@@ -23,7 +23,7 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
     from the port's seeded init, then a render of a training frame from the
     trained weights. Every training path trains through the fused epoch
     (`--fuse_epoch 1`): each step replays a CUDA graph of the step, and its
-    launches are counted on the card in a torch.profiler trace (a replay
+    launches are counted on the card by ops/device_counts.py (a replay
     runs no Python, so the wrappers count only the warm-up and capture);
   - training-graph: the default, --fast, seg and win steps (the last two on
     20-frame epochs; and, in the mvl phase, the masked one), eager and
@@ -173,10 +173,14 @@ def launch_counts():
 
 
 def reset_counts():
-    from lidarnerf_tpu_torch.ops import block_hash_cuda, fused_mlp_cuda, perm_gather_cuda
+    """Zero the wrappers' counters and turn on the count on the card
+    (device_launches), so that the graphs captured from here on count their
+    replays."""
+    from lidarnerf_tpu_torch.ops import block_hash_cuda, device_counts, fused_mlp_cuda, perm_gather_cuda
 
     for module in (block_hash_cuda, fused_mlp_cuda, perm_gather_cuda):
         module.reset_counts()
+    device_counts.enable("cuda")
 
 
 def only_launches(counts, expected):
@@ -195,26 +199,22 @@ TRACE_TAIL_S = 0.5
 
 @contextlib.contextmanager
 def device_launches():
-    """Count the port's kernels that run on the card within the block, in a
-    torch.profiler trace of the CUDA activity: each node of a replayed CUDA
-    graph is a kernel record of its own there, while the wrappers' counters,
-    which count where Python calls a wrapper, see no replay. Yields
+    """Count the port's kernels that run on the card within the block
+    (ops/device_counts.py: each wrapper adds one to its kernel's slot on the
+    card right after its launch, on its stream, so a replayed CUDA graph adds
+    once per launch it holds), while the wrappers' own counters, which count
+    where Python calls a wrapper, see no replay. Counting is on from
+    reset_counts(), so graphs captured before the block count too. Yields
     {kernel name: kernels that ran}, filled when the block ends."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from lidarnerf_tpu_torch.ops import device_counts
 
+    device_counts.enable("cuda")
+    torch.cuda.synchronize()
+    device_counts.reset()
     counts = {}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        yield counts
-        torch.cuda.synchronize()
-        time.sleep(TRACE_TAIL_S)
-    counts.update(kernel_records(prof.key_averages(), DeviceType))
-
-
-def kernel_records(averages, device_type):
-    """{kernel name: records} of the port's kernels in a profile's key averages."""
-    ran = [(e.key, e.count) for e in averages if e.device_type == device_type.CUDA]
-    return {k: sum(n for key, n in ran if key.startswith(k + "_kernel")) for k in launch_counts()}
+    yield counts
+    torch.cuda.synchronize()
+    counts.update(device_counts.counts())
 
 
 def training_launches(per_step, steps, extra=None):
@@ -248,18 +248,22 @@ def gpu_line():
 
 def cuda_ms(fn, reps, batches=5, warmup=2):
     """Device time of one fn() call: the median over `batches` of the mean of
-    `reps` back-to-back calls between two CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(batches):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
+    `reps` back-to-back calls between two CUDA events. The count on the card
+    is paused: a wrapper timed here launches its kernel alone."""
+    from lidarnerf_tpu_torch.ops import device_counts
+
+    with device_counts.paused():
+        for _ in range(warmup):
             fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
+        times = []
+        for _ in range(batches):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
@@ -816,8 +820,7 @@ def train_slice_phase(ds):
         f"2^{opt.log2_hashmap_size} table, bf16 MLPs; ms/step by epoch "
         f"(patch 1, [2, 8], 1): {', '.join(f'{t:.2f}' for t in per_step)}; warm "
         f"{warm:.2f} ms/step = {n / warm * 1e3:.0f} rays/s = "
-        f"{n * samples / warm / 1e3:.1f}M composited ray-samples/s (under a trace of the CUDA "
-        f"activity); peak memory {peak / 2**30:.2f} GiB; {graphs} graphs; launches at the "
+        f"{n * samples / warm / 1e3:.1f}M composited ray-samples/s; peak memory {peak / 2**30:.2f} GiB; {graphs} graphs; launches at the "
         f"wrappers {launches}, on the card {device}")
     return trainer, init_sd, launches, warm
 
@@ -1228,13 +1231,14 @@ def same_training_state(a, b):
 def busy_ms_per_step(trainer, ds, epoch):
     """One more epoch under torch.profiler: (device busy ms per step, the
     device timeline's span per step from its first kernel to its last,
-    kernels, {kernel name: records of the port's kernels}). Busy is the union
-    of the kernels' intervals, so the idle share 1 - busy / span counts the
-    gaps between kernels."""
+    kernels, {kernel name: the port's kernels that ran on the card}
+    (device_launches)). Busy is the union of the kernels' intervals, so the
+    idle share 1 - busy / span counts the gaps between kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_launches() as launched, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train(ds, None, max_epochs=epoch)
         torch.cuda.synchronize()
         time.sleep(TRACE_TAIL_S)
@@ -1245,8 +1249,7 @@ def busy_ms_per_step(trainer, ds, epoch):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     span = spans[-1][1] - spans[0][0] if spans else 0.0
-    return (busy / 1e3 / len(ds), span / 1e3 / len(ds), len(spans),
-            kernel_records(prof.key_averages(), DeviceType))
+    return busy / 1e3 / len(ds), span / 1e3 / len(ds), len(spans), launched
 
 
 def graph_pool_bytes(handle=None):
@@ -1739,8 +1742,7 @@ def train_fast_phase(ds, default_ms):
         f"{', '.join(f'{t:.2f}' for t in per_step)} (default path warm {default_ms:.2f}); loss "
         f"mean of the first 10 steps {first:.4f}, of the last 10 {last:.4f} "
         f"({100 * (1 - last / first):.1f}% lower); grid occupied {100 * share:.2f}% "
-        f"({100 * dilated:.2f}% dilated), max {trainer.occ_grid.max().item():.1f} (under a trace "
-        f"of the CUDA activity); launches at the wrappers {launches}, on the card {device}")
+        f"({100 * dilated:.2f}% dilated), max {trainer.occ_grid.max().item():.1f}; launches at the wrappers {launches}, on the card {device}")
     log(f"occupancy refresh: {refresh_ms:.3f} ms each (B1 alone at Q={x01.shape[0]} uniform "
         f"points: {b1_ms:.4f} ms, bound {b1_bound:.4f} ms by {b1_by}: {b1_bytes / 1e6:.1f} MB)")
     if not last <= 0.75 * first:
@@ -2048,7 +2050,7 @@ def cli_phase():
     epochs, evals = events(trained, "epoch"), events(trained, "eval")
     per_step = [1e3 * e["seconds"] / e["steps"] for e in epochs]
     log(f"cli train on {gpu}: ms/step by epoch (patch 1, [2, 8], 1): "
-        f"{', '.join(f'{t:.2f}' for t in per_step)} (under a trace of the CUDA activity); peak "
+        f"{', '.join(f'{t:.2f}' for t in per_step)}; peak "
         f"memory of train -> evaluate -> test -> mesh (captured steps) {peak[0] / 2**30:.2f} GiB "
         f"allocated, {peak[1] / 2**30:.2f} GiB reserved")
     frames = sum(e["frames"] for e in evals)
@@ -2285,8 +2287,8 @@ def mvl_phase():
 
     epochs, evals = events(trained, "epoch"), events(trained, "eval")
     per_step = [1e3 * e["seconds"] / e["steps"] for e in epochs]
-    log(f"mvl train on {gpu}: ms/step by epoch: {', '.join(f'{t:.2f}' for t in per_step)} "
-        f"(under a trace of the CUDA activity); peak memory of train -> evaluate -> test -> mesh "
+    log(f"mvl train on {gpu}: ms/step by epoch: {', '.join(f'{t:.2f}' for t in per_step)}; "
+        f"peak memory of train -> evaluate -> test -> mesh "
         f"(captured steps) {peak[0] / 2**30:.2f} GiB allocated, {peak[1] / 2**30:.2f} GiB reserved")
     frames = sum(e["frames"] for e in evals)
     render = 1e3 * sum(e["render_s"] for e in evals) / frames
@@ -2536,7 +2538,7 @@ def onramp_phase():
             f"{res['scale']!r} against the baked {res['baked_scale']!r} (ratio "
             f"{res['scale'] / res['baked_scale']:.3f}), offset {[float(v) for v in res['offset']]}, "
             f"near {res['near']:.3f}, far {res['far']:.3f}; smoke train "
-            f"{res['trainer'].global_step} steps (stage 5 under a trace of the CUDA activity); "
+            f"{res['trainer'].global_step} steps; "
             f"launches at the wrappers {check_launches}, on the card {check_device}")
         offset, scale = res["offset"], res["scale"]
         del res
@@ -2564,8 +2566,7 @@ def onramp_phase():
         log(f"onramp train on {gpu}: {epochs * n_train} steps at "
             f"configs/kitti360_1908.txt -L width, ms/step by epoch "
             f"{', '.join(f'{t:.2f}' for t in per_step)} (each the first epoch of its patch size, "
-            f"its graph's eager warm-up and capture included; under a trace of the CUDA "
-            f"activity); launches at "
+            f"its graph's eager warm-up and capture included); launches at "
             f"the wrappers {train_launches}, on the card {device}; --test_eval {test_launches}")
         log(f"onramp train on {gpu}: epochs of graph replay only: " + "; ".join(
             f"epoch {e} (patch {p}, {'traced' if t else 'untraced'}) {ms:.2f} ms/step"
@@ -2930,6 +2931,7 @@ def main():
     from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
 
     set_variant("default")  # the default paths first; each variant phase sets its switch
+    reset_counts()  # the count on the card is on from here
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"gpu: {gpu_line()}")

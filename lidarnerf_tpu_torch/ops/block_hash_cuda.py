@@ -19,14 +19,15 @@ wrappers never fall back to the plain versions: they launch the kernel
 or raise. Each has its own launch count (`launches`, `bwd_launches`,
 `seg_fwd_launches`, `seg_bwd_launches`, `win_fwd_launches`,
 `win_bwd_launches`; `launch_counts()` reads all six), so a run can show that
-its main path went through the kernels.
+its main path went through the kernels; `device_counts` counts them on the
+card, graph replays included.
 """
 
 import ctypes
 
 import torch
 
-from lidarnerf_tpu_torch.ops import block_hash, cuda_lib
+from lidarnerf_tpu_torch.ops import block_hash, cuda_lib, device_counts
 
 SOURCE = "block_hash_fwd.cu"
 BWD_SOURCE = "block_hash_bwd.cu"
@@ -135,6 +136,7 @@ def _launch(name, source, variant, x, other, out, spec, scratch=None):
                  spec.num_levels, spec.blocks_per_level, *_level_arrays(spec, variant), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    device_counts.add(name, x.device)
 
 
 def _fwd(name, source, variant, x, table, spec):

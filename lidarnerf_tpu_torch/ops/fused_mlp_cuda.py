@@ -3,14 +3,15 @@
 Replaces lidarnerf_tpu/ops/fused_mlp.py::fused_mlp_inference; its plain
 PyTorch version is `ops/fused_mlp.py::mlp_reference`. The wrapper launches
 the kernel or raises: it never falls back to the plain version. `launches`
-counts its launches (`launch_counts()` reads it by kernel name).
+counts its launches (`launch_counts()` reads it by kernel name);
+`device_counts` counts them on the card, graph replays included.
 """
 
 import ctypes
 
 import torch
 
-from lidarnerf_tpu_torch.ops import cuda_lib
+from lidarnerf_tpu_torch.ops import cuda_lib, device_counts
 
 SOURCE = "fused_mlp.cu"
 PLAN = "fused_mlp_plan.cuh"  # the limits and shared-memory plans of both routes
@@ -131,5 +132,6 @@ def fused_mlp_fwd(x: torch.Tensor, weights, final_activation: str = "none") -> t
                         int(dtype == torch.bfloat16), ACTIVATIONS[final_activation], stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp launch failed: cudaError {err}")
+    device_counts.add("fused_mlp", x.device)
     launches += 1
     return out

@@ -5,14 +5,15 @@ directions; their plain PyTorch versions are `ops/perm_gather.py::
 scatter_by_inverse` (forward) and `gather_by_inverse` (backward). The
 wrappers launch the kernel or raise: they never fall back to the plain
 versions or to `torch.gather`. Each direction has its own launch count
-(`fwd_launches`, `bwd_launches`; `launch_counts()` reads both).
+(`fwd_launches`, `bwd_launches`; `launch_counts()` reads both);
+`device_counts` counts them on the card, graph replays included.
 """
 
 import ctypes
 
 import torch
 
-from lidarnerf_tpu_torch.ops import cuda_lib
+from lidarnerf_tpu_torch.ops import cuda_lib, device_counts
 
 SOURCE = "perm_gather.cu"
 SMEM_LIMIT = 232448  # csrc/perm_gather.cu
@@ -73,6 +74,7 @@ def _launch(name, src, inv_order, transpose):
                         int(transpose), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    device_counts.add(name, src.device)
     return out, True
 
 

@@ -8,7 +8,6 @@ Each kernel is held against its plain PyTorch version on the same inputs.
 import ctypes
 import re
 import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
@@ -929,20 +928,18 @@ def _same_state(a, b):
 
 
 def _device_launches(fn):
-    """fn() under torch.profiler: {kernel wrapper name: its kernels that ran
-    on the card}, replays of a CUDA graph included (each graph node is a
-    kernel record of its own)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """fn() with the count on the card on (ops/device_counts.py): {kernel
+    wrapper name: its kernels that ran on the card}, replays of a CUDA graph
+    included (each replay runs the add captured beside each launch)."""
+    from lidarnerf_tpu_torch.ops import device_counts
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        time.sleep(0.5)  # the trace loses the kernels it receives after it stops
-    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-             for _ in range(e.count)]
-    return {k: sum(n.startswith(k + "_kernel") for n in names)
-            for k in block_hash_cuda.launch_counts()}
+    device_counts.enable("cuda")
+    torch.cuda.synchronize()
+    device_counts.reset()
+    fn()
+    torch.cuda.synchronize()
+    counts = device_counts.counts()
+    return {k: counts[k] for k in block_hash_cuda.launch_counts()}
 
 
 @pytest.mark.parametrize("case", ["default", "seg", "win", "fast", "masked"])
