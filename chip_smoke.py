@@ -65,7 +65,17 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
     steps each of tiledgrid, periodic_volume and frequency at full width;
   - rgb: an RGB frame at KITTI-360's perspective size (376 x 1408) through
     the full-width hashgrid model in fp32, over the background sphere and
-    over white, held against the CPU on a subset of its rays.
+    over white, held against the CPU on a subset of its rays;
+  - baselines: the classical LiDAR-NVS baselines (lidarnerf_tpu_torch/lidarnvs)
+    on the drive at full width: PCGen fitted on the 60 train frames (~4M
+    points), both test frames by cp and fpa, evaluated with the Chamfer on
+    the card; the ray-drop MLP of lidarnvs/configs/pcgen_kitti360_raydrop.txt
+    trained on PCGen's ray-drop data (2,000 of its 10,000 iterations) and
+    applied; the UNet ray-drop net (64-...-1024) trained 2 epochs at batch 2
+    on 66 x 1030 frames built from PCGen's panos; both nets held against the
+    CPU; the baseline CLIs (`run` evaluating and collecting,
+    `raydrop_train_pcgen`, `raydrop_train_poisson`), and `run --method
+    poisson` raising open3d's ImportError. No kernel of the port runs.
 It checks that each path went through its kernels and that its output is
 right, and profiles one render chunk and one training step per variant.
 B1 and B2 are also checked on adversarial point sets (one cell, runs
@@ -2922,6 +2932,348 @@ def rgb_phase():
     return launch_counts()
 
 
+# the baselines phase: the classical LiDAR-NVS baselines of lidarnerf_tpu_torch/lidarnvs/
+# on the drive at full width (66 x 1030 panos, the UNet 64-...-1024, the MLP of
+# the repo's KITTI-360 ray-drop config), cut in length only
+BASELINE_CONFIG = "lidarnvs/configs/pcgen_kitti360_raydrop.txt"  # D 4, W 128, i_embed -1, lrate 5e-3
+BASELINE_COLLECT_EVERY = 5  # the ray-drop data: every 5th train frame (12 of 60), both test frames
+BASELINE_MLP_ITERS = 2000  # of the config's 10,000
+BASELINE_UNET_EPOCHS = 2
+BASELINE_UNET_BATCH = 2  # raydrop_train_poisson's default
+BASELINE_CLI_FRAMES = (6, 2)  # the CLI's collect mode and its Poisson check: train, test frames
+BASELINE_MLP_ATOL = 1e-5  # x max|logit|: card vs CPU, fp32, TF32 off
+BASELINE_UNET_ATOL = 1e-4  # x max|logit|: card vs CPU, fp32 cuDNN, TF32 off
+
+
+class FrameSubset:
+    """The frames `idx` of a dataset, with the fields the baselines read."""
+
+    def __init__(self, ds, idx):
+        self.poses_lidar, self.images_lidar = ds.poses_lidar[idx], ds.images_lidar[idx]
+        self.intrinsics_lidar, self.H_lidar, self.W_lidar = ds.intrinsics_lidar, ds.H_lidar, ds.W_lidar
+
+    def __len__(self):
+        return len(self.poses_lidar)
+
+
+def baseline_datasets(root):
+    """The train and test splits of `root` as `python -m lidarnerf_tpu_torch.lidarnvs.run` loads them."""
+    from lidarnerf_tpu_torch.lidarnvs import run
+
+    return run.build_datasets(run.build_parser().parse_args(["--path", root]))
+
+
+def cut_drive(root, n_train, n_test):
+    """A copy of DATA with its first n_train train and n_test test frames."""
+    import shutil
+
+    os.makedirs(root)
+    for split, n in (("train", n_train), ("test", n_test)):
+        with open(f"{DATA}/transforms_1908_{split}.json") as f:
+            meta = json.load(f)
+        meta["frames"] = meta["frames"][:n]
+        for fr in meta["frames"]:
+            shutil.copy(f"{DATA}/{fr['lidar_file_path']}", root)
+        with open(f"{root}/transforms_1908_{split}.json", "w") as f:
+            json.dump(meta, f)
+
+
+def timed(fn):
+    """(fn(), seconds) on the host clock, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profile_calls(fn, what, top=8):
+    """Device time by kernel and operator, and the idle share, of fn() (ending
+    on a synchronize), under torch.profiler; fn is called once before, warm."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_TAIL_S)
+    return profile_summary(prof, wall_ms, what, top)
+
+
+def metrics_line(m):
+    return ", ".join(f"{k} {float(v):.4f}" for k, v in m.items())
+
+
+def pcgen_phase(train, test, gpu):
+    """PCGen fitted on the 60 train frames; both test frames predicted by cp
+    and fpa, evaluated with the Chamfer on the card. Returns the fitted model
+    (set to cp) and cp's mean metrics."""
+    from lidarnerf_tpu_torch.lidarnvs.eval import eval_points_and_pano
+    from lidarnerf_tpu_torch.lidarnvs.loader import extract_dataset_frame
+    from lidarnerf_tpu_torch.lidarnvs.pcgen import LidarNVSPCGen
+
+    gts = [extract_dataset_frame(test, i) for i in range(len(test))]
+    nvs = LidarNVSPCGen()
+    _, fit_s = timed(lambda: nvs.fit(train))
+    means = {}
+    for rc in ("fpa", "cp"):
+        nvs.raycasting = rc
+        pred_s = eval_s = 0.0
+        ms = []
+        for gt in gts:
+            pd, s = timed(lambda: nvs.predict_frame(gt["lidar_K"], gt["lidar_pose"],
+                                                    gt["lidar_H"], gt["lidar_W"]))
+            pred_s += s
+            m, s = timed(lambda: eval_points_and_pano(
+                gt["local_points"], pd["local_points"], gt["intensities"], pd["intensities"],
+                gt["pano"], pd["pano"]))
+            eval_s += s
+            if pd["pano"].shape != (H, W) or not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"baselines pcgen {rc}: a pano or a metric is wrong: {m}")
+            ms.append(m)
+        means[rc] = {k: float(np.mean([m[k] for m in ms])) for k in ms[0]}
+        log(f"baselines pcgen ({rc}) on {gpu}: fit {fit_s:.2f} s ({len(nvs.points)} world points "
+            f"from {len(train)} frames); predict {1e3 * pred_s / len(gts):.1f} ms/frame, eval "
+            f"(Chamfer on the card) {1e3 * eval_s / len(gts):.1f} ms/frame; mean over "
+            f"{len(gts)} test frames: {metrics_line(means[rc])}")
+    if not 0.5 < means["cp"]["f_score"] <= 1.0:
+        raise AssertionError(f"baselines pcgen: cp's F-score {means['cp']['f_score']} is no fit")
+    return nvs, means["cp"]
+
+
+def mlp_phase(nvs, train, test, cp_mean, work, gpu):
+    """The ray-drop MLP: PCGen's ray-drop data (every 5th train frame, both
+    test frames) packed, trained on the card with the repo's config cut to
+    BASELINE_MLP_ITERS, its loss falling 25%; the masked prediction of the
+    test frames; the card against the CPU on a test frame's rays. Returns the
+    train and test data."""
+    from lidarnerf_tpu_torch.lidarnvs import raydrop_train_pcgen
+    from lidarnerf_tpu_torch.lidarnvs.eval import eval_points_and_pano
+    from lidarnerf_tpu_torch.lidarnvs.loader import extract_dataset_frame
+    from lidarnerf_tpu_torch.lidarnvs.pcgen import LidarNVSPCGen, generate_raydrop_data_pcgen
+    from lidarnerf_tpu_torch.lidarnvs.raydrop_pcgen import RayDropTrainer, pack_rays, run_network
+
+    sub = FrameSubset(train, slice(None, None, BASELINE_COLLECT_EVERY))
+    data, collect_s = timed(lambda: {"train": generate_raydrop_data_pcgen(sub, nvs),
+                                     "test": generate_raydrop_data_pcgen(test, nvs)})
+    rays_all = pack_rays(*data["train"])
+    args = raydrop_train_pcgen.build_parser().parse_args(
+        ["--config", BASELINE_CONFIG, "--N_iters", str(BASELINE_MLP_ITERS),
+         "--basedir", work, "--expname", "mlp"])
+    trainer = RayDropTrainer(
+        netdepth=args.netdepth, netwidth=args.netwidth, multires=args.multires,
+        multires_views=args.multires_views, i_embed=args.i_embed, lrate=args.lrate,
+        lrate_decay=args.lrate_decay, n_iters=args.N_iters, cos_lr=args.cosLR,
+        loss=args.rgb_loss_type, basedir=args.basedir, expname=args.expname)
+    on_card = torch.from_numpy(rays_all).cuda()
+    with torch.no_grad():
+        before = float(trainer.loss_fn(on_card))
+    _, train_s = timed(lambda: trainer.train(rays_all, N_rand=args.N_rand, verbose=False))
+    with torch.no_grad():
+        after = float(trainer.loss_fn(on_card))
+    losses = trainer.loss_log.cpu().numpy()
+    ms_it = 1e3 * train_s / args.N_iters
+    hits = float(rays_all[:, 5].mean())
+    log(f"baselines ray-drop MLP on {gpu}: D {args.netdepth}, W {args.netwidth}, i_embed "
+        f"{args.i_embed} ({trainer.input_ch} inputs), {len(rays_all)} rays from "
+        f"{len(sub)} frames (collected in {collect_s:.1f} s with the test frames; "
+        f"{100 * hits:.2f}% returns), {args.N_iters} iterations of {args.N_rand}: "
+        f"{ms_it:.3f} ms/iteration, {args.N_rand * args.N_iters / train_s:.3e} rays/s")
+    # the whole training set's loss before and after: the seeded init
+    # already predicts a return for nearly every ray with a depth, and the
+    # MLP learns the no-depth rays within a few steps, so the batch losses'
+    # first and last 10 differ by their sampling noise only
+    log(f"baselines ray-drop MLP: loss of the whole training set {before:.5f} at init, "
+        f"{after:.5f} trained ({100 * (1 - after / before):.1f}% lower; a constant "
+        f"{hits:.4f} would score {hits * (1 - hits):.5f}); batch losses, mean of the first "
+        f"10 {losses[:10].mean():.5f}, of the last 10 {losses[-10:].mean():.5f}")
+    if not np.isfinite(losses).all() or not after <= 0.75 * before:
+        raise AssertionError("baselines ray-drop MLP: training lowered the loss by less than 25%")
+
+    ckpt = trainer.save_checkpoint(args.N_iters)
+    masked = LidarNVSPCGen(raycasting="cp", ckpt_path=ckpt)
+    masked.points, masked.point_intensities = nvs.points, nvs.point_intensities
+    ms, pred_s = [], 0.0
+    for i in range(len(test)):
+        gt = extract_dataset_frame(test, i)
+        pd, s = timed(lambda: masked.predict_frame_with_raydrop(
+            gt["lidar_K"], gt["lidar_pose"], gt["lidar_H"], gt["lidar_W"]))
+        pred_s += s
+        ms.append(eval_points_and_pano(gt["local_points"], pd["local_points"], gt["intensities"],
+                                       pd["intensities"], gt["pano"], pd["pano"]))
+    mean = {k: float(np.mean([m[k] for m in ms])) for k in ms[0]}
+    if not all(np.isfinite(v) for v in mean.values()):
+        raise AssertionError(f"baselines ray-drop MLP: a masked metric is not finite: {mean}")
+    log(f"baselines pcgen (cp) + ray-drop MLP on {gpu}: predict with the mask "
+        f"{1e3 * pred_s / len(test):.1f} ms/frame; mean over {len(test)} test frames with the "
+        f"mask: {metrics_line(mean)}; without: {metrics_line(cp_mean)}")
+
+    # card against CPU on one test frame's rays
+    x = torch.from_numpy(pack_rays(*(d[:1] for d in data["test"]))[:, :5])
+    cpu = RayDropTrainer(netdepth=args.netdepth, netwidth=args.netwidth, i_embed=args.i_embed,
+                         device="cpu")
+    cpu.load_checkpoint(ckpt)
+    with torch.no_grad():
+        want = run_network(x, cpu.model, cpu.embed_fn, cpu.embeddirs_fn)
+        got = run_network(x.cuda(), trainer.model, trainer.embed_fn, trainer.embeddirs_fn).cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"baselines ray-drop MLP card vs CPU ({len(x)} rays, fp32, TF32 off): max |logit diff| "
+        f"{err:.3e} of max |logit| {scale:.3e} (bound {BASELINE_MLP_ATOL} x max)")
+    if not err <= BASELINE_MLP_ATOL * scale:
+        raise AssertionError("baselines ray-drop MLP: the card disagrees with the CPU")
+    batches = on_card[:10 * args.N_rand].split(args.N_rand)
+    profile_calls(lambda: [trainer.step(b) for b in batches],
+                  f"10 ray-drop MLP iterations of {args.N_rand} rays")
+    return data
+
+
+def unet_frames(data, split_ds):
+    """The UNet's frames (RaydropDataset's pickle layout) from PCGen's ray-drop
+    data: hit_masks, hit_depths and intensities from PCGen's predicted pano,
+    rays_d the world ray directions, hit_normals and hit_incidences zeros
+    (no mesh, so no normals), raydrop_masks the ground truth's pano > 0."""
+    dirs, panos, intensities, gt_panos = data
+    frames = []
+    for k, (d, pano, inten, gt) in enumerate(zip(dirs, panos, intensities, gt_panos)):
+        rot = np.asarray(split_ds.poses_lidar[k])[:3, :3]
+        frames.append({
+            "hit_masks": (pano > 0).astype(np.float32), "hit_depths": pano.astype(np.float32),
+            "hit_normals": np.zeros((H, W, 3), np.float32),
+            "hit_incidences": np.zeros((H, W), np.float32),
+            "intensities": inten.astype(np.float32), "rays_d": (d @ rot.T).astype(np.float32),
+            "raydrop_masks": (gt > 0).astype(np.float32)})
+    return frames
+
+
+def unet_phase(data, train, test, work, gpu):
+    """UNetRaydropTrainer at the CLI's batch 2 for BASELINE_UNET_EPOCHS epochs
+    on the card, its epoch loss falling; ms/step, the test dice, peak memory;
+    the card against the CPU on one frame in evaluation mode; the CLI resuming
+    from its checkpoint for one epoch."""
+    import pickle
+
+    from lidarnerf_tpu_torch.lidarnvs import raydrop_train_poisson
+    from lidarnerf_tpu_torch.lidarnvs.raydrop_unet import RaydropDataset, UNetRaydropTrainer
+
+    root = os.path.join(work, "unet_data")
+    os.makedirs(root)
+    sub = FrameSubset(train, slice(None, None, BASELINE_COLLECT_EVERY))
+    for split, ds in (("train", sub), ("test", test)):
+        with open(f"{root}/{split}_data.pkl", "wb") as f:
+            pickle.dump(unet_frames(data[split], ds), f)
+    trainer = UNetRaydropTrainer()
+    torch.cuda.reset_peak_memory_stats()
+    hist, train_s = timed(lambda: trainer.train(root, f"{work}/unet_ckpt",
+                                                epochs=BASELINE_UNET_EPOCHS,
+                                                batch_size=BASELINE_UNET_BATCH, verbose=False))
+    peak = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    images, masks = RaydropDataset.collate(RaydropDataset(root, "train")[:BASELINE_UNET_BATCH])
+    on_card = torch.from_numpy(images).cuda(), torch.from_numpy(masks).cuda()
+    step_ms = cuda_ms(lambda: trainer.step(*on_card, trainer._lr_scale), reps=5, batches=3,
+                      warmup=1)
+    profile_calls(lambda: trainer.step(*on_card, trainer._lr_scale),
+                  f"one UNet ray-drop step (batch {BASELINE_UNET_BATCH}, {H}x{W})")
+    steps = sum(len(h["losses"]) for h in hist)
+    log(f"baselines UNet ray-drop on {gpu}: {len(sub)} train frames of {H}x{W}, batch "
+        f"{BASELINE_UNET_BATCH}, {BASELINE_UNET_EPOCHS} epochs = {steps} steps in {train_s:.2f} s "
+        f"(first-call cuDNN set-up and test evaluations included); {step_ms:.2f} ms/step warm; "
+        f"epoch losses {[round(h['loss'], 5) for h in hist]}, test dice "
+        f"{[round(h['dice'], 5) for h in hist]}; peak {peak[0] / 2**30:.2f} GiB allocated, "
+        f"{peak[1] / 2**30:.2f} GiB reserved")
+    finite = all(np.isfinite(h["losses"]).all() for h in hist)
+    if not finite or not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"baselines UNet: the epoch loss did not fall: {hist}")
+
+    cpu = UNetRaydropTrainer(device="cpu")
+    cpu.load_checkpoint(f"{work}/unet_ckpt/checkpoint_epoch{BASELINE_UNET_EPOCHS}.ckpt")
+    x = torch.from_numpy(images[:1])
+    with torch.no_grad():
+        trainer.load_checkpoint(f"{work}/unet_ckpt/checkpoint_epoch{BASELINE_UNET_EPOCHS}.ckpt")
+        trainer.model.eval()
+        got = trainer.model.predict_nhwc(x.cuda()).cpu()
+        want = cpu.model.eval().predict_nhwc(x)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    log(f"baselines UNet card vs CPU (one {H}x{W} frame, evaluation mode, fp32, TF32 off): max "
+        f"|logit diff| {err:.3e} of max |logit| {scale:.3e} (bound {BASELINE_UNET_ATOL} x max)")
+    if not err <= BASELINE_UNET_ATOL * scale:
+        raise AssertionError("baselines UNet: the card disagrees with the CPU")
+    del trainer
+    torch.cuda.empty_cache()
+    hist = raydrop_train_poisson.main(
+        ["--data_dir", root, "--ckpt_dir", f"{work}/unet_cli", "--epochs", "1", "--load",
+         f"{work}/unet_ckpt/checkpoint_epoch{BASELINE_UNET_EPOCHS}.ckpt"])
+    if len(hist) != 1 or not os.path.exists(f"{work}/unet_cli/checkpoint_epoch1.ckpt"):
+        raise AssertionError("baselines: raydrop_train_poisson did not train and save an epoch")
+
+
+def baseline_cli_phase(pcgen_mean, work, gpu):
+    """The baseline CLIs on the card: `run` in the eval mode on the drive (its
+    mean metrics those of the pcgen phase's cp), in the collect mode on a cut
+    copy, `raydrop_train_pcgen` with the repo's config on those pickles, and
+    `--method poisson`, which must raise open3d's ImportError."""
+    from lidarnerf_tpu_torch.lidarnvs import raydrop_train_pcgen, run
+    from lidarnerf_tpu_torch.lidarnvs.pcgen import LidarNVSPCGen
+
+    os.environ.pop("LIDARNERF_PLATFORM", None)  # the CLIs' device: the card
+    mean, eval_s = timed(lambda: run.main(["--method", "pcgen", "--path", DATA]))
+    for k, v in pcgen_mean.items():
+        if not np.isclose(mean[k], v, rtol=1e-6, atol=0):
+            raise AssertionError(f"baselines cli: run's mean {k} {mean[k]} != the phase's {v}")
+    cut = os.path.join(work, "cut")
+    cut_drive(cut, *BASELINE_CLI_FRAMES)
+    _, collect_s = timed(lambda: run.main(["--method", "pcgen", "--path", cut,
+                                           "--enable_collect_raydrop_dataset",
+                                           "--raydrop_data_dir", f"{work}/raydrop"]))
+    pkl = f"{work}/raydrop/pcgen/kitti360_1908"
+    trainer, mlp_s = timed(lambda: raydrop_train_pcgen.main(
+        ["--config", BASELINE_CONFIG, "--datadir", pkl, "--basedir", f"{work}/log",
+         "--N_iters", "200", "--i_print", "100"]))
+    LidarNVSPCGen(ckpt_path=f"{work}/log/raysdrop/000200.ckpt")
+    try:
+        run.main(["--method", "poisson", "--path", cut])
+    except ImportError as e:
+        if "open3d" not in str(e):
+            raise
+        log(f"baselines cli: --method poisson raised, as it must without open3d: {e}")
+    else:
+        raise AssertionError("baselines cli: --method poisson ran without open3d")
+    log(f"baselines cli on {gpu}: run --method pcgen (fit the train split, evaluate the test "
+        f"split) {eval_s:.1f} s, the same mean metrics; the collect mode on "
+        f"{BASELINE_CLI_FRAMES[0]} + {BASELINE_CLI_FRAMES[1]} frames {collect_s:.1f} s; raydrop_train_pcgen with "
+        f"{BASELINE_CONFIG} for 200 iterations {mlp_s:.1f} s (loss "
+        f"{float(trainer.loss_log[:10].mean()):.4f} -> {float(trainer.loss_log[-10:].mean()):.4f})")
+
+
+def baselines_phase():
+    """The classical baselines at full width in a temporary directory outside
+    the repo, removed afterwards; no kernel of the port runs (B1-B6: 0 on the
+    card and at the wrappers). Returns the wrappers' launch counts."""
+    import shutil
+    import tempfile
+
+    gpu = gpu_line()
+    train, test = baseline_datasets(DATA)
+    work = tempfile.mkdtemp(prefix="lidarnerf_baselines_")
+    reset_counts()
+    try:
+        with device_launches() as on_card:
+            nvs, cp_mean = pcgen_phase(train, test, gpu)
+            data = mlp_phase(nvs, train, test, cp_mean, work, gpu)
+            del nvs
+            unet_phase(data, train, test, work, gpu)
+            baseline_cli_phase(cp_mean, work, gpu)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    only_launches(launch_counts(), {})
+    only_launches(on_card, {})
+    log(f"baselines: B1-B6 launches on the card {on_card}, at the wrappers {launch_counts()}")
+    return launch_counts()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3032,6 +3384,11 @@ def main():
     torch.cuda.empty_cache()
     paths["rgb"] = rgb_phase()
     phase_done("rgb")
+
+    # the classical baselines: PCGen, the ray-drop MLP and UNet, the baseline CLIs
+    torch.cuda.empty_cache()
+    paths["baselines"] = baselines_phase()
+    phase_done("baselines")
 
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())

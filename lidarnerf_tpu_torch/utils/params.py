@@ -13,6 +13,11 @@ under periodic_volume, and absent under frequency and None; `bg_table`
 The optimizer state travels in optax's layout (`optimizer_to_jax`,
 `optimizer_from_jax`). `load_state` reads either package's pickle
 checkpoints without JAX.
+
+The classical baselines' nets (lidarnvs/) cross the same way: the ray-drop
+MLP's `Dense_i` {kernel [in, out], bias} is `layers.i` {weight [out, in],
+bias} (`raydrop_params_*`), and the UNet's flax tree (`params` and
+`batch_stats`) is the port UNet's state_dict (`unet_params_*`).
 """
 
 import os
@@ -185,3 +190,93 @@ def load_jax_occ_grid(path):
     """
     grid = load_state(path).get("occ_grid")
     return None if grid is None else np.asarray(grid, dtype=np.float32)
+
+
+def raydrop_params_from_jax(tree) -> dict:
+    """The ray-drop MLP's flax tree ({"params": {"Dense_i": {kernel, bias}}}) -> RayDrop
+    state_dict."""
+    p = tree.get("params", tree)
+    sd = {}
+    for name, layer in p.items():
+        i = int(name.removeprefix("Dense_"))
+        sd[f"layers.{i}.weight"] = torch.from_numpy(np.array(layer["kernel"], np.float32).T.copy())
+        sd[f"layers.{i}.bias"] = torch.from_numpy(np.array(layer["bias"], np.float32))
+    return sd
+
+
+def raydrop_params_to_jax(state_dict) -> dict:
+    """RayDrop state_dict -> the JAX trainer's `params` tree, numpy leaves."""
+    p = {}
+    for key, value in state_dict.items():
+        i, kind = key.removeprefix("layers.").split(".")
+        leaf = value.detach().cpu().numpy()
+        p.setdefault(f"Dense_{i}", {})["kernel" if kind == "weight" else "bias"] = (
+            leaf.T.copy() if kind == "weight" else leaf.copy())
+    return {"params": p}
+
+
+# flax module names -> the port UNet's (lidarnvs/unet.py)
+_UNET_MODULES = {"DoubleConv_0": "inc", "Conv_0": "outc",
+                 **{f"Down_{i}": f"down{i + 1}" for i in range(4)},
+                 **{f"Up_{i}": f"up{i + 1}" for i in range(4)}}
+_UNET_INNER = {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2", "BatchNorm_1": "bn2",
+               "DoubleConv_0": "conv", "ConvTranspose_0": "up"}
+_UNET_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _unet_leaf_from_jax(path, leaf):
+    """One flax leaf -> (port name, tensor). Conv kernels HWIO -> OIHW; a
+    ConvTranspose kernel [kh, kw, in, out] -> ConvTranspose2d's [in, out, kh,
+    kw] flipped in space (flax's transposed conv is a dilated conv with the
+    kernel unflipped, transpose_kernel=False)."""
+    *mods, name = path
+    names = [_UNET_MODULES[mods[0]], *(_UNET_INNER[m] for m in mods[1:])]
+    leaf = np.array(leaf, np.float32)
+    if name == "kernel":
+        if mods[-1].startswith("ConvTranspose"):
+            leaf = leaf[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            leaf = leaf.transpose(3, 2, 0, 1)
+        name = "weight"
+    else:
+        name = _UNET_LEAVES[name]
+    return ".".join([*names, name]), torch.from_numpy(np.ascontiguousarray(leaf))
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, (*prefix, k))
+        else:
+            yield (*prefix, k), v
+
+
+def unet_params_from_jax(params, batch_stats) -> dict:
+    """The UNet trainer's flax `params` and `batch_stats` trees -> UNet state_dict."""
+    return dict(_unet_leaf_from_jax(path, leaf)
+                for tree in (params, batch_stats) for path, leaf in _flat(tree))
+
+
+def unet_params_to_jax(state_dict) -> tuple:
+    """UNet state_dict -> (params, batch_stats) flax trees with numpy leaves."""
+    modules = {v: k for k, v in _UNET_MODULES.items()}
+    inner = {v: k for k, v in _UNET_INNER.items()}
+    leaves = {v: k for k, v in _UNET_LEAVES.items()}
+    params, batch_stats = {}, {}
+    for key, value in state_dict.items():
+        *mods, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        path = [modules[mods[0]], *(inner[m] for m in mods[1:])]
+        leaf = value.detach().cpu().numpy()
+        if name == "weight" and leaf.ndim == 4:
+            leaf = leaf[:, :, ::-1, ::-1].transpose(2, 3, 0, 1) if path[-1].startswith(
+                "ConvTranspose") else leaf.transpose(2, 3, 1, 0)
+            name = "kernel"
+        else:
+            name = leaves[name]
+        tree = batch_stats if name in ("mean", "var") else params
+        for m in path:
+            tree = tree.setdefault(m, {})
+        tree[name] = np.ascontiguousarray(leaf)
+    return params, batch_stats

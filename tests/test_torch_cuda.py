@@ -1137,3 +1137,104 @@ def test_rgb_render_on_cuda_matches_the_cpu(require_cuda):
                              chunk=1024)
     for k in ("depth", "image", "weights_sum"):
         torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=1e-3, atol=1e-5)
+
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    """Full float32 products and convolutions on the card (cuDNN's TF32 is on by default)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def test_raydrop_mlp_on_cuda_matches_the_cpu(require_cuda, no_tf32):
+    """The PCGen ray-drop MLP (D 4, W 128, i_embed -1; its seeded init is made
+    on the CPU, so both devices start equal), on a full 66 x 1030 pano's rays:
+    the logits within 1e-5 of max|logit|, a batch's gradients within 1e-4 of
+    each leaf's max|g|, and three updates from the same gradients (the
+    card's fused Adam, the CPU's) within 1e-6 of each leaf's max|p|. Whole
+    runs are not compared: a step of Adam moves a weight by ~lr whatever the
+    size of its gradient, so gradients at the level of rounding move the two
+    devices' weights apart by ~lr within a few steps."""
+    from lidarnerf_tpu_torch.lidarnvs.raydrop_pcgen import RayDropTrainer, run_network
+
+    rs = np.random.RandomState(0)
+    n = 66 * 1030
+    dirs = rs.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.concatenate(
+        [dirs, rs.uniform(0, 80, (n, 1)), rs.uniform(size=(n, 1)), dirs[:, 2:3] < 0],
+        1).astype(np.float32))
+    gpu, cpu = RayDropTrainer(i_embed=-1, device="cuda"), RayDropTrainer(i_embed=-1, device="cpu")
+    with torch.no_grad():
+        want = run_network(rays[:, :5], cpu.model, cpu.embed_fn, cpu.embeddirs_fn)
+        got = run_network(rays[:, :5].cuda(), gpu.model, gpu.embed_fn, gpu.embeddirs_fn).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    batch = rays[:2048]
+    gpu.loss_fn(batch.cuda()).backward()
+    cpu.loss_fn(batch).backward()
+    for (k, a), b in zip(gpu.model.named_parameters(), cpu.model.parameters()):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=0,
+                                   atol=1e-4 * float(b.grad.abs().max()), msg=k)
+    grads = [p.grad.clone() for p in cpu.model.parameters()]
+    for _ in range(3):
+        for t in (gpu, cpu):
+            for p, g in zip(t.model.parameters(), grads):
+                p.grad = g.to(p.device)
+            t.optimizer.param_groups[0]["lr"] = t.lr_fn(t.count)
+            t.optimizer.step()
+            t.count += 1
+    for (k, a), b in zip(gpu.model.state_dict().items(), cpu.model.state_dict().values()):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6 * float(b.abs().max()), msg=k)
+
+
+@pytest.mark.parametrize("bilinear", [False, True], ids=["transposed", "bilinear"])
+def test_unet_on_cuda_matches_the_cpu(require_cuda, no_tf32, bilinear):
+    """The UNet (64-...-1024) on one full 66 x 1030 frame from the same
+    weights: evaluation-mode logits within 1e-4 of max|logit|, training-mode
+    logits (batch statistics) within 1e-3, and the running statistics that
+    forward leaves within 1e-4 of each buffer's max."""
+    from lidarnerf_tpu_torch.lidarnvs.unet import UNet
+
+    net = UNet(bilinear=bilinear, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # running statistics off their init
+        for name, buf in net.named_buffers():
+            buf.add_(torch.rand(buf.shape, generator=torch.Generator().manual_seed(1)) * 0.5)
+    x = torch.from_numpy(np.random.RandomState(1).rand(1, 10, 66, 1030).astype(np.float32))
+    gpu = UNet(bilinear=bilinear).cuda()
+    gpu.load_state_dict(net.state_dict())
+    for train, tol in ((False, 1e-4), (True, 1e-3)):
+        net.train(train)
+        gpu.train(train)
+        with torch.no_grad():
+            want = net(x)
+            got = gpu(x.cuda()).cpu()
+        assert got.shape == (1, 1, 66, 1030)
+        torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+    for (k, a), b in zip(gpu.state_dict().items(), net.state_dict().values()):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()), msg=k)
+
+
+def test_unet_trainer_on_cuda_matches_the_cpu(require_cuda, no_tf32, tmp_path):
+    """Two UNet ray-drop updates (batch 2, 66 x 1030) on the card and on the
+    CPU from the same seeded weights: the first loss within 1e-4 relative,
+    the second within 1e-2 (the training gradient is ill-conditioned in
+    float32: tests/test_torch_lidarnvs_nets.py); the step reads nothing back
+    to the host."""
+    from lidarnerf_tpu_torch.lidarnvs.raydrop_unet import UNetRaydropTrainer
+
+    rs = np.random.RandomState(2)
+    images = rs.rand(2, 66, 1030, 10).astype(np.float32)
+    masks = (rs.rand(2, 66, 1030) > 0.3).astype(np.float32)
+    gpu = UNetRaydropTrainer(learning_rate=1e-4, device="cuda")
+    cpu = UNetRaydropTrainer(learning_rate=1e-4, device="cpu")
+    on_card = torch.from_numpy(images).cuda(), torch.from_numpy(masks).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg = [gpu.step(*on_card) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    lc = [float(cpu.step(images, masks)) for _ in range(2)]
+    lg = [float(x) for x in lg]
+    np.testing.assert_allclose(lg[0], lc[0], rtol=1e-4)
+    np.testing.assert_allclose(lg[1], lc[1], rtol=1e-2)
