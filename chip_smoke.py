@@ -75,7 +75,18 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
     on 66 x 1030 frames built from PCGen's panos; both nets held against the
     CPU; the baseline CLIs (`run` evaluating and collecting,
     `raydrop_train_pcgen`, `raydrop_train_poisson`), and `run --method
-    poisson` raising open3d's ImportError. No kernel of the port runs.
+    poisson` raising open3d's ImportError. No kernel of the port runs;
+  - seams: the block-hash seam options (`--seam_tie 1 --alpha_seam 100
+    --seam_sync_hashed 4096`) through the CLI on the drive (train, evaluate,
+    test, mesh, `--test_eval`), the tied copies equal, the sync lowering the
+    seam loss, the three functions at the full table against the CPU, the
+    step eager and captured, two captured runs, ms/step of each option in
+    turns with the default, and a served pano with the tie (B1, B2);
+  - parallel: an NCCL group of every GPU (one process each, started here):
+    the captured data-parallel epoch against one GPU, the ranks' weights
+    bit-identical, two runs bit-equal, the table row-sharded over `model`,
+    the orbax-format checkpoint, ms/step with and without the group (B1,
+    B2). On a machine with one GPU the group is a world of one.
 It checks that each path went through its kernels and that its output is
 right, and profiles one render chunk and one training step per variant.
 B1 and B2 are also checked on adversarial point sets (one cell, runs
@@ -703,6 +714,7 @@ def new_model(opt, fp16):
         log2_hashmap_size=opt.log2_hashmap_size, num_layers=opt.num_layers,
         hidden_dim=opt.hidden_dim, geo_feat_dim=opt.geo_feat_dim, bound=opt.bound,
         compute_dtype=torch.bfloat16 if fp16 else torch.float32,
+        seam_tie=bool(getattr(opt, "seam_tie", 0)),
         generator=torch.Generator().manual_seed(SEED),
     )
 
@@ -3274,6 +3286,533 @@ def baselines_phase():
     return launch_counts()
 
 
+# the seams phase: the block-hash seam options at full width on the drive,
+# --alpha_seam at the round-4 sweep's 100 (VALIDATION.md), the sync at the
+# JAX CLI's 4096 samples per (hashed level, axis)
+SEAM_OPTIONS = {"seam_tie": {"seam_tie": 1}, "alpha_seam": {"alpha_seam": 100.0},
+                "seam_sync_hashed": {"seam_sync_hashed": 4096}}
+SEAM_ALL = {k: v for o in SEAM_OPTIONS.values() for k, v in o.items()}
+SEAM_ARGV = ["--config", "configs/kitti360_1908.txt", "-L", "--path", DATA, "--iters", "120",
+             "--eval_interval", "1", "--mesh_resolution", "128", "--seam_tie", "1",
+             "--alpha_seam", "100", "--seam_sync_hashed", "4096"]
+SEAM_FRAMES = 20  # the steps of an epoch of the seams graph and timing runs
+SEAM_LOSS_RTOL = 1e-6  # the seam loss, card vs CPU: its means summed in another order
+
+
+def tied_levels(table, spec):
+    """The dense levels (of two blocks or more a side) whose face-corner copies
+    are equal in `table`, bit for bit; raises at the first that differs."""
+    checked = 0
+    for li, lv in enumerate(spec.levels):
+        nb = lv.blocks_axis
+        if not lv.dense or nb < 2:
+            continue
+        off = li * spec.blocks_per_level
+        t = table[off:off + nb**3].view(nb, nb, nb, 4, 4, 4, 2)
+        for a, b in ((t[:-1, :, :, 3], t[1:, :, :, 0]), (t[:, :-1, :, :, 3], t[:, 1:, :, :, 0]),
+                     (t[:, :, :-1, :, :, 3], t[:, :, 1:, :, :, 0])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"seams: level {li}'s tied copies differ by "
+                                     f"{(a - b).abs().max().item()}")
+        checked += 1
+    return checked
+
+
+def seam_functions_phase(table, spec):
+    """Check 4: the tie (and its gradient), the sync and the seam loss (and
+    its gradient) at the full table on the card against the CPU on the same
+    table and draws, with the card's ms of each."""
+    from lidarnerf_tpu_torch.ops import block_hash as bh
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    up = torch.randn(table.shape, generator=g)
+    sync_draws = bh.seam_draws(spec, 4096, g, hashed_only=True)
+    loss_draws = bh.seam_draws(spec, 512, g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        on = {k: (m.to(dev), o.to(dev)) for k, (m, o) in sync_draws.items()}
+        lon = {k: (m.to(dev), o.to(dev)) for k, (m, o) in loss_draws.items()}
+        t = table.detach().to(dev).clone().requires_grad_()
+        tied = bh.tie_dense_seams(t, spec)
+        (tied * up.to(dev)).sum().backward()
+        synced = bh.sync_hashed_seams(table.to(dev).clone(), spec, draws=on)
+        t2 = table.detach().to(dev).clone().requires_grad_()
+        loss = bh.block_hash_seam_loss(t2, spec, draws=lon)
+        loss.backward()
+        out[dev] = [x.detach().cpu() for x in (tied, t.grad, synced, loss, t2.grad)]
+        if dev == "cuda":
+            tab, upc = table.cuda(), up.cuda()
+
+            def tie_step():
+                x = tab.clone().requires_grad_()
+                (bh.tie_dense_seams(x, spec) * upc).sum().backward()
+
+            def loss_step():
+                x = tab.clone().requires_grad_()
+                bh.block_hash_seam_loss(x, spec, draws=lon).backward()
+
+            ms = {"tie forward + backward": cuda_ms(tie_step, reps=5),
+                  "sync (4096 a level and axis)": cuda_ms(
+                      lambda: bh.sync_hashed_seams(tab.clone(), spec, draws=on), reps=5),
+                  "seam loss forward + backward (512)": cuda_ms(loss_step, reps=5),
+                  "a table copy": cuda_ms(lambda: tab.clone(), reps=5)}
+    cpu, gpu = out["cpu"], out["cuda"]
+    names = ("the tied table", "the tie's gradient", "the synced table", "the seam loss",
+             "the seam loss's gradient")
+    exact = {n: torch.equal(a, b) for n, a, b in zip(names, gpu, cpu)}
+    rel = abs(float(gpu[3]) - float(cpu[3])) / abs(float(cpu[3]))
+    log(f"seams: the three functions at the full table ({table.shape[0]} x 128) on the card vs "
+        f"the CPU on the same draws, bit for bit: {exact}; the loss {float(gpu[3]):.9e} vs "
+        f"{float(cpu[3]):.9e} ({rel:.2e} relative); card ms on {gpu_line()}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    if not all(v for n, v in exact.items() if n != "the seam loss") or rel > SEAM_LOSS_RTOL:
+        raise AssertionError(f"seams: the card differs from the CPU: {exact}, loss {rel:.2e}")
+    if torch.equal(gpu[2], table) or torch.equal(gpu[0], table):
+        raise AssertionError("seams: the tie or the sync left the table as it was")
+    return ms
+
+
+def seam_sync_lowers_the_loss(table, spec):
+    """Check 3: the seam loss on the sync's own samples, before and after the
+    sync (the sampled copies become equal, but where a later sample of the
+    same level overwrites one)."""
+    from lidarnerf_tpu_torch.ops import block_hash as bh
+
+    t = table.detach().clone()
+    draws = bh.seam_draws(spec, 4096, torch.Generator(device="cuda").manual_seed(SEED + 6),
+                          "cuda", hashed_only=True)
+    before = float(bh.block_hash_seam_loss(t, spec, draws=draws))
+    bh.sync_hashed_seams(t, spec, draws=draws)
+    after = float(bh.block_hash_seam_loss(t, spec, draws=draws))
+    log(f"seams: the seam loss on the sync's samples of the trained table {before:.6e} before "
+        f"the sync, {after:.6e} after ({100 * (1 - after / before):.2f}% lower)")
+    if not after < before:
+        raise AssertionError("seams: the sync did not lower the seam loss")
+
+
+def seam_timing_phase(ds):
+    """Check 7: captured ms/step of each seam option, and of all three, each
+    against the default step in turns (epoch 1 captures, epochs 2-3 in turns),
+    with each graphed trainer's pool. Returns {option: (ms, default ms, pool)}."""
+    sub = first_frames(ds, SEAM_FRAMES)
+    base = trainer_maker(ds)(1)
+    base.train(sub, None, max_epochs=1)
+    out = {}
+    for name, kw in (*SEAM_OPTIONS.items(), ("all", SEAM_ALL)):
+        other = trainer_maker(ds, **kw)(1)
+        other.train(sub, None, max_epochs=1)
+        secs = {"default": [], name: []}
+        for turn in range(2):
+            pair = ((name, other), ("default", base)) if turn else (("default", base),
+                                                                     (name, other))
+            for who, t in pair:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.train(sub, None, max_epochs=t.epoch + 1)  # ends on the host
+                secs[who].append(time.perf_counter() - t0)
+        losses = other.stats["step_loss"]
+        if not np.isfinite(losses).all() or any(other.stats["skipped"]):
+            raise AssertionError(f"seams ({name}): a loss was non-finite or a step skipped")
+        ms = {k: 1e3 * float(np.mean(v)) / SEAM_FRAMES for k, v in secs.items()}
+        pool = graph_pool_bytes(other._graph_pool.handle)
+        out[name] = (ms[name], ms["default"], pool)
+        del other
+        torch.cuda.empty_cache()
+    base_pool = graph_pool_bytes(base._graph_pool.handle)
+    gib = (lambda b: "not measured" if b is None else f"{b / 2**30:.2f} GiB")
+    log(f"seams on {gpu_line()}: captured ms/step in turns with the default step (epochs 2-3 "
+        f"of {SEAM_FRAMES} steps): " + "; ".join(
+            f"{k} {v[0]:.2f} vs {v[1]:.2f} (pool {gib(v[2])})" for k, v in out.items())
+        + f"; the default trainer's pool {gib(base_pool)}")
+    return out, base_pool
+
+
+def seams_cli_phase(cli, ws):
+    """Check 1: the CLI with the three seam options at full width: train (120
+    steps, an evaluation every epoch) -> evaluate -> test -> mesh, launches
+    counted on the card; then --test_eval (meters bit-equal). Returns
+    (trainer, its launch counts, --test_eval's launch counts)."""
+    argv = cli_argv(ws, base=SEAM_ARGV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with device_launches() as device:
+        trainer = cli.main(argv)
+    launches = launch_counts()
+    if not (trainer.model.seam_tie and trainer.train_cfg.alpha_seam == 100.0
+            and trainer.opt.seam_sync_hashed == 4096):
+        raise AssertionError("seams: the CLI run did not take the three seam options")
+    loss_fell("seams cli", *check_cli_run("seams cli", trainer, launches, device, 120, [1, 2, 2]))
+    log(f"seams cli launches: at the wrappers {launches}, on the card {device}; peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+    again = check_test_eval("seams cli", cli, argv, trainer)
+    return trainer, launches, again
+
+
+def seam_pano_phase(trainer, ds):
+    """Check 8: a warm full-width pano through PanoRenderer with seam_tie from
+    the trained EMA weights; it equals, bit for bit, the pano of an untied
+    network whose table was tied once beforehand (the tie is idempotent)."""
+    from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
+    from lidarnerf_tpu_torch.ops.block_hash import tie_dense_seams
+    from lidarnerf_tpu_torch.utils.params import params_to_jax
+
+    params = params_to_jax(trainer.ema_params)
+    renderer = PanoRenderer(trainer.opt, params)
+    if not renderer.network.seam_tie:
+        raise AssertionError("seams: the renderer did not take seam_tie")
+    reset_counts()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = renderer.render_frame(ds.poses_lidar[0], ds.H_lidar, ds.W_lidar,
+                                      ds.intrinsics_lidar)  # ends on the host
+        times.append(1e3 * (time.perf_counter() - t0))
+    launches = launch_counts()
+    chunks = -(-ds.H_lidar * ds.W_lidar // trainer.opt.max_ray_batch)
+    only_launches(launches, {"block_hash_fwd": 2 * 2 * chunks})
+    table = torch.from_numpy(params["params"]["hash_table"])
+    params["params"]["hash_table"] = tie_dense_seams(table, renderer.network.block_spec).numpy()
+    untied = PanoRenderer(SimpleNamespace(**{**vars(trainer.opt), "seam_tie": 0}), params)
+    ref = untied.render_frame(ds.poses_lidar[0], ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
+    same = all(np.array_equal(a, b) for a, b in zip(frame, ref))
+    log(f"seams serving on {gpu_line()}: a full-width {ds.H_lidar}x{ds.W_lidar} pano with the "
+        f"tie {times[0]:.1f} ms cold, {times[1]:.1f} ms warm ({launches['block_hash_fwd']} B1 "
+        f"launches for two panos); equal to the pretied untied pano bit for bit: {same}")
+    if not same or not all(np.isfinite(a).all() for a in frame):
+        raise AssertionError("seams: the tied pano is not finite or differs from the pretied one")
+    return launches
+
+
+def two_captured_runs(what, make, sub):
+    """Two captured trainers from one seeded state, an epoch of sub each:
+    losses and final state bit-equal."""
+    runs = []
+    for _ in range(2):
+        t = make(1)
+        t.train(sub, None, max_epochs=1)
+        runs.append(t)
+    differ = same_training_state(*runs)
+    log(f"{what}: two captured runs of {len(sub)} steps from one seeded state equal bit for "
+        f"bit (losses, weights, EMA, Adam, generator): {not differ}")
+    if differ:
+        raise AssertionError(f"{what}: two captured runs differ: {differ}")
+
+
+def seams_phase(ds):
+    """The seams phase (checks 1-8) in a temporary workspace outside the repo,
+    removed afterwards. Returns {path: wrapper launch counts}."""
+    import shutil
+    import tempfile
+
+    from lidarnerf_tpu_torch import main_lidarnerf as cli
+
+    root = tempfile.mkdtemp(prefix="lidarnerf_seams_")
+    try:
+        trainer, launches, again = seams_cli_phase(cli, os.path.join(root, "run"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    spec = trainer.model.block_spec
+    table = trainer.model.hash_table.detach()
+    from lidarnerf_tpu_torch.ops.block_hash import tie_dense_seams
+
+    n = tied_levels(tie_dense_seams(table, spec), spec)
+    log(f"seams: the tied trained table's face-corner copies are equal at all {n} dense levels "
+        f"of two blocks or more")
+    seam_sync_lowers_the_loss(table, spec)
+    paths = {"seams-cli": launches, "seams-test-eval": again,
+             "seams-serving": seam_pano_phase(trainer, ds)}
+    ms = seam_functions_phase(table.cpu(), spec)
+    del trainer
+    torch.cuda.empty_cache()
+    sub = first_frames(ds, SEAM_FRAMES)
+    paths["training-graph-seams"] = training_graph_phase(
+        "seams", trainer_maker(ds, **SEAM_ALL), sub,
+        {"block_hash_fwd": 2, "block_hash_bwd": 2})
+    torch.cuda.empty_cache()
+    two_captured_runs("seams", trainer_maker(ds, **SEAM_ALL), sub)
+    torch.cuda.empty_cache()
+    timing, base_pool = seam_timing_phase(ds)
+    torch.cuda.empty_cache()
+    return paths
+
+
+# the parallel phase: an NCCL group of every GPU of the machine, one process
+# per GPU started here with torch.multiprocessing (torchrun's layout: RANK,
+# WORLD_SIZE, LOCAL_RANK), each on the first PARALLEL_FRAMES frames
+PARALLEL_FRAMES = 16
+PARALLEL_TIMEOUT_S = 420
+PARALLEL_LOSS_RTOL = 1e-4  # tests/test_parallel.py:68
+PARALLEL_PARAM_TOL = dict(rtol=1e-3, atol=1e-6)  # tests/test_parallel.py:70
+
+
+def _params(model):
+    from lidarnerf_tpu_torch.parallel import sharding
+
+    return {k: v.detach().clone() for k, v in sharding.full_state_dict(model).items()}
+
+
+def _differ(a, b):
+    return {k: (a[k].float() - b[k].float()).abs().max().item() for k in a
+            if not torch.equal(a[k], b[k])}
+
+
+def parallel_checks(rank, world, dev, tmp):
+    """Checks 1-6 of the parallel phase on this rank. Returns what it measured."""
+    import torch.distributed as dist
+
+    from lidarnerf_tpu_torch.nerf import train_step as tst
+    from lidarnerf_tpu_torch.nerf.trainer import Trainer
+    from lidarnerf_tpu_torch.parallel import sharding
+    from lidarnerf_tpu_torch.utils import checkpoint_io
+    from lidarnerf_tpu_torch.utils.params import params_to_jax
+
+    ds = first_frames(synth_drive(), PARALLEL_FRAMES)
+    opt = train_opt(ds)
+    cfgs = Trainer("p", SimpleNamespace(**vars(opt), data_parallel=False),
+                   new_model(opt, FULL.fp16), device=dev, mute=True, workspace=None)
+    cfg, rcfg = cfgs.train_cfg, cfgs.render_cfg
+    del cfgs
+    poses, images = ds.device_arrays(dev)
+    F = poses.shape[0]
+    vi = torch.zeros((F, 1), dtype=torch.long, device=dev)
+    vc = torch.full((F,), ds.H_lidar * ds.W_lidar, dtype=torch.long, device=dev)
+    order = np.arange(F)
+    out = {"world": world}
+
+    def epoch(fn, seed=SEED + 9):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        ms = fn(poses, images, vi, vc, order, 0, gen)
+        losses = ms["loss"].cpu().numpy()  # the epoch's one fetch
+        return losses, time.perf_counter() - t0
+
+    mesh = sharding.make_mesh()
+    # check 1: the captured sharded epoch against the one-GPU epoch, one seeded state
+    ref_model = new_model(opt, FULL.fp16)
+    ref_fn = tst.make_epoch_step(ref_model, cfg, rcfg, device=dev)
+    ref_losses, _ = epoch(ref_fn)
+    ref_params = _params(ref_model)
+    reset_counts()
+    with device_launches() as device:
+        model = new_model(opt, FULL.fp16)
+        fn = sharding.make_sharded_epoch_step(model, cfg, rcfg, mesh)
+        losses, _ = epoch(fn)
+    out["launches"], out["device"] = launch_counts(), dict(device)
+    params = _params(model)
+    # a world of W > 1 sums each step's gradients in another order: the
+    # first two losses (the same weights, then one Adam update of lr * sign(g))
+    # agree at the JAX tolerance; later ones drift with the noise-floor entries
+    np.testing.assert_allclose(losses[:2], ref_losses[:2], rtol=PARALLEL_LOSS_RTOL)
+    out["epoch_equal"] = world == 1 and np.array_equal(losses, ref_losses) and not _differ(
+        params, ref_params)
+    if world == 1 and not out["epoch_equal"]:
+        raise AssertionError(f"parallel: a world of one differs from one GPU: "
+                             f"{_differ(params, ref_params)}")
+    out["graphs"] = sum(1 for g in fn.graphs.values() if g.graph is not None)
+    # one eager step each: the gradients at 2e-5 of each tensor's peak (B2's
+    # fixed-point sum on one GPU against W float32 partial sums), the weights
+    # at the JAX tolerances where the gradient is live (above 1e-3 of its
+    # peak: Adam's first update lr * g / (|g| + eps) moves a noise-floor
+    # entry by up to lr whatever its size, as tests/test_torch_train.py has it)
+    one = [new_model(opt, FULL.fp16) for _ in range(2)]
+    steps = [tst.make_train_step(one[0], cfg, rcfg, device=dev),
+             sharding.make_sharded_train_step(one[1], cfg, rcfg, mesh)]
+    for st in steps:
+        st(poses, images, vi, vc, 0, generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    out["noise_floor"] = 0
+    for (k, pa), pb in zip(one[0].named_parameters(), one[1].parameters()):
+        if pa.grad is None:
+            continue
+        ga, gb = pa.grad.float().cpu().numpy(), pb.grad.float().cpu().numpy()
+        peak = np.abs(ga).max()
+        np.testing.assert_allclose(gb, ga, rtol=0, atol=2e-5 * peak, err_msg=k)
+        live = np.abs(ga) > 1e-3 * peak
+        wa, wb = pa.detach().float().cpu().numpy(), pb.detach().float().cpu().numpy()
+        np.testing.assert_allclose(wb[live], wa[live], err_msg=k, **PARALLEL_PARAM_TOL)
+        out["noise_floor"] += int((~np.isclose(wb, wa, **PARALLEL_PARAM_TOL)).sum())
+    del one, steps
+    # check 2: every rank holds the same bits
+    flat = torch.cat([v.reshape(-1).float() for v in params.values()])
+    parts = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(parts, flat)
+    out["ranks_equal"] = all(torch.equal(p, flat) for p in parts)
+    if not out["ranks_equal"]:
+        raise AssertionError("parallel: the ranks' parameters differ")
+    # check 3: a second run from the same seeded state repeats bit for bit
+    model2 = new_model(opt, FULL.fp16)
+    losses2, _ = epoch(sharding.make_sharded_epoch_step(model2, cfg, rcfg, mesh))
+    out["runs_equal"] = np.array_equal(losses, losses2) and not _differ(params, _params(model2))
+    if not out["runs_equal"]:
+        raise AssertionError("parallel: two captured runs differ")
+    del model2
+    # check 4: the table row-sharded over `model` = every rank
+    mesh2 = sharding.make_mesh_2d(1, world)
+    model_s = new_model(opt, FULL.fp16)
+    fn_s = sharding.make_sharded_epoch_step(model_s, cfg, rcfg, mesh2, shard_table=True)
+    losses_s, _ = epoch(fn_s)
+    np.testing.assert_allclose(losses_s[:2], ref_losses[:2], rtol=PARALLEL_LOSS_RTOL)
+    out["shard_rows"] = model_s.hash_table.shape[0]
+    params_s = _params(model_s)
+    out["shard_equal"] = np.array_equal(losses_s, ref_losses) and not _differ(params_s,
+                                                                               ref_params)
+    if world == 1 and not out["shard_equal"]:
+        raise AssertionError("parallel: the shard_table run of one rank differs from one GPU")
+    # check 5: the orbax-format store, each rank writing its rows
+    table = model_s.hash_table.detach()
+    if world > 1:
+        from torch.distributed.tensor import DTensor, Shard
+
+        table = DTensor.from_local(table, mesh2.device_mesh()["model"], [Shard(0)])
+    sd = {k: v.detach().cpu().numpy() for k, v in params_s.items()}
+    state = {"model": params_to_jax({k: torch.from_numpy(v) for k, v in sd.items()}),
+             "epoch": 1, "global_step": F}
+    state["model"]["params"]["hash_table"] = table
+    path = os.path.join(tmp, "parallel.ckpt")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    checkpoint_io.dump_state(state, path, "orbax")
+    out["save_s"] = time.perf_counter() - t0
+    out["ckpt_bytes"] = checkpoint_io.size_bytes(path)
+    t0 = time.perf_counter()
+    back = checkpoint_io.load_state(path)
+    out["load_s"] = time.perf_counter() - t0
+    want = params_to_jax({k: torch.from_numpy(v) for k, v in sd.items()})["params"]
+    got = back["model"]["params"]
+    out["ckpt_equal"] = np.array_equal(got["hash_table"], want["hash_table"]) and all(
+        np.array_equal(got[n][d]["kernel"], want[n][d]["kernel"])
+        for n in want if n != "hash_table" for d in want[n]) and back["epoch"] == 1
+    if not out["ckpt_equal"]:
+        raise AssertionError("parallel: the orbax-format checkpoint did not load back bit-equal")
+    del model_s, fn_s
+    # check 6: ms/step with the group against without it, captured, in turns
+    secs = {"one GPU": [], "group": []}
+    for turn in range(6):
+        pair = (("group", fn), ("one GPU", ref_fn)) if turn % 2 else (("one GPU", ref_fn),
+                                                                       ("group", fn))
+        for who, f in pair:
+            secs[who].append(epoch(f, SEED + 20 + turn)[1])
+    out["ms"] = {k: 1e3 * float(np.mean(v)) / F for k, v in secs.items()}
+    # the step's one collective alone: the flat buffer of the gradients, loss and metrics
+    n = sum(p.numel() for p in model.parameters() if p.grad is not None) + 3
+    buf = torch.zeros(n, device=dev)
+    out["allreduce"] = (n * 4 / 2**20, cuda_ms(lambda: dist.all_reduce(buf, group=mesh.data_group),
+                                               reps=20))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def parallel_rank(rank, world, port, queue, tmp):
+    """One rank of the parallel phase's NCCL group (the target of each process)."""
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    try:
+        import torch.distributed as dist
+
+        from lidarnerf_tpu_torch.parallel import sharding
+
+        dev = sharding.init_from_env("cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        reset_counts()
+        queue.put((rank, True, parallel_checks(rank, world, dev, tmp)))
+    except BaseException:  # noqa: BLE001 - sent to the parent, which fails the phase
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def parallel_phase():
+    """The parallel phase: an NCCL group of torch.cuda.device_count() ranks,
+    started here (one process per GPU), joined with a time limit. Returns
+    rank 0's wrapper launch counts of the sharded epoch."""
+    import queue as queues
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    log(f"parallel: an NCCL group of {world} rank(s), one process per GPU "
+        f"(torch.cuda.device_count() = {world})")
+    if world == 1:
+        log("parallel: one GPU: the group is a world of one, so the cross-rank reduction was "
+            "not exercised (its all-reduce runs through NCCL over one rank)")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="lidarnerf_parallel_")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=parallel_rank, args=(r, world, port, results, tmp))
+             for r in range(world)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    out, errors = {}, []
+    try:
+        while len(out) + len(errors) < world:
+            left = PARALLEL_TIMEOUT_S - (time.perf_counter() - t0)
+            if left <= 0:
+                raise AssertionError(f"parallel: the group did not finish in {PARALLEL_TIMEOUT_S} s")
+            try:
+                rank, ok, payload = results.get(timeout=min(left, 10.0))
+            except queues.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead:
+                    raise AssertionError(f"parallel: a rank died with exit code {dead[0]}")
+                continue
+            if ok:
+                out[rank] = payload
+            else:
+                errors.append(f"rank {rank}:\n{payload}")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if errors:
+        raise AssertionError("parallel: " + "\n".join(errors))
+    r0 = out[0]
+    gpu = gpu_line()
+    log(f"parallel on {gpu}: {world} rank(s), {time.perf_counter() - t0:.1f} s with start-up; "
+        f"check 1: the captured sharded epoch ({PARALLEL_FRAMES} steps, {r0['graphs']} graph) "
+        f"against one GPU from one seeded state: the first two losses within "
+        f"{PARALLEL_LOSS_RTOL} relative"
+        + (", and bit for bit with the weights" if r0["epoch_equal"] else "")
+        + f"; one eager step: gradients within 2e-5 of their peak, the weights of live "
+        f"gradients within rtol 1e-3 / atol 1e-6 ({r0['noise_floor']} noise-floor weights "
+        f"outside it); check 2: every rank's "
+        f"weights the same bits: {all(o['ranks_equal'] for o in out.values())}; check 3: two "
+        f"runs bit-equal: {r0['runs_equal']}; check 4: shard_table over a (1, {world}) mesh, "
+        f"{r0['shard_rows']} table rows a rank, equal to one GPU bit for bit: "
+        f"{r0['shard_equal']}; check 5: the orbax-format checkpoint ({r0['ckpt_bytes'] / 2**20:.1f}"
+        f" MiB) saved in {r0['save_s']:.3f} s, loaded in {r0['load_s']:.3f} s, bit-equal: "
+        f"{r0['ckpt_equal']}; check 6: captured ms/step in turns, one GPU "
+        f"{r0['ms']['one GPU']:.2f}, the group {r0['ms']['group']:.2f} (epochs of "
+        f"{PARALLEL_FRAMES} steps, host included), the all-reduce of the step's "
+        f"{r0['allreduce'][0]:.1f} MiB buffer alone {r0['allreduce'][1]:.3f} ms; peak allocated "
+        f"{r0['peak_gib']:.2f} GiB a rank; the sharded epoch's launches at rank 0's wrappers "
+        f"{r0['launches']}, on its card {r0['device']}")
+    per_step = {"block_hash_fwd": 2, "block_hash_bwd": 2}
+    only_launches(r0["device"], training_launches(per_step, PARALLEL_FRAMES))
+    only_launches(r0["launches"], training_launches(per_step, 2 * r0["graphs"]))
+    return r0["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3389,6 +3928,14 @@ def main():
     torch.cuda.empty_cache()
     paths["baselines"] = baselines_phase()
     phase_done("baselines")
+
+    # the block-hash seam options, then training over an NCCL group of every GPU
+    torch.cuda.empty_cache()
+    paths.update(seams_phase(ds))
+    phase_done("seams")
+    torch.cuda.empty_cache()
+    paths["parallel"] = parallel_phase()
+    phase_done("parallel")
 
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())

@@ -23,9 +23,18 @@ runs the same step eagerly, as the CPU always does.
 `--encoding` takes every position encoding of the JAX CLI: blockhash (the
 default, kernels B1-B4), hashgrid (the reference-exact hash grid),
 tiledgrid, periodic_volume (`--log2_hashmap_size` a multiple of 3) and
-frequency. Not ported yet, and raising with their ROADMAP.md item: the seam
-options `--seam_tie`, `--seam_sync_hashed`, `--alpha_seam` (item 5; they
-mean something under blockhash only) and `--ckpt_format orbax` (item 6).
+frequency. The seam options `--seam_tie`, `--seam_sync_hashed` and
+`--alpha_seam` act under blockhash, as in the JAX CLI. `--ckpt_format
+pickle` (the default) is the format both packages read; `orbax` writes the
+port's sharded directory store (`utils/checkpoint_io.py`).
+
+On several GPUs, one process per GPU under torchrun:
+
+    torchrun --nproc_per_node 4 -m lidarnerf_tpu_torch.main_lidarnerf --config ...
+
+Each rank trains on `cuda:LOCAL_RANK` with its share of every step's rays,
+the gradients summed over NCCL (`parallel/sharding.py`); rank 0 writes the
+workspace. `--num_rays_lidar` must divide by the number of GPUs.
 """
 
 import os
@@ -79,23 +88,24 @@ def get_arg_parser():
         "--alpha_seam",
         type=float,
         default=0.0,
-        help="blockhash seam-consistency regularizer weight; not ported yet, "
-        "raises when > 0 (ROADMAP.md queue A item 5)",
+        help="blockhash seam-consistency regularizer weight (ties duplicated "
+        "block-boundary corners, ops/block_hash.block_hash_seam_loss); 0 = off",
     )
     parser.add_argument(
         "--seam_tie",
         type=int,
         default=0,
         help="blockhash only: 1 = share dense-level block-boundary corners in "
-        "the forward; not ported yet, raises when set (ROADMAP.md queue A item 5)",
+        "the forward (differentiable averaging, ops/block_hash.tie_dense_seams); "
+        "0 = raw duplicated-corner layout",
     )
     parser.add_argument(
         "--seam_sync_hashed",
         type=int,
         default=0,
-        help="blockhash only: > 0 hard-averages duplicated hashed-level boundary "
-        "corners every 16 steps; not ported yet, raises when set (ROADMAP.md "
-        "queue A item 5)",
+        help="blockhash only: > 0 samples this many boundary corners per "
+        "(hashed level, axis) every 16 steps and hard-averages the duplicated "
+        "copies (ops/block_hash.sync_hashed_seams)",
     )
     parser.add_argument("--intensity_inv_scale", type=float, default=1)
     parser.add_argument("--spatial_smooth", action="store_true")
@@ -213,7 +223,8 @@ def get_arg_parser():
 
 
 def device_from_env():
-    """CUDA (raising if there is none) unless LIDARNERF_PLATFORM=cpu."""
+    """CUDA (raising if there is none) unless LIDARNERF_PLATFORM=cpu; under
+    torchrun (LOCAL_RANK set) the rank's GPU."""
     platform = os.environ.get("LIDARNERF_PLATFORM", "")
     if platform == "cpu":
         return torch.device("cpu")
@@ -222,20 +233,11 @@ def device_from_env():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; set LIDARNERF_PLATFORM=cpu to run "
                            "the plain PyTorch path on the CPU")
+    if "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+        return device
     return torch.device("cuda")
-
-
-def check_ported(opt):
-    """Raise NotImplementedError on the flags whose paths are not ported yet."""
-    unported = [
-        (bool(opt.seam_tie), "--seam_tie", "queue A item 5"),
-        (opt.seam_sync_hashed > 0, "--seam_sync_hashed", "queue A item 5"),
-        (opt.alpha_seam > 0, "--alpha_seam", "queue A item 5"),
-        (opt.ckpt_format == "orbax", "--ckpt_format orbax", "queue A item 6"),
-    ]
-    for given, flag, item in unported:
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, {item})")
 
 
 def build_dataset(opt, split, device):
@@ -309,13 +311,13 @@ def main(argv=None):
     elif opt.dataloader == "nerf_mvl":
         if opt.sequence_id not in NERF_MVL_SEQUENCE_IDS:
             raise ValueError(f"Unknown sequence id {opt.sequence_id} for {opt.dataloader}")
-    check_ported(opt)
     device = device_from_env()
 
-    os.makedirs(opt.workspace, exist_ok=True)
-    with open(os.path.join(opt.workspace, "args.txt"), "w") as f:
-        for arg in vars(opt):
-            f.write("{} = {}\n".format(arg, getattr(opt, arg)))
+    if int(os.environ.get("RANK", "0")) == 0:  # rank 0 writes the workspace
+        os.makedirs(opt.workspace, exist_ok=True)
+        with open(os.path.join(opt.workspace, "args.txt"), "w") as f:
+            for arg in vars(opt):
+                f.write("{} = {}\n".format(arg, getattr(opt, arg)))
 
     apply_macros(opt)
     model = build_model(opt)

@@ -41,17 +41,6 @@ LIDAR_DIR_DEGREE = 12  # frequency degree of the LiDAR direction encoding
 RGB_DIR_DEGREE = 4  # SH degree of the RGB and background direction encoding
 
 
-def check_seam_flags(opt):
-    """Raise on the CLI's seam options (`--seam_tie`, `--seam_sync_hashed`),
-    which the JAX package applies in its model and trainer and the port does
-    not yet (ROADMAP.md, queue A item 5: off-main-path options)."""
-    if getattr(opt, "seam_tie", False):
-        raise NotImplementedError("opt.seam_tie is not ported yet (ROADMAP.md, queue A item 5)")
-    if getattr(opt, "seam_sync_hashed", 0) > 0:
-        raise NotImplementedError("opt.seam_sync_hashed > 0 is not ported yet "
-                                  "(ROADMAP.md, queue A item 5)")
-
-
 class MLP(nn.Module):
     """Bias-free ReLU MLP; weights init Uniform(+-1/sqrt(fan_in)) like torch nn.Linear."""
 
@@ -80,9 +69,10 @@ class MLP(nn.Module):
 
 class NeRFNetwork(nn.Module):
     """The JAX module's fields, in its order and with its defaults, then
-    `generator` (the init's random stream). `seam_tie` raises (queue A item
-    5), as does n_features_per_level != 2 under blockhash, whose table rows
-    hold 2 features per level. `encoding_dir` is not read, as in the JAX
+    `generator` (the init's random stream). Under blockhash, `seam_tie`
+    averages the two stored copies of every dense-level seam corner inside
+    each encode (`block_hash.tie_dense_seams`), and n_features_per_level != 2
+    raises: the table rows hold 2 features per level. `encoding_dir` is not read, as in the JAX
     module (directions take the frequency or SH encoding of their head);
     `multires` only with the frequency encoding and `num_layers_bg`,
     `hidden_dim_bg` only with the background sphere (bg_radius > 0)."""
@@ -113,15 +103,14 @@ class NeRFNetwork(nn.Module):
         generator=None,
     ):
         super().__init__()
-        if seam_tie:
-            raise NotImplementedError("seam_tie is not ported yet (ROADMAP.md, queue A item 5: "
-                                      "off-main-path options)")
         if encoding == "blockhash" and n_features_per_level != 2:
             raise NotImplementedError(
                 f"n_features_per_level={n_features_per_level}: the block-hash table "
                 "stores 2 features per level"
             )
         self.encoding = encoding
+        self.seam_tie = bool(seam_tie)
+        self.table_mesh = None  # a Mesh when the table is row-sharded (parallel/sharding.py)
         self.multires = multires
         self.bound = bound
         self.bg_radius = bg_radius
@@ -193,7 +182,14 @@ class NeRFNetwork(nn.Module):
         """x in [-bound, bound]^3 -> position features [..., in_dim] float32."""
         x01 = (x + self.bound) / (2.0 * self.bound)
         if self.block_spec is not None:
-            return bhash.block_hash_encode(x01, self.hash_table, self.block_spec)
+            table = self.hash_table
+            if self.table_mesh is not None:
+                from lidarnerf_tpu_torch.parallel.sharding import gather_table
+
+                table = gather_table(table, self.table_mesh)
+            if self.seam_tie:
+                table = bhash.tie_dense_seams(table, self.block_spec)
+            return bhash.block_hash_encode(x01, table, self.block_spec)
         if self.grid_spec is not None:
             return hg.hash_grid_encode_chunked(x01, self.hash_table, self.grid_spec)
         if self.pv_spec is not None:

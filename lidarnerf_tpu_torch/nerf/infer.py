@@ -9,9 +9,10 @@ of `Trainer.test` (:718-736): it renders every ray of a LiDAR pano in
 desired_resolution, log2_hashmap_size, num_layers, hidden_dim, geo_feat_dim,
 bound, scale, num_steps, upsample_steps, max_ray_batch, fp16, alpha_r,
 n_features_per_level (2 if absent), and for `--fast` occ_sampling with the
-occ_* fields (models/occupancy.py). Every encoding of the CLI is served. As in
-the CLI, min_near_lidar = scale. The seam options `seam_tie` and
-`seam_sync_hashed`, not ported yet, raise when set.
+occ_* fields (models/occupancy.py), and `seam_tie` (False if absent). Every
+encoding of the CLI is served; a field trained with `--seam_tie` is served
+with the tie, as the JAX model applies it in every encode. As in the CLI,
+min_near_lidar = scale.
 """
 
 import numpy as np
@@ -19,7 +20,7 @@ import torch
 
 from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
 from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar
-from lidarnerf_tpu_torch.models.network import NeRFNetwork, check_seam_flags
+from lidarnerf_tpu_torch.models.network import NeRFNetwork
 from lidarnerf_tpu_torch.models.occupancy import occ_config_from_opt
 from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays_staged
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
@@ -41,7 +42,6 @@ class PanoRenderer:
     """
 
     def __init__(self, opt, params, device=None, occ_grid=None):
-        check_seam_flags(opt)
         self.device = resolve_device(device)
         self.opt = opt
         self.network = NeRFNetwork(
@@ -54,6 +54,7 @@ class PanoRenderer:
             geo_feat_dim=opt.geo_feat_dim,
             bound=opt.bound,
             compute_dtype=torch.bfloat16 if opt.fp16 else torch.float32,
+            seam_tie=bool(getattr(opt, "seam_tie", False)),
         )
         self.network.load_state_dict(params_from_jax(params))
         self.network.to(self.device).eval()

@@ -31,8 +31,9 @@ from lidarnerf_tpu_torch.dataset.base import rays_from_indices, sample_ray_indic
 from lidarnerf_tpu_torch.models.occupancy import update_occ_grid
 from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays
 from lidarnerf_tpu_torch.ops import losses as L
-from lidarnerf_tpu_torch.ops.block_hash import kernel_variant
+from lidarnerf_tpu_torch.ops.block_hash import block_hash_seam_loss, kernel_variant, sync_hashed_seams
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
+from lidarnerf_tpu_torch.parallel import sharding
 
 
 @dataclass(frozen=True)
@@ -65,7 +66,8 @@ class TrainConfig:
     # optimisation (main_lidarnerf.py:389-410)
     lr: float = 1e-2
     iters: int = 30000
-    # blockhash seam-consistency regularizer, 0 = off (not ported)
+    # blockhash seam-consistency regularizer (ops/block_hash.py
+    # block_hash_seam_loss), 0 = off
     alpha_seam: float = 0.0
 
 
@@ -336,36 +338,78 @@ def sample_pixels(cfg: TrainConfig, patch_size, masked_sampling, sample_without_
     return sample_ray_indices(cfg.H_lidar, cfg.W_lidar, N, patch_size, generator, dev)
 
 
+def render_draws(render_cfg: RenderConfig, n, generator, device, noise=None, u=None):
+    """The training render's draws of n rays that are not given, in
+    `render_rays`' order: the jitter `noise` [n, num_steps], then the
+    inverse-CDF `u` [n, upsample_steps] (None without upsampling)."""
+    if noise is None:
+        noise = torch.rand((n, render_cfg.num_steps), generator=generator, dtype=torch.float32,
+                           device=device)
+    if u is None and render_cfg.upsample_steps > 0:
+        u = torch.rand((n, render_cfg.upsample_steps), generator=generator,
+                       dtype=torch.float32, device=device)
+    return noise, u
+
+
+SEAM_SAMPLES = 512  # seam corners sampled per (level, axis) by the loss (block_hash.py:430)
+
+
 def make_loss_fn(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_size=1,
-                 masked_sampling=False, sample_without_replacement=False):
-    """The per-step loss closure.
+                 masked_sampling=False, sample_without_replacement=False, mesh=None):
+    """The per-step loss closure, one body for one device and a mesh
+    (train_step.py:162-283, whose `constrain` hook the mesh replaces).
 
     loss_fn(pose, image_flat, valid_idx, valid_count, draws=None, generator=None,
     occ_grid=None) -> (loss, aux): pose [4, 4], image_flat [H*W, 3], valid_idx
     [P] and valid_count [] of the frame; `draws` may inject the pixel draws
-    (see `sample_pixels`) and the render's `noise` [N, num_steps] and
-    `u` [N, upsample_steps]; `occ_grid` goes to the render (`--fast`).
+    (see `sample_pixels`), the render's `noise` [N, num_steps] and `u`
+    [N, upsample_steps], and under `alpha_seam` the seam loss's samples
+    `seam` (`block_hash.seam_draws`); `occ_grid` goes to the render
+    (`--fast`). The draws are the global batch's, in the JAX step's order
+    (pixels, render, seam); on a mesh each rank keeps its N / n_data rays
+    (`sharding.local_rays`) and scales its loss and metrics by 1 / n_data,
+    so that their sums over `data` are the global batch's.
     """
+    N = cfg.num_rays_lidar
+    rays = sharding.local_rays(mesh, N)
+    n_data = 1 if mesh is None else mesh.n_data
+    px, py = patch_dims(patch_size)
+    if (rays.stop - rays.start) % (px * py):
+        raise ValueError(f"{N} rays over {n_data} data ranks split a {px} x {py} patch")
+    seam = cfg.alpha_seam > 0.0 and getattr(model, "encoding", None) == "blockhash"
 
     def loss_fn(pose, image_flat, valid_idx, valid_count, draws=None, generator=None,
                 occ_grid=None):
         draws = draws or {}
+        dev = image_flat.device
         inds = sample_pixels(cfg, patch_size, masked_sampling, sample_without_replacement,
                              valid_idx, valid_count, generator, draws)
-        gt = image_flat[inds]  # [N, 3]
+        noise, u = render_draws(render_cfg, N, generator, dev, draws.get("noise"),
+                                draws.get("u"))
+        noise = torch.as_tensor(noise, device=dev)[rays]
+        u = None if u is None else torch.as_tensor(u, device=dev)[rays]
+        inds = inds[rays]
+        gt = image_flat[inds]  # [n, 3]
         rays_o, rays_d = rays_from_indices(pose, inds, cfg.H_lidar, cfg.W_lidar,
                                            cfg.intrinsics_lidar)
         out = render_rays(model, rays_o, rays_d, render_cfg, train=True, generator=generator,
-                          noise=draws.get("noise"), u=draws.get("u"), occ_grid=occ_grid)
+                          noise=noise, u=u, occ_grid=occ_grid)
         lidar_loss, pred_depth_m, gt_depth, gt_raydrop = lidar_losses(
             cfg, out["depth"], out["image"], gt
         )
         loss = torch.mean(lidar_loss)
         loss = loss + patch_regularizers(cfg, patch_size, pred_depth_m, gt_depth, gt_raydrop)
+        if seam:
+            table = sharding.gather_table(model.hash_table, getattr(model, "table_mesh", None))
+            loss = loss + cfg.alpha_seam * block_hash_seam_loss(
+                table, model.block_spec, generator, SEAM_SAMPLES, draws.get("seam"))
         aux = {
             "depth_mae": torch.mean(torch.abs(pred_depth_m - gt_depth)).detach(),
             "raydrop_err": torch.mean(torch.abs(out["image"][..., 0] - gt_raydrop)).detach(),
         }
+        if n_data > 1:
+            loss = loss / n_data
+            aux = {k: v / n_data for k, v in aux.items()}
         return loss, aux
 
     return loss_fn
@@ -376,7 +420,7 @@ METRICS = ("loss", "depth_mae", "raydrop_err", "skipped_nonfinite")
 
 def make_train_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_size=1,
                     masked_sampling=False, sample_without_replacement=False,
-                    optimizer=None, device=None):
+                    optimizer=None, device=None, mesh=None):
     """Build the train step for one (patch_size, sampling-mode) configuration.
 
     Args:
@@ -385,6 +429,9 @@ def make_train_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
             functions of several patch sizes; made here if None.
         device: None runs on CUDA and raises if there is none; pass "cpu"
             to run the plain PyTorch path on the CPU.
+        mesh: a `parallel.sharding.Mesh` to train data-parallel on (each
+            rank its N / n_data rays; the gradients, loss and metrics summed
+            over `data` in one all-reduce before the guard), or None.
 
     Returns:
         step(poses, images, valid_idx, valid_counts, frame_idx, draws=None,
@@ -398,15 +445,11 @@ def make_train_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
         `step.optimizer` is the DeviceAdam.
     """
     device = resolve_device(device)
-    if cfg.alpha_seam > 0.0:
-        raise NotImplementedError(
-            "the block-hash seam regulariser (alpha_seam > 0) is not ported yet "
-            "(ROADMAP.md, queue A item 5: off-main-path options)"
-        )
     model.to(device)
     adam = make_optimizer(model.named_parameters(), cfg) if optimizer is None else optimizer
     loss_fn = make_loss_fn(model, cfg, render_cfg, patch_size, masked_sampling,
-                           sample_without_replacement)
+                           sample_without_replacement, mesh)
+    group = None if mesh is None else mesh.data_group
 
     def step(poses, images, valid_idx, valid_counts, frame_idx, draws=None, generator=None,
              occ_grid=None):
@@ -422,11 +465,30 @@ def make_train_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
             loss, aux = loss_fn(pick(poses), image_flat, pick(valid_idx), pick(valid_counts),
                                 draws, generator, occ_grid)
             loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            loss, aux = _all_reduce_step(adam.params, loss, aux, group)
         finite = adam.step(loss)
-        return {"loss": loss.detach(), **aux, "skipped_nonfinite": 1.0 - finite.float()}
+        return {"loss": loss, **aux, "skipped_nonfinite": 1.0 - finite.float()}
 
     step.optimizer = adam
     return step
+
+
+def _all_reduce_step(params, loss, aux, group):
+    """Sum the gradients, the loss and the metrics over `group` in one
+    all-reduce of a flat buffer; the gradients are written back in place.
+    Returns the summed (loss, aux)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    stats = torch.stack([loss, *aux.values()]).float()
+    flat = torch.cat([g.reshape(-1) for g in grads] + [stats])
+    sharding.all_reduce_sum(flat, group)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    out = flat[off:]
+    return out[0], dict(zip(aux, out[1:]))
 
 
 class GraphPool:
@@ -514,17 +576,25 @@ class _CapturedStep:
 
 def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_size=1,
                     masked_sampling=False, sample_without_replacement=False,
-                    optimizer=None, device=None, capture=True, graph_pool=None):
+                    optimizer=None, device=None, capture=True, graph_pool=None, mesh=None,
+                    seam_sync=0):
     """Build the fused epoch for one (patch_size, sampling-mode) configuration
     (lidarnerf_tpu/nerf/train_step.py:374-470).
 
     Args:
-        model, optimizer, device: as `make_train_step`.
+        model, optimizer, device, mesh: as `make_train_step`.
         capture: on CUDA, capture the step as a CUDA graph (the CLI's
             `--fuse_epoch 1`); False, and always on the CPU, runs it eagerly.
             A capture or replay that fails raises.
         graph_pool: the `GraphPool` the graphs share (one per trainer); made
             here if None.
+        seam_sync: `--seam_sync_hashed`: under blockhash, before each step
+            whose global step is a multiple of SEAM_SYNC_EVERY, the hashed
+            levels' seam corners of `seam_sync` samples per (level, axis)
+            are synced in place, eagerly (`sync_model_seams`;
+            lidarnerf_tpu/nerf/trainer.py:492-509), after the grid refresh.
+            The JAX trainer runs its per-step path then; here the graph
+            stays, as for the grid refresh, with the same results.
 
     Returns:
         epoch_fn(poses, images, valid_idx, valid_counts, order, step0=0,
@@ -535,7 +605,8 @@ def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
         the grid is refreshed in place, eagerly, before each step whose
         global step is a multiple of the update interval. `draws` (eager
         only) is a list of K per-step draws as `make_train_step` takes them;
-        an "occ_jitter" entry [G, G, G, 3] is that step's refresh jitter.
+        an "occ_jitter" entry [G, G, G, 3] is that step's refresh jitter, a
+        "seam_sync" entry its sync's samples (`block_hash.seam_draws`).
         A blockhash model keeps one graph per block-hash variant
         (`kernel_variant()`, which a graph freezes); any other encoding
         reads no variant and keeps one graph, whatever the switch says.
@@ -543,17 +614,21 @@ def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
     """
     device = resolve_device(device)
     step = make_train_step(model, cfg, render_cfg, patch_size, masked_sampling,
-                           sample_without_replacement, optimizer, device)
+                           sample_without_replacement, optimizer, device, mesh)
+    seam_sync = seam_sync if getattr(model, "encoding", None) == "blockhash" else 0
     capture = capture and device.type == "cuda"
     if capture and graph_pool is None:
         graph_pool = GraphPool(device)
     occ = render_cfg.occ
     graphs = {}  # kernel variant -> _CapturedStep
 
-    def refresh(global_step, occ_grid, generator, jitter=None):
+    def before_step(global_step, occ_grid, generator, d=None):
+        d = d or {}
         if occ is not None and occ_grid is not None and global_step % occ.update_interval == 0:
             occ_grid.copy_(update_occ_grid(model, occ_grid, occ, render_cfg.bound,
-                                           generator=generator, jitter=jitter))
+                                           generator=generator, jitter=d.get("occ_jitter")))
+        if seam_sync > 0 and global_step % SEAM_SYNC_EVERY == 0:
+            sync_model_seams(model, seam_sync, generator, d.get("seam_sync"))
 
     def epoch_fn(poses, images, valid_idx, valid_counts, order, step0=0, generator=None,
                  occ_grid=None, draws=None):
@@ -564,12 +639,13 @@ def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
             if variant not in graphs:
                 graphs[variant] = _CapturedStep(step, graph_pool)
             m = graphs[variant].epoch(poses, images, valid_idx, valid_counts, order, generator,
-                                      occ_grid, lambda i: refresh(step0 + i, occ_grid, generator))
+                                      occ_grid, lambda i: before_step(step0 + i, occ_grid,
+                                                                      generator))
             return dict(zip(METRICS, m))
         ms = []
         for i, frame in enumerate(order):
             d = draws[i] if draws is not None else None
-            refresh(step0 + i, occ_grid, generator, None if d is None else d.get("occ_jitter"))
+            before_step(step0 + i, occ_grid, generator, d)
             ms.append(step(poses, images, valid_idx, valid_counts, int(frame), draws=d,
                            generator=generator, occ_grid=occ_grid))
         return {k: torch.stack([m[k] for m in ms]) for k in METRICS}
@@ -577,6 +653,24 @@ def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
     epoch_fn.step = step
     epoch_fn.graphs = graphs
     return epoch_fn
+
+
+SEAM_SYNC_EVERY = 16  # steps between hashed-seam syncs (lidarnerf_tpu/nerf/trainer.py:496)
+
+
+@torch.no_grad()
+def sync_model_seams(model, n_per_axis, generator=None, draws=None):
+    """`sync_hashed_seams` on a blockhash model's table, in place; a
+    row-sharded table is gathered, synced alike on every rank, and each
+    rank keeps its rows."""
+    mesh = getattr(model, "table_mesh", None)
+    table = model.hash_table.data
+    if mesh is None or mesh.n_model == 1:
+        sync_hashed_seams(table, model.block_spec, generator, n_per_axis, draws)
+        return
+    full = sharding.gather_table(table, mesh)
+    sync_hashed_seams(full, model.block_spec, generator, n_per_axis, draws)
+    table.copy_(sharding.row_shard(full, mesh))
 
 
 @torch.no_grad()

@@ -26,15 +26,32 @@ its pixels from each frame's unmasked pool (the dataset's `device_arrays`),
 evaluation takes the intensity and depth meters on the unmasked rectangle
 (the crop), and `test` crops each cloud to the frame's OBB.
 
+Under `opt.seam_sync_hashed` (blockhash) the hashed levels' seam corners are
+synced before each step whose global step is a multiple of 16 (:492-509),
+through the epoch's `before_step` hook, in place and eagerly between
+replays.
+
+Several GPUs (:229-326): with `opt.data_parallel` "auto" (the default) the
+trainer trains data-parallel when it runs under `torchrun` with WORLD_SIZE >
+1 (True forces it, False keeps one device): one rank per GPU, each on
+`cuda:LOCAL_RANK`, the parameters replicated and kept bit-identical, every
+step's rays split over the ranks (`parallel/sharding.py`). num_rays_lidar
+must divide over the world: the JAX trainer shrinks its device count until
+it does, a torch world cannot shrink, so it raises. Only rank 0 writes the
+log, checkpoints, evaluation, test and mesh; the other ranks wait at a
+barrier after each.
+
 A checkpoint holds numpy leaves only, with `model` and `ema` in the flax
 layout (`utils/params.py`), so each package loads the other's: the JAX
 trainer's keys (`epoch`, `global_step`, `stats`, `ema_num_updates`,
 `np_rng`, `occ_grid`, and `optimizer`: the Adam moments and both counts as
 optax's leaves), and the port's generator state under `rng_torch`. A JAX
 checkpoint's `rng` (a JAX key) is not carried across; the `optimizer_torch`
-entry of older port checkpoints still loads.
+entry of older port checkpoints still loads. `ckpt_format="orbax"` writes
+the sharded directory store of `utils/checkpoint_io.py`.
 """
 
+import functools
 import glob
 import os
 import time
@@ -44,7 +61,6 @@ import torch
 
 from lidarnerf_tpu_torch.dataset.base import get_lidar_rays
 from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar
-from lidarnerf_tpu_torch.models.network import check_seam_flags
 from lidarnerf_tpu_torch.models.occupancy import init_occ_grid, occ_config_from_opt
 from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays_staged
 from lidarnerf_tpu_torch.nerf.train_step import (
@@ -57,6 +73,7 @@ from lidarnerf_tpu_torch.nerf.train_step import (
 )
 from lidarnerf_tpu_torch.ops import losses as L
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
+from lidarnerf_tpu_torch.parallel import sharding
 from lidarnerf_tpu_torch.utils import checkpoint_io
 from lidarnerf_tpu_torch.utils.geometry import filter_bbox_dataset
 from lidarnerf_tpu_torch.utils.image_io import COLORMAP_BONE, COLORMAP_HSV, apply_color_map, imwrite
@@ -76,6 +93,20 @@ def is_ali_cluster():
     return "auto-drive" in socket.gethostname()
 
 
+def _rank0(method):
+    """Run `method` on rank 0 only; then every rank meets at a barrier."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        try:
+            if self.writer_rank:
+                return method(self, *args, **kwargs)
+        finally:
+            self._barrier()
+
+    return run
+
+
 def _patch_key(p):
     return p if isinstance(p, int) else tuple(p)
 
@@ -93,14 +124,16 @@ class Trainer:
             min_near_lidar, min_near, bound, max_ray_batch,
             patch_size_lidar, change_patch_size_lidar,
             change_patch_size_epoch, seed, and optionally profile,
-            dataloader and cluster_summary_path; for `--fast`,
-            occ_sampling and the occ_* fields. The seam options `seam_tie`
-            and `seam_sync_hashed` raise when set.
+            dataloader, cluster_summary_path, seam_sync_hashed (0 = off)
+            and data_parallel ("auto", True or False); for `--fast`,
+            occ_sampling and the occ_* fields.
         module: the NeRFNetwork, moved to `device` and trained in place (the
             JAX trainer takes an unbound flax module and makes its
             parameters; a torch module holds its own).
         device: None runs on CUDA and raises if there is none; pass "cpu"
-            to run the plain PyTorch path on the CPU.
+            to run the plain PyTorch path on the CPU. Data-parallel, each
+            rank runs on its own device (`cuda:LOCAL_RANK`, or the CPU
+            under gloo).
         mute: no log lines on stdout (the log file still gets them).
         metrics: RGB meters, kept and not read, as in the JAX trainer.
         depth_metrics: the LiDAR meters, in the CLI's order (MAE and RMSE
@@ -111,16 +144,21 @@ class Trainer:
             no checkpoints, no validation images).
         use_checkpoint: "scratch", "latest", "latest_model", "best" or a
             checkpoint path; read only with a workspace.
-        ckpt_format: "pickle"; "orbax" raises (a JAX library).
+        ckpt_format: "pickle" (both packages read it) or "orbax" (the
+            sharded directory store; the JAX package's cannot be read here).
     """
 
     def __init__(self, name, opt, module, device=None, mute=False, metrics=None,
                  depth_metrics=None, ema_decay=None, eval_interval=1, ckpt_interval=1,
                  max_keep_ckpt=2, workspace="workspace", best_mode="min",
                  use_checkpoint="latest", use_tensorboardX=True, ckpt_format="pickle"):
-        check_seam_flags(opt)
         checkpoint_io.check_format(ckpt_format)
         self.device = resolve_device(device)
+        self.mesh = self._data_mesh(opt)
+        if self.mesh is not None:
+            self.device = self.mesh.device
+        self.writer_rank = self.mesh is None or self.mesh.rank == 0
+        mute = mute or not self.writer_rank
         self.name = name
         self.opt = opt
         self.mute = mute
@@ -175,6 +213,8 @@ class Trainer:
 
         seed = getattr(opt, "seed", 0)
         self.model = module.to(self.device)
+        if self.mesh is not None:  # every rank starts from rank 0's weights
+            sharding.broadcast_state(self.model.parameters())
         self.optimizer = make_optimizer(self.model.named_parameters(), self.train_cfg)
         self.ema_params = (
             {k: v.detach().clone() for k, v in self.model.state_dict().items()}
@@ -203,17 +243,21 @@ class Trainer:
 
         self.log_ptr = None
         if self.workspace is not None:
+            self.ckpt_path = os.path.join(self.workspace, "checkpoints")
+            self.best_path = f"{self.ckpt_path}/{self.name}.ckpt"
+        if self.workspace is not None and self.writer_rank:
             os.makedirs(self.workspace, exist_ok=True)
             self.log_path = os.path.join(workspace, f"log_{self.name}.txt")
             self.log_ptr = open(self.log_path, "a+")
-            self.ckpt_path = os.path.join(self.workspace, "checkpoints")
-            self.best_path = f"{self.ckpt_path}/{self.name}.ckpt"
             os.makedirs(self.ckpt_path, exist_ok=True)
+        self._barrier()
 
         n_params = sum(p.numel() for p in self.model.parameters())
         self.log(f"[INFO] Trainer: {self.name} | {self.time_stamp} | {self.device.type} | "
                  f"{self.workspace}")
         self.log(f"[INFO] #parameters: {n_params}")
+        if self.mesh is not None:
+            self.log(f"[INFO] data-parallel over {self.mesh.n_data} ranks")
 
         if self.workspace is not None:
             if use_checkpoint == "scratch":
@@ -253,6 +297,33 @@ class Trainer:
             self.log_ptr.close()
             self.log_ptr = None
 
+    def _data_mesh(self, opt):
+        """The `data` mesh of the joined process group, or None on one device
+        (`_mesh` :229-255): "auto" shards under torchrun with WORLD_SIZE > 1."""
+        dp = getattr(opt, "data_parallel", "auto")
+        if dp == "auto":
+            dp = sharding.env_world_size() > 1
+        if not dp:
+            return None
+        sharding.init_from_env(self.device.type)
+        mesh = sharding.make_mesh()
+        if opt.num_rays_lidar % mesh.n_data:
+            raise ValueError(
+                f"num_rays_lidar={opt.num_rays_lidar} does not divide over the {mesh.n_data} "
+                f"ranks of the world (the JAX trainer shrinks its device count until it "
+                f"does; a torch world cannot shrink)")
+        return mesh
+
+    def _barrier(self):
+        """All ranks meet here (one device: nothing)."""
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            if self.device.type == "cuda":
+                dist.barrier(device_ids=[self.device.index])
+            else:
+                dist.barrier()
+
     def _get_epoch_fn(self, patch_size, masked_sampling):
         """The epoch function of (patch size, sampler); all of them share the
         DeviceAdam and, on CUDA, one graph memory pool."""
@@ -264,7 +335,8 @@ class Trainer:
             self._epoch_fns[key] = make_epoch_step(
                 self.model, self.train_cfg, self.render_cfg, patch_size=patch_size,
                 masked_sampling=masked_sampling, optimizer=self.optimizer, device=self.device,
-                capture=capture, graph_pool=self._graph_pool,
+                capture=capture, graph_pool=self._graph_pool, mesh=self.mesh,
+                seam_sync=getattr(self.opt, "seam_sync_hashed", 0),
             )
         return self._epoch_fns[key]
 
@@ -305,7 +377,7 @@ class Trainer:
         None) every `eval_interval` epochs, then the best checkpoint.
         """
         writer = None
-        if self.use_tensorboardX and self.workspace is not None:
+        if self.use_tensorboardX and self.workspace is not None and self.writer_rank:
             try:
                 import tensorboardX
 
@@ -321,7 +393,7 @@ class Trainer:
         # --profile: a torch.profiler trace of the first epoch under
         # workspace/profile (the JAX trainer's jax.profiler trace)
         prof = None
-        if getattr(self.opt, "profile", None) and self.workspace is not None:
+        if getattr(self.opt, "profile", None) and self.workspace is not None and self.writer_rank:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -456,6 +528,7 @@ class Trainer:
         self.model.load_state_dict(state)
         return held
 
+    @_rank0
     def evaluate_one_epoch(self, dataset, name=None):
         """Render every frame of `dataset` with the EMA weights (the raw ones
         without an EMA) and feed the depth meters; with a workspace, write
@@ -574,6 +647,7 @@ class Trainer:
 
     # ------------------------------------------------------------------- test
 
+    @_rank0
     def test(self, dataset, save_path=None, name=None, write_video=True):
         """Render every frame with the raw weights; write the point clouds
         (on NeRF-MVL cropped to the frame's OBB), and the panos as PNGs (or
@@ -639,6 +713,7 @@ class Trainer:
 
     # ------------------------------------------------------------------- mesh
 
+    @_rank0
     def save_mesh(self, save_path=None, resolution=256, threshold=10):
         """Export the raw weights' density isosurface at `threshold` as a PLY:
         the density queries run on the device (`NeRFNetwork.density`), the
@@ -697,6 +772,7 @@ class Trainer:
             state["optimizer"] = optimizer_to_jax(self.optimizer.state_dict())
         return state
 
+    @_rank0
     def save_checkpoint(self, name=None, full=False, best=False, remove_old=True):
         if name is None:
             name = f"{self.name}_ep{self.epoch:04d}"
@@ -730,7 +806,8 @@ class Trainer:
     def _atomic_dump(self, state, path):
         t0 = time.perf_counter()
         checkpoint_io.dump_state(state, path, self.ckpt_format)
-        self.run_log.append({"event": "save", "path": path, "bytes": os.path.getsize(path),
+        self.run_log.append({"event": "save", "path": path,
+                             "bytes": checkpoint_io.size_bytes(path),
                              "seconds": time.perf_counter() - t0})
 
     def _load_weights(self, tree):

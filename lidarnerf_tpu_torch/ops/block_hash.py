@@ -26,6 +26,11 @@ version; their backwards sum each run or window before one scatter-add,
 `encode_bwd_seg_plain` and `encode_bwd_win_plain` below. The run structure
 (`level_rows_padded`, `seg_next`, `pack_win_flags`) is that of
 block_hash_pallas.py's prep.
+
+The seam options (`--seam_tie`, `--seam_sync_hashed`, `--alpha_seam`) are
+`tie_dense_seams`, `sync_hashed_seams` and `block_hash_seam_loss` at the
+end: plain PyTorch on both devices, equal to the JAX package's bit for bit
+(the loss to rounding) given the same samples.
 """
 
 import os
@@ -443,3 +448,255 @@ def block_hash_encode(x01, table, spec: BlockHashSpec):
     x = x01.reshape(-1, 3).float().contiguous()
     out = BlockHashEncode.apply(x, table, spec)
     return out.reshape(*prefix, spec.output_dim)
+
+
+# ------------------------------------------------- boundary-corner sharing
+#
+# A corner on a block face is stored twice: block b's local corner 3 along
+# an axis and block b+1's local corner 0 are one global corner. The three
+# functions below are the JAX package's seam options
+# (lidarnerf_tpu/ops/block_hash.py:315-475): the tie averages the copies of
+# the dense levels inside the forward, the sync assigns both copies of
+# sampled hashed-level corners their mean, and the seam loss penalises the
+# copies' difference.
+
+
+def _row_lane(gcorner, block, dense, nb, row_offset, spec: BlockHashSpec):
+    """(row, lane0) of global corners stored in given blocks; `dense`, `nb`
+    (the dense block-grid extent) and `row_offset` (the level's first row)
+    are a level's, or per-corner tensors of a batch of levels."""
+    local = gcorner - block * CELLS_PER_BLOCK  # in [0, 3]
+    hashed = (
+        ((block[:, 0] * _HASH_PRIMES[0]) & _U32)
+        ^ ((block[:, 1] * _HASH_PRIMES[1]) & _U32)
+        ^ ((block[:, 2] * _HASH_PRIMES[2]) & _U32)
+    )
+    lexical = (block[:, 0] * nb + block[:, 1]) * nb + block[:, 2]
+    idx = torch.where(torch.as_tensor(dense, device=block.device), lexical, hashed)
+    row = idx % spec.blocks_per_level + row_offset
+    lane0 = ((local[:, 0] * CORNERS_PER_BLOCK + local[:, 1]) * CORNERS_PER_BLOCK
+             + local[:, 2]) * LEVEL_DIM
+    return row, lane0
+
+
+def corner_row_lane(gcorner, block, level: _Level, level_idx: int, spec: BlockHashSpec):
+    """(row, lane0) of a global corner stored in a given block (`_corner_row_lane` :404).
+
+    gcorner, block: [Q, 3] int64 with 3 * block <= gcorner <= 3 * block + 3.
+    lane0 is the channel-0 lane; channel 1 is lane0 + 1. The hash is the
+    uint32 prime-XOR, done in int64 and masked as in `level_indices_and_weights`.
+    """
+    return _row_lane(gcorner, block, level.dense, level.blocks_axis,
+                     level_idx * spec.blocks_per_level, spec)
+
+
+_SEAM_AXES = "xyz"
+
+
+def _average_dense_seams(t, spec: BlockHashSpec, axes):
+    """In place on a table-shaped `t`: along each axis of `axes` in turn, both
+    stored copies of every face corner of every dense level (of two blocks or
+    more a side) become their mean, 0.5 * (a + b)."""
+    for li, level in enumerate(spec.levels):
+        nb = level.blocks_axis
+        if not level.dense or nb < 2:
+            continue
+        off = li * spec.blocks_per_level
+        v = t[off : off + nb**3].view(nb, nb, nb, 4, 4, 4, 2)
+        for axis in axes:
+            d = _SEAM_AXES.index(axis)
+            hi = (slice(None),) * d + (slice(None, -1),) + (slice(None),) * 2 + (3,)
+            lo = (slice(None),) * d + (slice(1, None),) + (slice(None),) * 2 + (0,)
+            m = 0.5 * (v[hi] + v[lo])
+            v[hi] = m
+            v[lo] = m
+
+
+class TieDenseSeams(torch.autograd.Function):
+    """The tie as one differentiable op. Each axis's averaging is a symmetric
+    projection, so the tie's adjoint is the same averaging in the reverse
+    axis order (z, y, x) on a copy of the incoming gradient: the sums and
+    halvings of JAX's VJP, bit for bit, in two table copies."""
+
+    @staticmethod
+    def forward(ctx, table, spec):
+        ctx.spec = spec
+        out = table.detach().clone()
+        _average_dense_seams(out, spec, _SEAM_AXES)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        _average_dense_seams(g, ctx.spec, _SEAM_AXES[::-1])
+        return g, None
+
+
+def tie_dense_seams(table, spec: BlockHashSpec):
+    """The table with both copies of every shared face corner of the dense
+    levels replaced by their mean (`tie_dense_seams` :315), differentiable.
+
+    Dense levels index blocks lexicographically, so the copies pair by static
+    slices of a [nb, nb, nb, 4, 4, 4, 2] view, averaged along x, then y, then
+    z (edge and vertex corners converge to the mean of all their copies).
+    The gradient flows through the means (`TieDenseSeams`): no scatter. A
+    spec with no dense level of two blocks returns the table itself.
+    """
+    if not any(lv.dense and lv.blocks_axis >= 2 for lv in spec.levels):
+        return table
+    return TieDenseSeams.apply(table, spec)
+
+
+def seam_extent(level: _Level):
+    """(n_seams, max_corner) of a level: seams g = 3m, m in [1, n_seams], on
+    corner coordinates in [0, max_corner]."""
+    max_corner = level.max_cell + 1
+    return min(max_corner // CELLS_PER_BLOCK, level.blocks_axis - 1), max_corner
+
+
+def seam_draws(spec: BlockHashSpec, n_per_axis, generator=None, device=None, hashed_only=False):
+    """{(level, axis): (m [n], other [n, 3])} int64 seam samples, drawn from
+    `generator` on `device` with no host read: m uniform in [1, n_seams],
+    other uniform in [0, max_corner]. Levels without a seam draw nothing;
+    `hashed_only` skips the dense levels too (the sync's)."""
+    draws = {}
+    for li, level in enumerate(spec.levels):
+        n_seams, max_corner = seam_extent(level)
+        if n_seams < 1 or (hashed_only and level.dense):
+            continue
+        for axis in range(3):
+            m = torch.randint(1, n_seams + 1, (n_per_axis,), generator=generator, device=device)
+            other = torch.randint(0, max_corner + 1, (n_per_axis, 3), generator=generator,
+                                  device=device)
+            draws[(li, axis)] = (m, other)
+    return draws
+
+
+_SLOT_CONSTANTS = {}  # (spec, keys, sizes, device) -> per-sample level constants
+
+
+def _slot_constants(spec, keys, sizes, device):
+    """Per-sample constants of a batch of (level, axis) keys with `sizes`
+    samples each: the axis as a one-hot [n, 3], the largest block index, the
+    dense flag, the dense extent and the level's first row. Made at the first
+    call on a shape (an eager warm-up, before any capture) and kept."""
+    key = (spec, keys, sizes, str(device))
+    if key not in _SLOT_CONSTANTS:
+        levels = [spec.levels[li] for li, _ in keys]
+
+        def per_sample(values, dtype=np.int64):
+            return torch.from_numpy(np.repeat(np.asarray(values, dtype), sizes)).to(device)
+
+        onehot = torch.from_numpy(np.eye(3, dtype=bool)[np.repeat([a for _, a in keys], sizes)])
+        _SLOT_CONSTANTS[key] = (
+            onehot.to(device),
+            per_sample([lv.blocks_axis - 1 for lv in levels]),
+            per_sample([lv.dense for lv in levels], bool),
+            per_sample([lv.blocks_axis for lv in levels]),
+            per_sample([li * spec.blocks_per_level for li, _ in keys]),
+        )
+    return _SLOT_CONSTANTS[key]
+
+
+def _seam_slots(spec, keys, draws, device):
+    """Flat-table slots (ia, ib), each [sum of the samples], of the two stored
+    copies (channel 0) of the sampled seam corners of the (level, axis)
+    `keys`, in their order: a corner g with g[axis] = 3m lies in block
+    g // 3 (clamped; ia) and in the block before it along the axis (ib).
+    One batch of tensor ops for all the keys."""
+    m = torch.cat([torch.as_tensor(draws[k][0], device=device).long() for k in keys])
+    other = torch.cat([torch.as_tensor(draws[k][1], device=device).long() for k in keys])
+    sizes = tuple(int(draws[k][0].shape[0]) for k in keys)
+    onehot, bmax, dense, nb, first_row = _slot_constants(spec, tuple(keys), sizes, device)
+    g = torch.where(onehot, (m * CELLS_PER_BLOCK)[:, None], other)
+    blk_hi = torch.minimum(torch.clamp(torch.div(g, CELLS_PER_BLOCK, rounding_mode="floor"),
+                                       min=0), bmax[:, None])
+    blk_lo = blk_hi - onehot.long()
+    slots = []
+    for blk in (blk_hi, blk_lo):
+        row, lane0 = _row_lane(g, blk, dense, nb, first_row, spec)
+        slots.append(row * ROW_WIDTH + lane0)
+    return slots
+
+
+def _last_writes(idx, vals):
+    """(slots, values) that write `vals` [n] at `idx` [n] as in-order writes
+    would: every write to a slot carries the value of the last write to it,
+    so a scatter of them ends the same on any device and in any order. A
+    stable sort groups the equal slots; no host read."""
+    order = torch.sort(idx, stable=True).indices
+    s, v = idx[order], vals[order]
+    start = torch.ones_like(s, dtype=torch.bool)
+    start[1:] = s[1:] != s[:-1]
+    group = torch.cumsum(start, 0) - 1
+    pos = torch.arange(s.numel(), device=s.device)
+    last = torch.zeros_like(pos).scatter_reduce_(0, group, pos, "amax")
+    return s, v[last[group]]
+
+
+@torch.no_grad()
+def sync_hashed_seams(table, spec: BlockHashSpec, generator=None, n_per_axis=4096, draws=None):
+    """Assign both stored copies of sampled hashed-level seam corners their
+    mean, in place (`sync_hashed_seams` :361). Returns `table`.
+
+    Per (level, axis), in the JAX order (levels are disjoint, so each axis
+    takes every level at once): the means come from the current table, then
+    the copies in the hi blocks are written and then those in the lo blocks, so where sampled slots collide the last write wins, as
+    XLA's in-order scatter has it: every write to a slot carries the last
+    one's value (`_last_writes`), so the card, the CPU and the JAX package
+    agree bit for bit. `draws` injects the samples of
+    `seam_draws(..., hashed_only=True)`; else they are drawn from
+    `generator` on the table's device. No host read: a CUDA graph can
+    capture it.
+    """
+    if draws is None:
+        draws = seam_draws(spec, n_per_axis, generator, table.device, hashed_only=True)
+    flat = table.view(-1)
+    # the levels' slots are disjoint, so each axis syncs every level at once;
+    # within a level the axes keep the JAX order
+    for axis in range(3):
+        keys = [(li, axis) for li, lv in enumerate(spec.levels)
+                if not lv.dense and (li, axis) in draws]
+        if not keys:
+            continue
+        ia, ib = _seam_slots(spec, keys, draws, table.device)
+        idx = torch.cat([ia, ib, ia + 1, ib + 1])
+        mean0 = 0.5 * (flat[ia] + flat[ib])
+        mean1 = 0.5 * (flat[ia + 1] + flat[ib + 1])
+        slots, vals = _last_writes(idx, torch.cat([mean0, mean0, mean1, mean1]))
+        flat[slots] = vals
+    return table
+
+
+def block_hash_seam_loss(table, spec: BlockHashSpec, generator=None, n_per_axis=512,
+                         draws=None):
+    """Mean squared difference of the two stored copies of sampled seam
+    corners, a 0-d tensor (`block_hash_seam_loss` :430).
+
+    Per (level, axis) with a seam: the mean over the samples of
+    (fa0 - fb0)^2 + (fa1 - fb1)^2; the result is the mean of those terms.
+    The copies are gathered, all in one call, as channel pairs of a
+    [rows * 64, 2] view whose gradient adds order-free
+    (`order_free.gather_rows`), so a step with the loss repeats bit for bit
+    on the card. `draws` injects the samples of
+    `seam_draws`; else they are drawn from `generator` on the table's device.
+    """
+    from lidarnerf_tpu_torch.ops.order_free import gather_rows
+
+    if draws is None:
+        draws = seam_draws(spec, n_per_axis, generator, table.device)
+    keys = [(li, axis) for li in range(spec.num_levels) for axis in range(3)
+            if (li, axis) in draws]
+    if not keys:
+        return table.new_zeros(())
+    ia, ib = _seam_slots(spec, keys, draws, table.device)
+    sizes = [int(draws[k][0].shape[0]) for k in keys]
+    # one gather of every sampled pair: one order-free accumulator in the backward
+    f = gather_rows(table.view(-1, LEVEL_DIM), torch.stack([ia, ib]) // LEVEL_DIM)
+    d = f[0] - f[1]  # [sum(sizes), 2]
+    sq = d[:, 0] ** 2 + d[:, 1] ** 2
+    terms = [torch.mean(x) for x in torch.split(sq, sizes)]
+    total = terms[0]
+    for t in terms[1:]:
+        total = total + t
+    return total / len(terms)

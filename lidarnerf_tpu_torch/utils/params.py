@@ -155,7 +155,9 @@ def load_state(path) -> dict:
     them); an optax object anywhere else raises.
     """
     if os.path.isdir(path):
-        raise NotImplementedError(f"{path} is an orbax checkpoint; only pickle checkpoints load here")
+        raise NotImplementedError(
+            f"{path} is a directory, an orbax checkpoint: only pickle checkpoints load here; "
+            "save the run with --ckpt_format pickle, the format both packages read")
     with open(path, "rb") as f:
         state = _NumpyOnlyUnpickler(f).load()
     if isinstance(state, dict):

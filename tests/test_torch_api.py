@@ -1,7 +1,6 @@
 """The port's entry points take the JAX package's parameters, in its order,
-and raise on the values they cannot honour yet (seam options, the orbax
-checkpoint format); every encoding, the background sphere and RGB frames
-construct."""
+and honour every value the JAX package takes: the seam options, the orbax
+checkpoint format, every encoding, the background sphere and RGB frames."""
 
 import dataclasses
 import inspect
@@ -47,21 +46,37 @@ def _train_opt(**kw):
 
 @pytest.mark.parametrize("flag", list(SEAM_FLAGS))
 def test_pano_renderer_raises_on_seam_flags(flag):
-    """A field trained with a seam option is not served without it."""
+    """A field trained with a seam option is served (the seam options are
+    ported): with `seam_tie` the network ties its dense levels in every
+    encode; `seam_sync_hashed` is a training option the server ignores. TINY
+    has no dense level (16 blocks a level), so the tie leaves its pano as it
+    was."""
     params = params_to_jax(NeRFNetwork(**TINY).state_dict())
-    PanoRenderer(_render_opt(seam_tie=False, seam_sync_hashed=0), params, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"{flag}.*queue A item 5"):
-        PanoRenderer(_render_opt(**{flag: SEAM_FLAGS[flag]}), params, device="cpu")
+    plain = PanoRenderer(_render_opt(seam_tie=False, seam_sync_hashed=0), params, device="cpu")
+    served = PanoRenderer(_render_opt(**{flag: SEAM_FLAGS[flag]}), params, device="cpu")
+    assert served.network.seam_tie == (flag == "seam_tie")
+    pose = np.eye(4, dtype=np.float32)
+    a = plain.render_frame(pose, 4, 8, (2.0, 26.9))
+    b = served.render_frame(pose, 4, 8, (2.0, 26.9))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.parametrize("flag", list(SEAM_FLAGS))
 def test_trainer_raises_on_seam_flags(flag):
-    net = NeRFNetwork(**TINY)
-    Trainer("t", _train_opt(seam_tie=False, seam_sync_hashed=0), net, device="cpu", mute=True,
-            workspace=None)
-    with pytest.raises(NotImplementedError, match=f"{flag}.*queue A item 5"):
-        Trainer("t", _train_opt(**{flag: SEAM_FLAGS[flag]}), net, device="cpu", mute=True,
-                workspace=None)
+    """The trainer takes the seam options: `seam_sync_hashed` reaches the
+    epoch's sync hook, and an epoch with it trains; `seam_tie` is the
+    model's (the CLI builds the network with it)."""
+    net = NeRFNetwork(**TINY, seam_tie=flag == "seam_tie")
+    trainer = Trainer("t", _train_opt(H_lidar=4, W_lidar=8, **{flag: SEAM_FLAGS[flag]}), net,
+                      device="cpu", mute=True, workspace=None)
+    fn = trainer._get_epoch_fn(1, False)
+    assert fn.step is trainer._get_step_fn(1, False)
+    poses = torch.from_numpy(np.broadcast_to(np.eye(4, dtype=np.float32), (2, 4, 4)).copy())
+    images = torch.rand((2, 4, 8, 3), generator=torch.Generator().manual_seed(0))
+    ms = fn(poses, images, torch.zeros((2, 1), dtype=torch.long), torch.full((2,), 32),
+            np.array([0, 1]), generator=torch.Generator().manual_seed(1))
+    assert torch.isfinite(ms["loss"]).all() and (ms["skipped_nonfinite"] == 0).all()
 
 
 def test_kitti360_dataset_fields_are_the_jax_dataclass_fields():
@@ -115,13 +130,25 @@ def test_nerf_network_takes_every_jax_field():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(n_features_per_level=4), "n_features_per_level=4"),
-    (dict(seam_tie=True), "seam_tie"),
+    (dict(seam_tie=True), None),
 ], ids=["n_features_per_level", "seam_tie"])
 def test_nerf_network_raises_on_unported_values(kw, match):
-    """Under blockhash, whose table rows hold 2 features per level; seam_tie
-    waits for queue A item 5."""
-    with pytest.raises(NotImplementedError, match=match):
-        NeRFNetwork(**TINY, **kw)
+    """Under blockhash, whose table rows hold 2 features per level,
+    n_features_per_level=4 raises; seam_tie is ported: the network ties its
+    dense levels in every encode, as the JAX module does."""
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            NeRFNetwork(**TINY, **kw)
+        return
+    net = NeRFNetwork(**{**TINY, "log2_hashmap_size": 16}, **kw)
+    assert net.seam_tie and any(lv.dense for lv in net.block_spec.levels)
+    x = torch.rand((64, 3), generator=torch.Generator().manual_seed(0)) * 2 - 1
+    untied = NeRFNetwork(**{**TINY, "log2_hashmap_size": 16})
+    untied.load_state_dict(net.state_dict())
+    with torch.no_grad():
+        net.hash_table.normal_(generator=torch.Generator().manual_seed(1))
+        untied.hash_table.copy_(net.hash_table)
+    assert not torch.equal(net.encode_pos(x), untied.encode_pos(x))
 
 
 @pytest.mark.parametrize("kw", [
@@ -156,21 +183,21 @@ def test_trainer_signature_is_the_jax_signature():
     dict(use_checkpoint="scratch"), dict(use_tensorboardX=False), dict(ckpt_format="orbax"),
 ], ids=lambda kw: next(iter(kw)))
 def test_trainer_raises_on_unported_arguments(kw, tmp_path):
-    """Of the JAX trainer's arguments only ckpt_format="orbax" still raises
-    (orbax is a JAX library: ROADMAP.md queue A item 6); the others are
-    ported and kept as given."""
+    """Every argument of the JAX trainer is ported and kept as given,
+    ckpt_format="orbax" (the port's sharded directory store) included; an
+    unknown format raises."""
     net = NeRFNetwork(**TINY)
     kw = {k: str(tmp_path / v) if k == "workspace" else v for k, v in kw.items()}
     kw = {"workspace": None, **kw}
+    trainer = Trainer("t", _train_opt(), net, device="cpu", mute=True, **kw)
+    for k, v in kw.items():
+        if k != "use_checkpoint":  # read at construction only
+            assert getattr(trainer, k) == v, k
+    trainer.close()
     if kw.get("ckpt_format") == "orbax":
-        with pytest.raises(NotImplementedError, match="orbax.*queue A item 6"):
-            Trainer("t", _train_opt(), net, device="cpu", mute=True, **kw)
-    else:
-        trainer = Trainer("t", _train_opt(), net, device="cpu", mute=True, **kw)
-        for k, v in kw.items():
-            if k != "use_checkpoint":  # read at construction only
-                assert getattr(trainer, k) == v, k
-        trainer.close()
+        with pytest.raises(ValueError, match="unknown checkpoint format"):
+            Trainer("t", _train_opt(), net, device="cpu", mute=True, workspace=None,
+                    ckpt_format="zarr")
     if kw["workspace"] is not None:
         assert (tmp_path / "ws" / "log_t.txt").exists() and (tmp_path / "ws" / "checkpoints").is_dir()
     # positionally, in the JAX order: name, opt, module, device, mute

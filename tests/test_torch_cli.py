@@ -165,16 +165,27 @@ def test_every_encoding_trains_evaluates_and_tests(encoding, data, tmp_path, mon
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--seam_tie", "1"], "--seam_tie.*queue A item 5"),
-    (["--seam_sync_hashed", "8"], "--seam_sync_hashed.*queue A item 5"),
-    (["--alpha_seam", "0.1"], "--alpha_seam.*queue A item 5"),
-    (["--ckpt_format", "orbax"], "--ckpt_format orbax.*queue A item 6"),
+    (["--seam_tie", "1"], "seam_tie = 1"),
+    (["--seam_sync_hashed", "8"], "seam_sync_hashed = 8"),
+    (["--alpha_seam", "0.1"], "alpha_seam = 0.1"),
+    (["--ckpt_format", "orbax"], "ckpt_format = orbax"),
 ], ids=["seam_tie", "seam_sync_hashed", "alpha_seam", "orbax"])
 def test_unported_flags_raise(flag, match, data, tmp_path, monkeypatch):
+    """The flags that raised until they were ported (the seam options, the
+    orbax format) now run the tiny flow: train, evaluate, test, mesh, with
+    the flag in args.txt and in force (the tied network, the sync hook, the
+    seam term, directory checkpoints that resume)."""
     monkeypatch.setenv("LIDARNERF_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(_argv(data, tmp_path / "ws", "tiny", *flag))
-    assert not (tmp_path / "ws").exists()
+    trainer = cli.main(_argv(data, tmp_path / "ws", "tiny", *flag))
+    assert match in (tmp_path / "ws" / "args.txt").read_text()
+    assert np.isfinite(trainer.stats["step_loss"]).all() and not any(trainer.stats["skipped"])
+    assert trainer.model.seam_tie == (flag[0] == "--seam_tie")
+    assert trainer.train_cfg.alpha_seam == (0.1 if flag[0] == "--alpha_seam" else 0.0)
+    assert trainer.opt.seam_sync_hashed == (8 if flag[0] == "--seam_sync_hashed" else 0)
+    ckpts = sorted((tmp_path / "ws" / "checkpoints").glob("*.ckpt"))
+    assert ckpts and all(p.is_dir() == (flag[1] == "orbax") for p in ckpts)
+    again = cli.main(_argv(data, tmp_path / "ws", "tiny", *flag, "--test"))
+    assert again.epoch == trainer.epoch and again.global_step == trainer.global_step
 
 
 def test_cli_needs_a_gpu_unless_told_cpu(data, tmp_path, monkeypatch):

@@ -879,7 +879,9 @@ def _graph_opt(**kw):
 
 def _graph_case(case, tmp_path, monkeypatch):
     """(options, training set) of a sampler/variant case: default, seg, win,
-    fast (--fast: a 32^3 grid refreshed every 4 steps) or masked (NeRF-MVL)."""
+    fast (--fast: a 32^3 grid refreshed every 4 steps), masked (NeRF-MVL) or
+    seams (--seam_tie 1 --alpha_seam 100 --seam_sync_hashed 256: the sync
+    before steps 0, 16, 32, ... between replays)."""
     from lidarnerf_tpu_torch.dataset.kitti360 import KITTI360Dataset
 
     for name in ("LIDARNERF_SEG_KERNELS", "LIDARNERF_WIN_KERNELS"):
@@ -892,7 +894,9 @@ def _graph_case(case, tmp_path, monkeypatch):
                             intrinsics_lidar=ds.intrinsics_lidar, scale=0.1, min_near=0.1,
                             min_near_lidar=0.1)
         return opt, ds
-    opt, c = _graph_opt(**({"occ_sampling": True} if case == "fast" else {}))
+    kw = {"fast": {"occ_sampling": True},
+          "seams": {"seam_tie": 1, "alpha_seam": 100.0, "seam_sync_hashed": 256}}
+    opt, c = _graph_opt(**kw.get(case, {}))
     root = Path(__file__).resolve().parent.parent
     ds = KITTI360Dataset(root_path=str(root / "data_synth_drive60"), scale=c["scale"],
                          offset=c["offset"], num_rays_lidar=256)
@@ -942,7 +946,7 @@ def _device_launches(fn):
     return {k: counts[k] for k in block_hash_cuda.launch_counts()}
 
 
-@pytest.mark.parametrize("case", ["default", "seg", "win", "fast", "masked"])
+@pytest.mark.parametrize("case", ["default", "seg", "win", "fast", "masked", "seams"])
 def test_captured_epochs_equal_the_eager_epochs(require_cuda, tmp_path, monkeypatch, case):
     """Two epochs (patch 1, then the [2, 8] patches: two graphs) with the
     step captured (`--fuse_epoch 1`) and eager (`0`), from the same state
@@ -1238,3 +1242,63 @@ def test_unet_trainer_on_cuda_matches_the_cpu(require_cuda, no_tf32, tmp_path):
     lg = [float(x) for x in lg]
     np.testing.assert_allclose(lg[0], lc[0], rtol=1e-4)
     np.testing.assert_allclose(lg[1], lc[1], rtol=1e-2)
+
+
+def _seam_spec():
+    """The KITTI-360 model's table: 16 levels, 2^19, desired resolution 32768."""
+    return block_hash.make_block_hash_spec(num_levels=16, log2_hashmap_size=19,
+                                           desired_resolution=32768)
+
+
+def test_seam_functions_on_cuda_match_the_cpu(require_cuda):
+    """tie_dense_seams, sync_hashed_seams and block_hash_seam_loss at the full
+    table on the card against the CPU on the same table and draws: the tie,
+    its gradient and the sync bit for bit, the loss within 1e-6 relative and
+    its order-free gradient bit for bit."""
+    spec = _seam_spec()
+    g = torch.Generator().manual_seed(0)
+    table = torch.randn((spec.table_rows, 128), generator=g)
+    up = torch.randn((spec.table_rows, 128), generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = table.detach().to(dev).clone().requires_grad_()
+        tied = block_hash.tie_dense_seams(t, spec)
+        (tied * up.to(dev)).sum().backward()
+        sync = block_hash.sync_hashed_seams(table.to(dev).clone(), spec, draws={
+            k: (m.to(dev), o.to(dev)) for k, (m, o) in block_hash.seam_draws(
+                spec, 4096, torch.Generator().manual_seed(1), hashed_only=True).items()})
+        t2 = table.detach().to(dev).clone().requires_grad_()
+        loss = block_hash.block_hash_seam_loss(t2, spec, draws={
+            k: (m.to(dev), o.to(dev)) for k, (m, o) in block_hash.seam_draws(
+                spec, 512, torch.Generator().manual_seed(2)).items()})
+        loss.backward()
+        out[dev] = [x.detach().cpu() for x in (tied, t.grad, sync, loss, t2.grad)]
+    (tied, tgrad, sync, loss, lgrad), gpu = out["cpu"], out["cuda"]
+    for name, a, b in (("tie", gpu[0], tied), ("tie gradient", gpu[1], tgrad),
+                       ("sync", gpu[2], sync), ("seam loss gradient", gpu[4], lgrad)):
+        assert torch.equal(a, b), (name, (a - b).abs().max().item(), (a != b).sum().item())
+    assert not torch.equal(sync, table)
+    torch.testing.assert_close(gpu[3], loss, rtol=1e-6, atol=0)
+
+
+def test_seam_sync_on_cuda_draws_on_the_card_without_a_host_read(require_cuda):
+    """The sync and the loss draw their samples from a generator on the card
+    inside a CUDA graph capture (no host read), and a replay syncs again."""
+    spec = _seam_spec()
+    table = torch.randn((spec.table_rows, 128), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    before = table.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up, as the captured step's
+        block_hash.sync_hashed_seams(table, spec, gen, 256)
+        block_hash.block_hash_seam_loss(table, spec, gen, 512)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        block_hash.sync_hashed_seams(table, spec, gen, 256)
+        loss = block_hash.block_hash_seam_loss(table, spec, gen, 512)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(table, before) and torch.isfinite(loss)

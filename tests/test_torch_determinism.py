@@ -115,3 +115,32 @@ def test_render_bitwise_deterministic():
             for _ in range(2)]
     for k in outs[0]:
         assert torch.equal(outs[0][k], outs[1][k])
+
+
+@pytest.mark.parametrize("variant", list(bh.VARIANTS))
+def test_seam_epoch_bitwise_deterministic(monkeypatch, variant):
+    """The seam options in one run: a tied network (`seam_tie`), the seam
+    loss (alpha_seam > 0, its gradient a gather's order-free scatter) and the
+    hashed-seam sync before step 0 and 16 of an 18-step epoch, twice from the
+    same state and seed: the losses, parameters and Adam state bit for bit."""
+    _set_variant(monkeypatch, variant)
+    net_kw = {**NET, "log2_hashmap_size": 14}  # dense coarse levels beside hashed ones
+    net0 = NeRFNetwork(**net_kw, seam_tie=True, generator=torch.Generator().manual_seed(1))
+    assert {lv.dense for lv in net0.block_spec.levels} == {True, False}
+    with torch.no_grad():
+        net0.hash_table.mul_(1e4)
+    cfg = tst.TrainConfig(scale=SCALE, num_rays_lidar=N, H_lidar=H, W_lidar=W, alpha_seam=100.0)
+    rcfg = RenderConfig(num_steps=16, upsample_steps=4, min_near_lidar=SCALE, min_near=SCALE)
+    poses, images = _frame()
+    vi, vc = torch.zeros((1, 1), dtype=torch.long), torch.full((1,), H * W)
+    runs = []
+    for _ in range(2):
+        net = copy.deepcopy(net0)
+        fn = tst.make_epoch_step(net, cfg, rcfg, device="cpu", seam_sync=256)
+        ms = fn(poses, images, vi, vc, np.zeros(18, np.int64),
+                generator=torch.Generator().manual_seed(7))
+        adam = fn.step.optimizer
+        runs.append([ms["loss"], *net.parameters(), *adam.mu, *adam.nu])
+    assert (ms["skipped_nonfinite"] == 0).all()
+    for a, b in zip(*runs):
+        assert torch.equal(a.detach(), b.detach())

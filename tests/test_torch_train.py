@@ -486,9 +486,12 @@ def test_trainer_epochs_follow_the_patch_schedule(field):
                    device="cpu", mute=True, workspace=None)
     assert fast.render_cfg.occ == OccConfig() and fast.occ_grid.shape == (128,) * 3
     assert not fast.occ_grid.any() and trainer.occ_grid is None
-    _, _, _, rcfg = _configs()
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        tst.make_train_step(net, tst.TrainConfig(alpha_seam=0.1), rcfg, device="cpu")
+    # the seam regulariser is ported: a step with alpha_seam > 0 builds and trains
+    _, tcfg, _, rcfg = _configs(alpha_seam=0.1)
+    step = tst.make_train_step(net, tcfg, rcfg, device="cpu")
+    m = step(*_TinyData().device_arrays("cpu"), torch.zeros((3, 1), dtype=torch.long),
+             torch.full((3,), H * W), 0, generator=torch.Generator().manual_seed(0))
+    assert m["skipped_nonfinite"] == 0.0 and torch.isfinite(m["loss"])
 
 
 def test_trainer_refreshes_the_occ_grid_every_interval(field, monkeypatch):
