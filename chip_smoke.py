@@ -5,11 +5,12 @@
 
 Builds every CUDA kernel of the ported paths from `lidarnerf_tpu_torch/csrc`
 (the block-hash forward B1 and backward B2, their run-collapsing variants:
-segmented B3a/B3b and windowed B4a/B4b, the fused MLP B5 and the
-permutation gather B6), holds each against its plain PyTorch version on the
-card at the main paths' shapes, then drives the main paths at the full width
-of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
-768 + 64 samples, 4096-ray chunks, 66 x 1030 panos):
+segmented B3a/B3b and windowed B4a/B4b, the fused MLP B5, the permutation
+gather B6 and the occupancy bin lookup P12), holds each against its plain
+PyTorch version on the card at the main paths' shapes, then drives the main
+paths at the full width of the KITTI-360 model (16-level 2^19 block-hash
+grid, width-64 bf16 MLPs, 768 + 64 samples, 4096-ray chunks, 66 x 1030
+panos):
   - fused-mlp: `fused_mlp` on the model's own sigma net and LiDAR head at a
     served chunk's shapes, f32 and bf16, and one backward (B5), with each
     instance's registers and blocks per SM, the spills ptxas reports and the
@@ -37,6 +38,11 @@ of the KITTI-360 model (16-level 2^19 block-hash grid, width-64 bf16 MLPs,
   - training-fast, serving-fast: `Trainer` with occupancy-prior sampling
     (`--fast`: 192 + 64 samples, a 128^3 grid refreshed every 16 steps) for
     the same three epochs, then `PanoRenderer` on frame 0 with its grid;
+  - occ-lookup: the occupancy bin lookup (P12) through the port's tool
+    (`python -m lidarnerf_tpu_torch.tools.exp_occ_lookup`: 524,288 uniform
+    cells of a seeded 128^3 grid) and on the --fast step's real bin cells
+    in the trained grid, bit-exact, timed in turns with the port's index,
+    then by CUDA-graph replays and the profiler at both shapes;
   - cli: the CLI (`python -m lidarnerf_tpu_torch.main_lidarnerf`) with
     configs/kitti360_1908.txt -L on the drive: train -> evaluate -> test ->
     mesh, `--test_eval`, a resume, the device Chamfer;
@@ -187,19 +193,21 @@ def set_variant(variant):
 
 def launch_counts():
     """{kernel name: launches so far} of every kernel wrapper of the port."""
-    from lidarnerf_tpu_torch.ops import block_hash_cuda, fused_mlp_cuda, perm_gather_cuda
+    from lidarnerf_tpu_torch.ops import (block_hash_cuda, fused_mlp_cuda, occ_lookup_cuda,
+                                         perm_gather_cuda)
 
     return {**block_hash_cuda.launch_counts(), **fused_mlp_cuda.launch_counts(),
-            **perm_gather_cuda.launch_counts()}
+            **perm_gather_cuda.launch_counts(), **occ_lookup_cuda.launch_counts()}
 
 
 def reset_counts():
     """Zero the wrappers' counters and turn on the count on the card
     (device_launches), so that the graphs captured from here on count their
     replays."""
-    from lidarnerf_tpu_torch.ops import block_hash_cuda, device_counts, fused_mlp_cuda, perm_gather_cuda
+    from lidarnerf_tpu_torch.ops import (block_hash_cuda, device_counts, fused_mlp_cuda,
+                                         occ_lookup_cuda, perm_gather_cuda)
 
-    for module in (block_hash_cuda, fused_mlp_cuda, perm_gather_cuda):
+    for module in (block_hash_cuda, fused_mlp_cuda, perm_gather_cuda, occ_lookup_cuda):
         module.reset_counts()
     device_counts.enable("cuda")
 
@@ -876,12 +884,14 @@ def train_to_serve_phase(ds, trainer, init_sd):
     return launches
 
 
+def dev_us(e):
+    """A profiler event's own device time in microseconds (the name differs across torch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
 def profile_summary(prof, wall_ms, what, top):
     """Device time of `prof` by kernel and by operator, and the device's idle share."""
     from torch.autograd import DeviceType
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     # device time of the kernels themselves, then of the operators that
     # launched them (each kernel's time is counted once in each list)
@@ -1828,6 +1838,150 @@ def serve_fast_phase(ds, trainer, init_sd):
     if not maes["fast"] < maes["initial"]:
         raise AssertionError("serving-fast: the trained field renders frame 0 no better")
     return launches
+
+
+OCC_RAYS = 4096  # the --fast step's rays: x 128 bins = 524,288 lookups
+OCC_EDGES = (0, 1, -1, 2, -2)  # x G^3 offsets: the grid's ends, past them and the wrapped range
+
+
+def occ_lookup_phase(ds, trainer):
+    """The occ-lookup path (P12): the port's tool
+    (`python -m lidarnerf_tpu_torch.tools.exp_occ_lookup`) at its shape, then
+    the kernel on the real --fast traffic: the occupied volume of the trained
+    grid at the bin cells that occ_bin_pdf computes for 4096 training rays of
+    frame 0, bit-equal to the plain version and to the port's index, also
+    on a ragged count, a view at an odd offset, indices past the grid's ends
+    and in the wrapped range, and none. Then the port's index, the kernel,
+    the kernel, the index in turns by CUDA events, the plain version, the
+    whole occ_bin_pdf, then the device time a call without the host:
+    CUDA-graph replays and a profiler pass per function, at the --fast
+    traffic and at the tool's shape. Returns (launch counts, the `kernels`
+    entry)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidarnerf_tpu_torch.dataset.base import rays_from_indices, sample_ray_indices
+    from lidarnerf_tpu_torch.models.occupancy import bin_cells, occ_bin_pdf, occupied_volume
+    from lidarnerf_tpu_torch.ops import device_counts
+    from lidarnerf_tpu_torch.ops.occ_lookup import occ_lookup, occ_lookup_plain
+    from lidarnerf_tpu_torch.tools import exp_occ_lookup
+
+    occ, cfg = trainer.render_cfg.occ, trainer.render_cfg
+    occ3 = occupied_volume(trainer.occ_grid, occ)
+    n = occ3.numel()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    poses, _ = ds.device_arrays("cuda")
+    inds = sample_ray_indices(ds.H_lidar, ds.W_lidar, OCC_RAYS, 1, gen, "cuda")
+    o, d = rays_from_indices(poses[0], inds, ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
+    nears = torch.full((OCC_RAYS, 1), cfg.min_near_lidar, device="cuda")
+    fars = torch.full((OCC_RAYS, 1), cfg.min_near_lidar * cfg.far_mult, device="cuda")
+    flat_long = bin_cells(o, d, nears, fars, occ, FULL.bound)  # [4096, 128] int64
+    flat = flat_long.int()
+    edges = torch.tensor([n * k + j for k in OCC_EDGES for j in (-1, 0, 1)] + [2**31 - 1, -2**31],
+                         dtype=torch.int32, device="cuda")
+    wild = torch.cat([flat.reshape(-1)[:20000], edges])[
+        torch.randperm(20000 + edges.numel(), generator=gen, device="cuda")]
+    tool_grid, tool_idx = (torch.from_numpy(a).cuda() for a in exp_occ_lookup.inputs())
+    tool_grid2d = tool_grid.reshape(-1, tool_grid.shape[-1])
+    cases = {  # name: (idx, grid)
+        "tool": (tool_idx, tool_grid2d),
+        "fast": (flat, occ3),
+        "fast ragged": (flat.reshape(-1)[:-3], occ3),
+        "fast odd offset": (flat.reshape(-1)[1:], occ3.reshape(-1)),
+        "out of range": (wild, occ3),
+        "empty": (flat.reshape(-1)[:0], occ3),
+    }
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with device_launches() as device:
+        tool = exp_occ_lookup.main([])
+        outs = {k: occ_lookup(idx, grid) for k, (idx, grid) in cases.items()}
+    launches = launch_counts()
+    checked = sum(idx.numel() > 0 for idx, _ in cases.values())
+    only_launches(launches, {"occ_lookup": tool["launches"] + checked})
+    # on the card: the tool's check; its timed graphs run with the count paused
+    only_launches(device, {"occ_lookup": 1 + checked})
+
+    checks = {"tool: max abs diff 0 and bit-equal to torch.take":
+              tool["max_abs_diff"] == 0.0 and tool["bit_equal"]}
+    err = 0.0
+    for k, (idx, grid) in cases.items():
+        plain = occ_lookup_plain(idx, grid)
+        checks[f"{k} == plain"] = bit_equal(outs[k], plain)
+        if k != "out of range":
+            index = grid.reshape(-1)[idx.long()]
+            checks[f"{k} == index"] = bit_equal(outs[k], index)
+            if idx.numel():
+                err = max(err, float((outs[k] - plain).abs().max()))
+    inside = (wild >= -n) & (wild < n)
+    checks["NaN exactly past the ends"] = torch.equal(torch.isnan(outs["out of range"]), ~inside)
+    checks["tool: torch.take"] = bit_equal(outs["tool"], torch.take(tool_grid, tool_idx.long()))
+    log(f"occ-lookup checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"occ-lookup: the kernel is not bit-exact: {checks}")
+
+    # the port's index (the library call), the kernel, the kernel, the index
+    occ_flat = occ3.reshape(-1)
+    fns = {"index": lambda: occ_flat[flat_long], "kernel": lambda: occ_lookup(flat, occ3)}
+    turns = [cuda_ms(fns[k], reps=20) for k in ("index", "kernel", "kernel", "index")]
+    kernel_ms, index_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    plain_ms = cuda_ms(lambda: occ_lookup_plain(flat, occ3), reps=20)
+    pdf_ms = cuda_ms(lambda: occ_bin_pdf(trainer.occ_grid, o, d, nears, fars, occ, FULL.bound),
+                     reps=10)
+    host_us = {}  # the host's enqueue time a call (the synchronize after the loop not counted)
+    with device_counts.paused():
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                fn()
+            host_us[k] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+    sectors = torch.unique(flat_long >> 3).numel()  # distinct 32-byte sectors of the grid
+    bytes_moved = flat.numel() * 8 + sectors * 32
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+
+    # the device time of a call at both shapes without the host: CUDA-graph
+    # replays (the tool's method; its own shape's are in `tool`), and the
+    # kernels' own durations from one profiler pass of 50 calls per function
+    graph_ms = {k: exp_occ_lookup.device_ms(fn) for k, fn in fns.items()}
+    tool_long = tool_idx.long()
+    fns_at = {"--fast index": fns["index"], "--fast kernel": fns["kernel"],
+              "tool kernel": lambda: occ_lookup(tool_idx, tool_grid2d),
+              "tool torch.take": lambda: torch.take(tool_grid, tool_long)}
+    profiled = {}
+    with device_counts.paused():
+        for label, fn in fns_at.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(TRACE_TAIL_S)
+            profiled[label] = {e.key: (e.count, dev_us(e) / max(e.count, 1))
+                               for e in prof.key_averages()
+                               if e.device_type == DeviceType.CUDA and dev_us(e) > 0}
+    log(f"occ-lookup on {gpu_line()}: tool {tool}; --fast traffic [{OCC_RAYS}, {occ.bins}] = "
+        f"{flat.numel()} lookups into the trained {occ.grid_size}^3 volume "
+        f"({100 * float(occ3.mean()):.2f}% occupied), {sectors} distinct 32-byte sectors; "
+        f"in turns index, kernel, kernel, index: {' / '.join(f'{t:.4f}' for t in turns)} ms "
+        f"(CUDA events, 20 calls a batch); host enqueue a call: kernel "
+        f"{host_us['kernel']:.2f} us, index {host_us['index']:.2f} us; plain {plain_ms:.4f} ms; "
+        f"the whole occ_bin_pdf {pdf_ms:.4f} ms, the index {100 * index_ms / pdf_ms:.1f}% of it; bound "
+        f"{bound_ms:.5f} ms by bytes ({bytes_moved / 1e6:.2f} MB); CUDA-graph replays ms a "
+        f"call: kernel {graph_ms['kernel']:.5f}, index {graph_ms['index']:.5f}; profiler "
+        f"device us a call: " + "; ".join(
+            f"{label}: " + ", ".join(f"{k[:60]} {us:.2f} x{c}" for k, (c, us) in ks.items())
+            for label, ks in profiled.items()))
+    entry = {
+        "name": "occ_lookup", "route": "cuda", "source": "lidarnerf_tpu_torch/csrc/occ_lookup.cu",
+        "replaces": "tools/exp_occ_lookup.py:29", "launches": None, "max_abs_err": err,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": index_ms,
+    }
+    return launches, entry
 
 
 # the cli phase: the port's CLI at full width on the synthetic drive, as a
@@ -3817,7 +3971,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from lidarnerf_tpu_torch.ops import block_hash_cuda, cuda_lib, fused_mlp_cuda, perm_gather_cuda
+    from lidarnerf_tpu_torch.ops import (block_hash_cuda, cuda_lib, fused_mlp_cuda,
+                                         occ_lookup_cuda, perm_gather_cuda)
     from lidarnerf_tpu_torch.ops.block_hash import make_block_hash_spec
     from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
 
@@ -3833,8 +3988,9 @@ def main():
     def phase_done(name):  # the script's clock at the end of each group of phases
         log(f"[{time.perf_counter() - t0:.1f} s] {name} done")
 
-    # all eight sources, one nvcc each, started together
-    libs = cuda_lib.build(block_hash_cuda.SOURCES + (fused_mlp_cuda.SOURCE, perm_gather_cuda.SOURCE))
+    # all nine sources, one nvcc each, started together
+    libs = cuda_lib.build(block_hash_cuda.SOURCES + (fused_mlp_cuda.SOURCE, perm_gather_cuda.SOURCE,
+                                                     occ_lookup_cuda.SOURCE))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         report = lib.with_suffix(".log")
@@ -3888,6 +4044,8 @@ def main():
     # --fast: occupancy-prior sampling, training then serving
     trainer, init_sd, paths["training-fast"] = train_fast_phase(ds, default_step_ms)
     paths["serving-fast"] = serve_fast_phase(ds, trainer, init_sd)
+    paths["occ-lookup"], p12 = occ_lookup_phase(ds, trainer)
+    kernels.append(p12)
     del trainer, init_sd
 
     for variant in ("default", *VARIANT_ENV):

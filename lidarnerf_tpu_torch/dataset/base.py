@@ -1,5 +1,6 @@
 """Ray generation and training pixel sampling (counterpart of
-lidarnerf_tpu/dataset/base.py:22-140): LiDAR pano rays and pinhole camera rays.
+lidarnerf_tpu/dataset/base.py:22-154): LiDAR pano rays and pinhole camera
+rays, and the instant-ngp pose permutation.
 
 All trig runs in float32, as the reference pins ray generation to fp32.
 Random draws come from an explicit `torch.Generator`, or are injected.
@@ -7,6 +8,7 @@ Random draws come from an explicit `torch.Generator`, or are injected.
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -142,3 +144,17 @@ def get_rays(poses, intrinsics, H, W, N=-1, patch_size=1, generator=None, inds=N
     rays_d = torch.einsum("nc,brc->bnr", dirs, poses[:, :3, :3])
     rays_o = poses[:, None, :3, 3].expand_as(rays_d)
     return {"rays_o": rays_o, "rays_d": rays_d, "inds": inds.expand(poses.shape[0], inds.shape[0])}
+
+
+def nerf_matrix_to_ngp(pose, scale=0.33, offset=(0, 0, 0)):
+    """Axis permutation to instant-ngp convention (base_dataset.py:186-197):
+    a float32 [4, 4] numpy array from a [4, 4] numpy pose."""
+    return np.array(
+        [
+            [pose[1, 0], -pose[1, 1], -pose[1, 2], pose[1, 3] * scale + offset[0]],
+            [pose[2, 0], -pose[2, 1], -pose[2, 2], pose[2, 3] * scale + offset[1]],
+            [pose[0, 0], -pose[0, 1], -pose[0, 2], pose[0, 3] * scale + offset[2]],
+            [0, 0, 0, 1],
+        ],
+        dtype=np.float32,
+    )

@@ -11,7 +11,9 @@ PDF, so a cold start samples as the stratified sampler does.
 
 Plain PyTorch: the JAX module has no Pallas kernel. The grid refresh runs
 the field through the block-hash forward (kernel B1 on CUDA) at G^3 points
-spread over the whole volume.
+spread over the whole volume. The bin lookup of `occ_bin_pdf` stays a plain
+index, as the JAX module keeps XLA's take; tools/exp_occ_lookup.py's TPU
+kernel for it (P12) has its counterpart in `ops/occ_lookup.py`.
 """
 
 from dataclasses import dataclass
@@ -83,18 +85,25 @@ def occupied_volume(grid, cfg: OccConfig):
     return occ3
 
 
-def occ_bin_pdf(grid, rays_o, rays_d, nears, fars, cfg: OccConfig, bound: float):
-    """[N, bins] piecewise-constant sampling PDF along each ray.
-
-    A bin counts as occupied when the nearest grid cell of its midpoint is
-    in `occupied_volume`.
-    """
+def bin_cells(rays_o, rays_d, nears, fars, cfg: OccConfig, bound: float):
+    """[N, bins] int64: the flat index of the grid cell nearest each bin's midpoint."""
     G, K = cfg.grid_size, cfg.bins
     t = (torch.arange(K, dtype=torch.float32, device=rays_o.device) + 0.5) / K
     z = nears + (fars - nears) * t[None, :]  # [N, K] bin midpoints
     x = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
     gi = torch.clamp(torch.floor((x + bound) * (G / (2.0 * bound))).long(), 0, G - 1)
-    flat = (gi[..., 0] * G + gi[..., 1]) * G + gi[..., 2]  # [N, K]
+    return (gi[..., 0] * G + gi[..., 1]) * G + gi[..., 2]
+
+
+def occ_bin_pdf(grid, rays_o, rays_d, nears, fars, cfg: OccConfig, bound: float):
+    """[N, bins] piecewise-constant sampling PDF along each ray.
+
+    A bin counts as occupied when the nearest grid cell of its midpoint is
+    in `occupied_volume`. The lookup is a plain index on both devices (the
+    hand-written P12 kernel, `ops/occ_lookup.py`, computes the same values).
+    """
+    K = cfg.bins
+    flat = bin_cells(rays_o, rays_d, nears, fars, cfg, bound)  # [N, K]
     w = occupied_volume(grid, cfg).reshape(-1)[flat] + 1e-8  # all-empty rays degrade to uniform
     # summed in float64 and rounded once, so the sum does not depend on the
     # order a device reduces in (the GPU's and the CPU's pdfs agree bit for bit)

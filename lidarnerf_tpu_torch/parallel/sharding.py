@@ -229,6 +229,28 @@ def broadcast_state(tensors, src=0):
         dist.broadcast(t.data, src=src)
 
 
+def replicate(tensors, mesh):
+    """The tensors (one, or a sequence) made equal on every rank of the mesh
+    (`replicate` :73): rank 0's values, broadcast in place; returns them.
+    torch has no global array: where JAX places one array on every device,
+    each rank here holds its own copy. In a world of one (or with no mesh)
+    the input is returned as it is."""
+    if mesh is not None and dist.is_initialized() and dist.get_world_size() > 1:
+        broadcast_state([tensors] if isinstance(tensors, torch.Tensor) else tensors)
+    return tensors
+
+
+def shard_rays(array, mesh):
+    """This rank's block of the leading (ray) axis over `data` (`shard_rays`
+    :79): the rows `local_rays` keeps. torch has no global array: where JAX
+    places one array across the devices, each rank holds its own block. An
+    axis that does not divide over the data ranks raises the trainer's
+    ValueError."""
+    if mesh is None or mesh.n_data == 1:
+        return array
+    return array[local_rays(mesh, array.shape[0])]
+
+
 def make_sharded_train_step(model, cfg, render_cfg, mesh, patch_size=1, masked_sampling=False,
                             sample_without_replacement=False, shard_table=False, optimizer=None):
     """The data-parallel train step (`make_sharded_train_step` :89): the one

@@ -20,6 +20,8 @@ from lidarnerf_tpu_torch.ops import (
     cuda_lib,
     fused_mlp,
     fused_mlp_cuda,
+    occ_lookup,
+    occ_lookup_cuda,
     perm_gather,
     perm_gather_cuda,
     sampling,
@@ -618,6 +620,74 @@ def test_perm_gather_wrapper_limits(require_cuda):
         perm_gather_cuda.perm_gather_fwd(big, torch.zeros(2, 4000, dtype=torch.int32, device="cuda"))
     empty = perm_gather_cuda.perm_gather_fwd(vals[:0], inv[:0].int())
     assert empty.shape == (0, 8, 3) and perm_gather_cuda.launch_counts() == before
+
+
+def _occ_case(case):
+    """(idx, grid) on the card: the occupancy tool's draws (a 128^3 grid and
+    524,288 uniform cells), a count no multiple of 4 or 4096, a view at an
+    odd offset (not 16-byte aligned: the scalar loop), indices past either
+    end and in the wrapped range, and none."""
+    rs = np.random.RandomState(0)
+    G = 128
+    grid = torch.from_numpy(rs.rand(G, G, G).astype(np.float32)).cuda()
+    idx = torch.from_numpy(rs.randint(0, G**3, size=4096 * 128).astype(np.int32)).cuda()
+    n = G**3
+    edges = torch.tensor([0, n - 1, n, n + 1, -1, -n, -n - 1, 2**31 - 1, -2**31],
+                         dtype=torch.int32, device="cuda")
+    wild = torch.from_numpy(rs.randint(-2 * n, 2 * n, 20011).astype(np.int32)).cuda()
+    return {"tool": (idx, grid.reshape(G * G, G)), "ragged": (idx[: 4096 * 128 - 3], grid),
+            "odd_offset": (idx[1:], grid.reshape(-1)), "out_of_range": (torch.cat([edges, wild]), grid),
+            "empty": (idx[:0], grid)}[case]
+
+
+@pytest.mark.parametrize("case", ["tool", "ragged", "odd_offset", "out_of_range", "empty"])
+def test_occ_lookup_kernel_is_bit_exact(require_cuda, case):
+    idx, grid = _occ_case(case)
+    before = occ_lookup_cuda.launches
+    out = occ_lookup.occ_lookup(idx, grid)
+    torch.cuda.synchronize()
+    assert occ_lookup_cuda.launches == before + (idx.numel() > 0)
+    assert out.shape == idx.shape and out.dtype == torch.float32 and out.is_cuda
+    assert torch.equal(_bits(out), _bits(occ_lookup.occ_lookup_plain(idx, grid)))
+    inside = (idx >= -grid.numel()) & (idx < grid.numel())
+    if case != "empty":
+        assert torch.isnan(out).equal(~inside)
+        assert torch.equal(out[inside], torch.take(grid, idx[inside].long() % grid.numel()))
+
+
+def test_occ_lookup_in_a_cuda_graph_and_the_tool(require_cuda):
+    """The kernel captured in a CUDA graph replays bit-equal to the plain
+    version; the tool times through such graphs and reports its calls."""
+    from lidarnerf_tpu_torch.tools import exp_occ_lookup
+
+    idx, grid = _occ_case("ragged")
+    occ_lookup.occ_lookup(idx, grid)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = occ_lookup.occ_lookup(idx, grid)
+    out.fill_(0.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(occ_lookup.occ_lookup_plain(idx, grid)))
+    result = exp_occ_lookup.main([])
+    assert result["max_abs_diff"] == 0.0 and result["bit_equal"]
+    assert result["kernel_ms"] > 0 and result["take_ms"] > 0
+    assert result["launches"] == 2 + exp_occ_lookup.BATCH  # check, warm-up, captured calls
+
+
+def test_occ_lookup_wrapper_limits(require_cuda):
+    idx, grid = _occ_case("tool")
+    before = occ_lookup_cuda.launches
+    with pytest.raises(ValueError, match="int32"):
+        occ_lookup_cuda.occ_lookup(idx.long(), grid)
+    with pytest.raises(ValueError, match="not contiguous"):
+        occ_lookup_cuda.occ_lookup(idx[::2], grid)
+    with pytest.raises(ValueError, match="float32 grid"):
+        occ_lookup_cuda.occ_lookup(idx, grid.double())
+    with pytest.raises(ValueError, match="CUDA tensors on one device"):
+        occ_lookup_cuda.occ_lookup(idx, grid.cpu())
+    assert occ_lookup_cuda.launches == before
 
 
 def test_sort_merge_z_on_cuda_runs_b6_and_matches_the_cpu(require_cuda, monkeypatch):

@@ -9,7 +9,13 @@ valid), and one slot per kernel wrapper of the port.
 import pytest
 import torch
 
-from lidarnerf_tpu_torch.ops import block_hash_cuda, device_counts, fused_mlp_cuda, perm_gather_cuda
+from lidarnerf_tpu_torch.ops import (
+    block_hash_cuda,
+    device_counts,
+    fused_mlp_cuda,
+    occ_lookup_cuda,
+    perm_gather_cuda,
+)
 
 CPU = torch.device("cpu")
 
@@ -28,7 +34,7 @@ def counting():
 
 def test_one_slot_per_kernel_wrapper():
     names = {**block_hash_cuda.launch_counts(), **fused_mlp_cuda.launch_counts(),
-             **perm_gather_cuda.launch_counts()}
+             **perm_gather_cuda.launch_counts(), **occ_lookup_cuda.launch_counts()}
     assert set(device_counts.KERNELS) == set(names)
     assert len(device_counts.KERNELS) == len(names)
 

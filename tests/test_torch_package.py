@@ -26,6 +26,8 @@ from lidarnerf_tpu_torch.ops import (
     dispatch,
     fused_mlp,
     fused_mlp_cuda,
+    occ_lookup,
+    occ_lookup_cuda,
     perm_gather_cuda,
     sampling,
 )
@@ -209,3 +211,170 @@ def test_checkpoint_with_jax_objects_is_refused(tmp_path):
     with pytest.raises(NotImplementedError, match="orbax"):
         load_jax_checkpoint(tmp_path / "orbax.ckpt")
     assert lidarnerf_tpu_torch.__version__
+
+
+def test_occ_lookup_wrapper_rejects_cpu_tensors(monkeypatch):
+    """P12's wrapper takes CUDA tensors only, and the entry point on the
+    kernel path goes to it: it raises on the CPU tensors here instead of
+    falling back to the plain version or torch.take."""
+    idx, grid = torch.zeros(8, dtype=torch.int32), torch.rand(4, 4, 4)
+    before = occ_lookup_cuda.launch_counts()
+    with pytest.raises(ValueError, match="occ_lookup takes CUDA tensors"):
+        occ_lookup_cuda.occ_lookup(idx, grid)
+    monkeypatch.setattr(dispatch, "uses_kernel", lambda t: True)
+    with pytest.raises(ValueError, match="occ_lookup takes CUDA tensors"):
+        occ_lookup.occ_lookup(idx, grid)
+    assert occ_lookup_cuda.launch_counts() == before
+
+
+def test_occ_lookup_failed_load_raises(monkeypatch):
+    """A kernel library that does not build or load makes the wrapper raise:
+    no launch is counted and nothing falls back."""
+    def failed(source):
+        raise RuntimeError(f"kernel build failed:\n{source}: nvcc exited 1")
+
+    monkeypatch.setattr(cuda_lib, "load", failed)
+    monkeypatch.setattr(occ_lookup_cuda, "_fn", None)
+    # stand-ins that pass the wrapper's checks as CUDA tensors would
+    dev = torch.device("cuda", 0)
+    idx = SimpleNamespace(is_cuda=True, device=dev, dtype=torch.int32, shape=(8,),
+                          is_contiguous=lambda: True, numel=lambda: 8)
+    grid = SimpleNamespace(is_cuda=True, device=dev, dtype=torch.float32, shape=(2, 2, 2),
+                           is_contiguous=lambda: True, numel=lambda: 8)
+    before = occ_lookup_cuda.launch_counts()
+    with pytest.raises(RuntimeError, match="occ_lookup.cu: nvcc exited 1"):
+        occ_lookup_cuda.occ_lookup(idx, grid)
+    assert occ_lookup_cuda._fn is None and occ_lookup_cuda.launch_counts() == before
+
+
+def test_occ_lookup_source_and_build_naming():
+    """P12 has one source, built like the others into the git-ignored build
+    directory under its own name, and names the TPU kernel it replaces."""
+    assert occ_lookup_cuda.SOURCE == "occ_lookup.cu"
+    src = (cuda_lib.CSRC_DIR / occ_lookup_cuda.SOURCE).read_text()
+    assert 'extern "C" int occ_lookup(' in src and "tools/exp_occ_lookup.py::lookup_pallas" in src
+    lib = cuda_lib.library_path(occ_lookup_cuda.SOURCE)
+    assert lib.parent == cuda_lib.BUILD_DIR and lib.name.startswith("occ_lookup_")
+    assert lib.suffix == ".so"
+    assert occ_lookup_cuda.SOURCE not in block_hash_cuda.SOURCES
+    assert set(occ_lookup_cuda.launch_counts()) == {"occ_lookup"}
+
+
+# ------------------------------------------------ the subpackages' re-exports
+
+SUBPACKAGES = ("ops", "models", "dataset", "parallel")
+
+
+@pytest.mark.parametrize("name", SUBPACKAGES)
+def test_subpackage_exports_the_jax_names(name):
+    """Each subpackage re-exports the JAX subpackage's names, in its order."""
+    import importlib
+
+    jax_pkg = importlib.import_module(f"lidarnerf_tpu.{name}")
+    port = importlib.import_module(f"lidarnerf_tpu_torch.{name}")
+    assert port.__all__ == jax_pkg.__all__
+    assert port.__doc__
+    for attr in port.__all__:
+        assert callable(getattr(port, attr)), attr
+
+
+_IMPORT_STAR = """
+import ctypes, pathlib, subprocess, sys
+import torch
+package = pathlib.Path("lidarnerf_tpu_torch").resolve()
+build_dir, csrc_dir = package / "_build", package / "csrc"
+calls = []
+_cdll, _popen = ctypes.CDLL.__init__, subprocess.Popen.__init__
+def cdll(self, name, *a, **k):
+    calls.append(str(name))
+    return _cdll(self, name, *a, **k)
+def popen(self, args, *a, **k):
+    calls.append(str(args))
+    return _popen(self, args, *a, **k)
+ctypes.CDLL.__init__, subprocess.Popen.__init__ = cdll, popen
+assert not [m for m in sys.modules if m.startswith("lidarnerf_tpu_torch")]
+before = set(build_dir.glob("*")) if build_dir.exists() else set()
+names = {}
+for sub in ("ops", "models", "dataset", "parallel"):
+    ns = {}
+    exec(f"from lidarnerf_tpu_torch.{sub} import *", ns)
+    names[sub] = sorted(k for k in ns if not k.startswith("__"))
+after = set(build_dir.glob("*")) if build_dir.exists() else set()
+kernels = {p.stem for p in csrc_dir.glob("*.cu")}
+new = sorted(p.name for p in after - before if any(p.name.startswith(k + "_") for k in kernels))
+cuda_lib = sys.modules.get("lidarnerf_tpu_torch.ops.cuda_lib")  # None: not even imported
+loaded = {} if cuda_lib is None else cuda_lib._loaded
+print(repr((names, calls, sorted(map(str, loaded)), new)))
+"""
+
+
+def test_subpackage_star_imports_build_no_kernel():
+    """`from lidarnerf_tpu_torch.<sub> import *` in a fresh process gives the
+    JAX __all__s and neither builds nor loads a library: no compiler is
+    started, no shared object is opened, cuda_lib has loaded nothing and no
+    kernel library appears under _build/."""
+    import ast
+    import importlib
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_STAR], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True).stdout
+    names, calls, loaded, new = ast.literal_eval(out.strip().splitlines()[-1])
+    for sub in SUBPACKAGES:
+        assert names[sub] == sorted(importlib.import_module(f"lidarnerf_tpu.{sub}").__all__)
+    assert (calls, loaded, new) == ([], [], [])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_nerf_matrix_to_ngp_equals_jax(seed):
+    from lidarnerf_tpu.dataset.base import nerf_matrix_to_ngp as ref
+    from lidarnerf_tpu_torch.dataset import nerf_matrix_to_ngp
+
+    rs = np.random.RandomState(seed)
+    pose = rs.normal(size=(4, 4)).astype(np.float32 if seed % 2 else np.float64)
+    scale = float(rs.uniform(0.01, 2.0))
+    offset = tuple(rs.uniform(-3, 3, 3).tolist()) if seed else (0, 0, 0)
+    for args in ((pose,), (pose, scale), (pose, scale, offset)):
+        out, want = nerf_matrix_to_ngp(*args), ref(*args)
+        assert out.dtype == np.float32 and out.shape == (4, 4)
+        np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+
+
+def test_replicate_and_shard_rays_in_a_world_of_one():
+    """With no process group (one rank), both return their input."""
+    from lidarnerf_tpu_torch.parallel import replicate, shard_rays
+    from lidarnerf_tpu_torch.parallel.sharding import Mesh
+
+    mesh = Mesh(1, 1, 0, 0, 0, torch.device("cpu"))
+    t, rays = torch.rand(3, 4), torch.rand(10, 3)
+    assert replicate(t, mesh) is t and replicate([t], mesh)[0] is t
+    assert shard_rays(rays, mesh) is rays and shard_rays(rays, None) is rays
+
+
+def _world_replicate_shard(rank, world):
+    from lidarnerf_tpu_torch.parallel import make_mesh, replicate, shard_rays
+
+    mesh = make_mesh()
+    a, b = torch.full((3,), float(rank)), torch.full((2, 2), 10.0 + rank)
+    replicate([a, b], mesh)
+    c = replicate(torch.full((1,), float(rank + 5)), mesh)
+    block = shard_rays(torch.arange(12.0)[:, None].expand(12, 2), mesh)
+    try:
+        shard_rays(torch.zeros(5, 3), mesh)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    return a.tolist(), b.tolist(), c.tolist(), block[:, 0].tolist(), raised
+
+
+def test_replicate_and_shard_rays_in_a_gloo_world():
+    """Over 2 ranks: replicate gives every rank rank 0's tensors, shard_rays
+    each rank its block of the ray axis (local_rays), and an indivisible
+    count raises the trainer's ValueError."""
+    from test_torch_parallel import run_world
+
+    out = run_world(_world_replicate_shard, 2)
+    for rank, (a, b, c, block, raised) in out.items():
+        assert a == [0.0] * 3 and b == [[10.0, 10.0]] * 2 and c == [5.0]
+        assert block == [6.0 * rank + i for i in range(6)]
+        assert "5" in raised and "2 data ranks" in raised
