@@ -6,7 +6,8 @@
 Builds every CUDA kernel of the ported paths from `lidarnerf_tpu_torch/csrc`
 (the block-hash forward B1 and backward B2, their run-collapsing variants:
 segmented B3a/B3b and windowed B4a/B4b, the fused MLP B5, the permutation
-gather B6 and the occupancy bin lookup P12), holds each against its plain
+gather B6, the occupancy bin lookup P12 and the fused --fast sampler that
+P12 became on the model paths), holds each against its plain
 PyTorch version on the card at the main paths' shapes, then drives the main
 paths at the full width of the KITTI-360 model (16-level 2^19 block-hash
 grid, width-64 bf16 MLPs, 768 + 64 samples, 4096-ray chunks, 66 x 1030
@@ -37,12 +38,21 @@ panos):
     `LIDARNERF_WIN_KERNELS=1`), held against the default variant;
   - training-fast, serving-fast: `Trainer` with occupancy-prior sampling
     (`--fast`: 192 + 64 samples, a 128^3 grid refreshed every 16 steps) for
-    the same three epochs, then `PanoRenderer` on frame 0 with its grid;
+    the same three epochs, then `PanoRenderer` on frame 0 with its grid; each
+    step and each chunk samples through the fused sampler (`occ_sample`),
+    and the pano equals the plain sampler's bit for bit, timed in turns
+    with it (as the captured --fast step is in the training-graph phase);
   - occ-lookup: the occupancy bin lookup (P12) through the port's tool
     (`python -m lidarnerf_tpu_torch.tools.exp_occ_lookup`: 524,288 uniform
     cells of a seeded 128^3 grid) and on the --fast step's real bin cells
     in the trained grid, bit-exact, timed in turns with the port's index,
     then by CUDA-graph replays and the profiler at both shapes;
+  - occ-sample: the fused --fast sampler on the trained grid at the
+    training step's and the serving chunk's rays and on edge cases (no
+    dilation, ragged, empty and full volumes, slab nears and fars, 33 bins,
+    one ray), bit-equal to its plain version in depths and pdf, timed in
+    turns with it, by CUDA-graph replays and the profiler (the plain sampler
+    op by op), its host enqueue, its bound;
   - cli: the CLI (`python -m lidarnerf_tpu_torch.main_lidarnerf`) with
     configs/kitti360_1908.txt -L on the drive: train -> evaluate -> test ->
     mesh, `--test_eval`, a resume, the device Chamfer;
@@ -194,10 +204,11 @@ def set_variant(variant):
 def launch_counts():
     """{kernel name: launches so far} of every kernel wrapper of the port."""
     from lidarnerf_tpu_torch.ops import (block_hash_cuda, fused_mlp_cuda, occ_lookup_cuda,
-                                         perm_gather_cuda)
+                                         occ_sample_cuda, perm_gather_cuda)
 
     return {**block_hash_cuda.launch_counts(), **fused_mlp_cuda.launch_counts(),
-            **perm_gather_cuda.launch_counts(), **occ_lookup_cuda.launch_counts()}
+            **perm_gather_cuda.launch_counts(), **occ_lookup_cuda.launch_counts(),
+            **occ_sample_cuda.launch_counts()}
 
 
 def reset_counts():
@@ -205,9 +216,10 @@ def reset_counts():
     (device_launches), so that the graphs captured from here on count their
     replays."""
     from lidarnerf_tpu_torch.ops import (block_hash_cuda, device_counts, fused_mlp_cuda,
-                                         occ_lookup_cuda, perm_gather_cuda)
+                                         occ_lookup_cuda, occ_sample_cuda, perm_gather_cuda)
 
-    for module in (block_hash_cuda, fused_mlp_cuda, perm_gather_cuda, occ_lookup_cuda):
+    for module in (block_hash_cuda, fused_mlp_cuda, perm_gather_cuda, occ_lookup_cuda,
+                   occ_sample_cuda):
         module.reset_counts()
     device_counts.enable("cuda")
 
@@ -1320,8 +1332,24 @@ def guard_cost(trainer):
     return step_ms, guard_ms, plain_ms, nbytes
 
 
+@contextlib.contextmanager
+def plain_sampler():
+    """Within the block the renderer's --fast sampler is the plain composition
+    (ops/occ_sample.py::occ_sample_plain: occ_bin_pdf's ops, then
+    occ_z_vals'), the path before the fused kernel, for comparison with it."""
+    from lidarnerf_tpu_torch.models import renderer
+    from lidarnerf_tpu_torch.ops.occ_sample import occ_sample_plain
+
+    kept = renderer.occ_sampler
+    renderer.occ_sampler = SimpleNamespace(occ_sample=occ_sample_plain)
+    try:
+        yield
+    finally:
+        renderer.occ_sampler = kept
+
+
 def training_graph_phase(name, make_trainer, ds, per_step, refresh_every=None,
-                         epochs=GRAPH_EPOCHS, extra=None):
+                         epochs=GRAPH_EPOCHS, extra=None, plain=False):
     """One training path eager (--fuse_epoch 0) and captured (1), two
     trainers from one seeded state: epochs 1-2 each (the captures), then
     epochs in turns (eager, graph; graph, eager), then one profiled epoch
@@ -1330,21 +1358,32 @@ def training_graph_phase(name, make_trainer, ds, per_step, refresh_every=None,
     `refresh_every` steps one B1 forward. The eager run's wrappers count
     every step, the graphed run's the warm-up and the capture of each graph;
     on the card, in the profiled epoch, both runs launch what the eager
-    wrappers count. Returns the graphed run's wrapper counts."""
-    runs = {"eager": make_trainer(0), "graph": make_trainer(1)}
+    wrappers count. With `plain` (--fast), a third trainer, captured, takes
+    its turns with the plain sampler (`plain_sampler`, no occ_sample
+    launch) and must end in the same state. Returns the graphed run's
+    wrapper counts."""
+    modes = ("eager", "graph", "plain") if plain else ("eager", "graph")
+    runs = {m: make_trainer(0 if m == "eager" else 1) for m in modes}
+    mode_steps = {m: per_step if m != "plain" else {k: v for k, v in per_step.items()
+                                                    if k != "occ_sample"} for m in modes}
     secs = {m: {} for m in runs}
     counts = {m: {} for m in runs}
     peak = {m: 0 for m in runs}
     reserved = {m: 0 for m in runs}
-    order = [(m, e) for e in (1, 2) for m in ("eager", "graph")]
+    order = [(m, e) for e in (1, 2) for m in modes]
     for e in range(3, epochs + 1):
-        order += [(m, e) for m in (("eager", "graph") if e % 2 else ("graph", "eager"))]
+        order += [(m, e) for m in (modes if e % 2 else modes[::-1])]
+
+    def sampler(mode):
+        return plain_sampler() if mode == "plain" else contextlib.nullcontext()
+
     for mode, epoch in order:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        runs[mode].train(ds, None, max_epochs=epoch)  # ends on the host: the epoch's one fetch
+        with sampler(mode):
+            runs[mode].train(ds, None, max_epochs=epoch)  # ends on the host: the epoch's one fetch
         secs[mode][epoch] = time.perf_counter() - t0
         for k, v in launch_counts().items():
             counts[mode][k] = counts[mode].get(k, 0) + v
@@ -1356,22 +1395,30 @@ def training_graph_phase(name, make_trainer, ds, per_step, refresh_every=None,
                                       if refresh_every and s % refresh_every == 0)}
 
     steps = epochs * len(ds)
-    graphs = [g for f in runs["graph"]._epoch_fns.values() for g in f.graphs.values()]
+    graphs = {m: [g for f in runs[m]._epoch_fns.values() for g in f.graphs.values()]
+              for m in modes if m != "eager"}
     only_launches(counts["eager"], training_launches(per_step, steps, refreshes(0, steps)))
-    only_launches(counts["graph"], training_launches(per_step, 2 * len(graphs),
-                                                     refreshes(0, steps)))
+    for m, held in graphs.items():
+        only_launches(counts[m], training_launches(mode_steps[m], 2 * len(held),
+                                                   refreshes(0, steps)))
     busy, wrappers = {}, {}
     for m in runs:
         reset_counts()
-        busy[m] = busy_ms_per_step(runs[m], ds, epochs + 1)
+        with sampler(m):
+            busy[m] = busy_ms_per_step(runs[m], ds, epochs + 1)
         wrappers[m] = launch_counts()
     # the profiled epoch: the graph replays every step, Python runs only the refreshes
-    epoch_launches = training_launches(per_step, len(ds), refreshes(steps, len(ds)))
     for m in runs:
-        only_launches(busy[m][3], epoch_launches)
-    only_launches(wrappers["eager"], epoch_launches)
-    only_launches(wrappers["graph"], refreshes(steps, len(ds)))
+        only_launches(busy[m][3], training_launches(mode_steps[m], len(ds),
+                                                    refreshes(steps, len(ds))))
+    only_launches(wrappers["eager"], training_launches(per_step, len(ds),
+                                                       refreshes(steps, len(ds))))
+    for m in graphs:
+        only_launches(wrappers[m], refreshes(steps, len(ds)))
     differ = same_training_state(runs["eager"], runs["graph"])
+    if plain:
+        differ.update({f"plain sampler: {k}": v
+                       for k, v in same_training_state(runs["graph"], runs["plain"]).items()})
     gpu = gpu_line()
     ms = {m: {e: 1e3 * t / len(ds) for e, t in secs[m].items()} for m in runs}
     timed = list(range(3, epochs + 1))
@@ -1391,11 +1438,20 @@ def training_graph_phase(name, make_trainer, ds, per_step, refresh_every=None,
         f"{peak['eager'] / 2**30:.2f} / {peak['graph'] / 2**30:.2f} GiB, peak reserved "
         f"{reserved['eager'] / 2**30:.2f} / {reserved['graph'] / 2**30:.2f} GiB (the process, "
         f"both trainers alive), the graphed trainer's pool "
-        f"{'not measured' if pool is None else f'{pool / 2**30:.2f} GiB'}; {len(graphs)} graphs; "
-        f"wrapper launches over the timed epochs eager {counts['eager']}, graph "
-        f"{counts['graph']}; losses and final state (weights, EMA, Adam moments and counts, "
-        f"generator{', grid' if runs['graph'].occ_grid is not None else ''}) equal bit for bit: "
-        f"{not differ}" + (f"; differ: {differ}" if differ else ""))
+        f"{'not measured' if pool is None else f'{pool / 2**30:.2f} GiB'}; "
+        f"{len(graphs['graph'])} graphs; wrapper launches over the timed epochs eager "
+        f"{counts['eager']}, graph {counts['graph']}; losses and final state (weights, EMA, "
+        f"Adam moments and counts, generator{', grid' if runs['graph'].occ_grid is not None else ''}"
+        f") equal bit for bit: {not differ}" + (f"; differ: {differ}" if differ else ""))
+    if plain:
+        log(f"training-graph {name}, the plain sampler (the path before the fused kernel), "
+            f"captured, in turns with the two runs above on {gpu}: ms/step by epoch "
+            f"{line['plain']}; epochs {timed[0]}-{timed[-1]}: plain sampler {warm['plain']:.2f}, "
+            f"fused kernel {warm['graph']:.2f} ms/step ({warm['plain'] - warm['graph']:+.3f}); "
+            f"a profiled epoch: device busy {busy['plain'][0]:.3f} vs {busy['graph'][0]:.3f} "
+            f"ms/step ({busy['plain'][0] - busy['graph'][0]:+.3f}), span {busy['plain'][1]:.3f} "
+            f"vs {busy['graph'][1]:.3f}, {busy['plain'][2]} vs {busy['graph'][2]} kernels, idle "
+            f"{idle['plain']:.1f}% vs {idle['graph']:.1f}%; its wrapper launches {counts['plain']}")
     if differ:
         raise AssertionError(f"training-graph {name}: the captured run differs from the eager "
                              f"one: {differ}")
@@ -1440,8 +1496,9 @@ def training_graph_phases(ds):
     b1b2 = {"block_hash_fwd": 2, "block_hash_bwd": 2}
     paths = {"training-graph": training_graph_phase("default", trainer_of(), ds, b1b2,
                                                     extra=guard)}
-    paths["training-graph-fast"] = training_graph_phase("--fast", trainer_of(**FAST), ds, b1b2,
-                                                        FAST["occ_update_interval"])
+    paths["training-graph-fast"] = training_graph_phase(
+        "--fast", trainer_of(**FAST), ds, {**b1b2, "occ_sample": 1}, FAST["occ_update_interval"],
+        plain=True)
     # the variants on the first VARIANT_GRAPH_FRAMES frames: 20-step epochs
     for variant in VARIANT_ENV:
         set_variant(variant)
@@ -1748,7 +1805,7 @@ def train_fast_phase(ds, default_ms):
     if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
         raise AssertionError("training-fast: a loss was non-finite or a step was skipped")
     check_graphed_launches("training-fast", launches, device, trainer,
-                           {"block_hash_fwd": 2, "block_hash_bwd": 2},
+                           {"block_hash_fwd": 2, "block_hash_bwd": 2, "occ_sample": 1},
                            {"block_hash_fwd": refreshes})
     if not trainer.occ_grid.any():
         raise AssertionError("training-fast: the occupancy grid is all zero after its refreshes")
@@ -1803,12 +1860,20 @@ def serve_fast_phase(ds, trainer, init_sd):
     reset_counts()
     raydrop, intensity, depth = renderer.render_frame(*frame)  # ends on the host
     launches = launch_counts()
-    fast_ms = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        renderer.render_frame(*frame)
-        fast_ms.append((time.perf_counter() - t0) * 1e3)
+    with plain_sampler():
+        plain_pano = renderer.render_frame(*frame)
+    same = all(np.array_equal(a, b) for a, b in zip((raydrop, intensity, depth), plain_pano))
+    # warm panos in turns: the fused kernel, the plain sampler (the path before it), ...
+    pano_ms = {"kernel": [], "plain": []}
+    for mode in ("kernel", "plain", "plain", "kernel") * 2:
+        with plain_sampler() if mode == "plain" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            renderer.render_frame(*frame)
+            pano_ms[mode].append((time.perf_counter() - t0) * 1e3)
+    fast_ms = pano_ms["kernel"]
     profile_phase(renderer)  # one --fast render chunk: device busy vs host
+    with plain_sampler():
+        profile_phase(renderer)  # the same chunk with the plain sampler
 
     far = ds.scale * renderer.cfg.far_mult
     for name, a in (("raydrop", raydrop), ("intensity", intensity), ("depth", depth)):
@@ -1818,7 +1883,10 @@ def serve_fast_phase(ds, trainer, init_sd):
             and intensity.max() <= 1 and 0 <= depth.min() and depth.max() <= far):
         raise AssertionError("serving-fast: a pano lies outside its range")
     chunks = -(-ds.H_lidar * ds.W_lidar // FULL.max_ray_batch)
-    only_launches(launches, {"block_hash_fwd": 2 * chunks})
+    only_launches(launches, {"block_hash_fwd": 2 * chunks, "occ_sample": chunks})
+    if not same:
+        raise AssertionError("serving-fast: the fused sampler's pano differs from the plain "
+                             "sampler's")
     maes = {"fast": float(np.abs(depth - gt[..., 2])[hit].mean())}
     _, _, d0 = PanoRenderer(opt, params_to_jax(init_sd), occ_grid=init_occ_grid(occ)
                             ).render_frame(*frame)
@@ -1831,7 +1899,10 @@ def serve_fast_phase(ds, trainer, init_sd):
     maes["default sampling"] = float(np.abs(dd - gt[..., 2])[hit].mean())
     log(f"serving-fast on {gpu_line()}: frame 0 ({ds.H_lidar}x{ds.W_lidar}) from the --fast "
         f"weights and grid, {opt.num_steps}+{opt.upsample_steps} samples: "
-        f"{', '.join(f'{t:.1f}' for t in fast_ms)} ms/pano (3 warm renders) "
+        f"{', '.join(f'{t:.1f}' for t in fast_ms)} ms/pano (4 warm renders, in turns with the "
+        f"plain sampler's {', '.join(f'{t:.1f}' for t in pano_ms['plain'])}: median "
+        f"{np.median(fast_ms):.1f} vs {np.median(pano_ms['plain']):.1f}; the panos bit-equal: "
+        f"{same}) "
         f"(default sampling, {FULL.num_steps}+{FULL.upsample_steps}, of the same weights: "
         f"{default_ms:.1f} ms); depth MAE on the {int(hit.sum())} returning rays: "
         + ", ".join(f"{k} {v:.5f}" for k, v in maes.items()) + f"; launches {launches}")
@@ -1982,6 +2053,167 @@ def occ_lookup_phase(ds, trainer):
         "library_ms": index_ms,
     }
     return launches, entry
+
+
+OCC_SAMPLE_STEPS = FAST["num_steps"]  # the --fast step's 192 coarse samples a ray
+
+
+def occ_sample_phase(ds, trainer):
+    """The occ-sample phase: the fused --fast sampler (`csrc/occ_sample.cu`,
+    through ops/occ_sample.py::occ_sample) on the trained grid's occupied
+    volume at the training step's traffic (4096 rays of frame 0, 128 bins,
+    192 samples, perturbed by the step's draws) and at the serving chunk's
+    (frame 0's first 4096 pano rays, no perturb), and on the CPU tests'
+    edge cases: no dilation, 4093 rays, an empty and a full volume, the
+    slab test's nears and fars, 33 bins and 37 samples, one ray, and the
+    kernel's limits: 2048 bins (5 rays a block), 16384 bins on 512 rays
+    (one ray a block, past 48 KB of shared memory), the least floor it takes
+    (2^-29 * 128). Each bit-equal to `occ_sample_plain` in z and the pdf,
+    one launch a call. Then at both shapes: plain, kernel, kernel, plain by
+    CUDA events; the device time a call without the host by CUDA-graph
+    replays and by the profiler (the plain sampler op by op); the host
+    enqueue a call; the bound by bytes (one origin when the rays share it,
+    distinct 32-byte sectors of the volume, as occ-lookup counts them).
+    Returns the `kernels` entry."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidarnerf_tpu_torch.dataset.base import rays_from_indices, sample_ray_indices
+    from lidarnerf_tpu_torch.models.occupancy import bin_cells, occupied_volume
+    from lidarnerf_tpu_torch.models.renderer import near_far_from_aabb
+    from lidarnerf_tpu_torch.ops import device_counts, occ_sample_cuda
+    from lidarnerf_tpu_torch.ops.occ_sample import occ_sample, occ_sample_plain
+    from lidarnerf_tpu_torch.tools import exp_occ_lookup
+
+    occ, cfg = trainer.render_cfg.occ, trainer.render_cfg
+    bound, T = FULL.bound, OCC_SAMPLE_STEPS
+    occ3 = occupied_volume(trainer.occ_grid, occ)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    poses, _ = ds.device_arrays("cuda")
+    frame = (ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
+    step_inds = sample_ray_indices(ds.H_lidar, ds.W_lidar, OCC_RAYS, 1, gen, "cuda")
+    o, d = rays_from_indices(poses[0], step_inds, *frame)
+    so, sd = rays_from_indices(poses[0], torch.arange(OCC_RAYS, device="cuda"), *frame)
+    so = so.contiguous()  # a served chunk's rows, as render_rays_staged cuts them
+    nears = torch.full((OCC_RAYS, 1), cfg.min_near_lidar, device="cuda")
+    fars = torch.full((OCC_RAYS, 1), cfg.min_near_lidar * cfg.far_mult, device="cuda")
+    xi = torch.rand((OCC_RAYS, T), generator=gen, device="cuda")
+    box = torch.full((3,), bound, device="cuda")
+    an, af = near_far_from_aabb(o, d, -box, box, cfg.min_near)
+    xi37 = torch.rand((OCC_RAYS, 37), generator=gen, device="cuda")
+    # name: (occ3, o, d, nears, fars, OccConfig, perturb, T, xi)
+    cases = {
+        "step": (occ3, o, d, nears, fars, occ, True, T, xi),
+        "serving chunk": (occ3, so, sd, nears, fars, occ, False, T, None),
+        "dilate 0": (occupied_volume(trainer.occ_grid, replace(occ, dilate=0)), o, d, nears,
+                     fars, replace(occ, dilate=0), True, T, xi),
+        "ragged": (occ3, o[:-3], d[:-3], nears[:-3], fars[:-3], occ, True, T, xi[:-3]),
+        "empty": (torch.zeros_like(occ3), o, d, nears, fars, occ, True, T, xi),
+        "full": (torch.ones_like(occ3), o, d, nears, fars, occ, False, T, None),
+        "slab nears and fars": (occ3, o, d, an, af, occ, False, T, None),
+        "33 bins, 37 samples": (occ3, o, d, nears, fars, replace(occ, bins=33), True, 37, xi37),
+        "one ray": (occ3, o[:1], d[:1], nears[:1], fars[:1], occ, True, T, xi[:1]),
+        "2048 bins": (occ3, o, d, nears, fars, replace(occ, bins=2048), True, T, xi),
+        "16384 bins, 512 rays": (occ3, o[:512], d[:512], nears[:512], fars[:512],
+                                 replace(occ, bins=16384), True, T, xi[:512]),
+        "least floor": (occ3, o, d, nears, fars,
+                        replace(occ, floor=occ_sample_cuda.MIN_FLOOR_K * occ.bins), True, T, xi),
+    }
+
+    def call(fn, case, want_pdf=True):
+        v, ro, rd, n_, f_, c, perturb, steps, x = cases[case]
+        return fn(v, ro, rd, n_, f_, c, bound, steps, perturb, xi=x, want_pdf=want_pdf)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with device_launches() as device:
+        outs = {k: call(occ_sample, k) for k in cases}
+    launches = launch_counts()
+    only_launches(launches, {"occ_sample": len(cases)})
+    only_launches(device, {"occ_sample": len(cases)})
+    checks, err = {}, 0.0
+    for k in cases:
+        (z, pdf), (z_ref, pdf_ref) = outs[k], call(occ_sample_plain, k)
+        checks[f"{k}: z, pdf == plain"] = bit_equal(z, z_ref) and bit_equal(pdf, pdf_ref)
+        checks[f"{k}: finite, sorted"] = bool(torch.isfinite(z).all()
+                                              and (z[:, 1:] >= z[:, :-1]).all())
+        err = max(err, float((z - z_ref).abs().max()), float((pdf - pdf_ref).abs().max()))
+    log(f"occ-sample checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"occ-sample: the kernel is not bit-exact: {checks}")
+
+    # timing at the step's and the serving chunk's shapes, the main path's calls (no pdf)
+    fns = {(shape, route): (lambda fn=fn, shape=shape: call(fn, shape, want_pdf=False))
+           for shape in ("step", "serving chunk")
+           for route, fn in (("kernel", occ_sample), ("plain", occ_sample_plain))}
+    turns, ms = {}, {}
+    for shape in ("step", "serving chunk"):
+        turns[shape] = [cuda_ms(fns[shape, r], reps=20) for r in ("plain", "kernel", "kernel", "plain")]
+        ms[shape, "plain"] = (turns[shape][0] + turns[shape][3]) / 2
+        ms[shape, "kernel"] = (turns[shape][1] + turns[shape][2]) / 2
+    # the host's enqueue time a call at the step, 200 calls in turns (the
+    # synchronize after each loop not counted)
+    host_turns = []
+    with device_counts.paused():
+        for route in ("kernel", "plain", "plain", "kernel"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fns["step", route]()
+            host_turns.append((time.perf_counter() - t0) * 5e3)
+            torch.cuda.synchronize()
+    host_us = {("step", "kernel"): (host_turns[0] + host_turns[3]) / 2,
+               ("step", "plain"): (host_turns[1] + host_turns[2]) / 2}
+    graph_ms = {key: exp_occ_lookup.device_ms(fn) for key, fn in fns.items()}
+    profiled = {}
+    with device_counts.paused():
+        for key in (("step", "kernel"), ("step", "plain")):
+            fns[key]()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fns[key]()
+                torch.cuda.synchronize()
+                time.sleep(TRACE_TAIL_S)
+            profiled[key] = sorted(((dev_us(e) / 20, e.count / 20, e.key)
+                                    for e in prof.key_averages()
+                                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                                   reverse=True)
+    device_us = {k: sum(us for us, _, _ in v) for k, v in profiled.items()}
+
+    bounds = {}
+    for shape, (ro, rd, draws) in {"step": (o, d, True), "serving chunk": (so, sd, False)}.items():
+        sectors = torch.unique(bin_cells(ro, rd, nears, fars, occ, bound) >> 3).numel()
+        # a training batch's rays share one origin (row stride 0): 12 B for all of them
+        origin = 12 if ro.stride(0) == 0 else 12 * OCC_RAYS
+        n_bytes = (origin + OCC_RAYS * 20 + OCC_RAYS * T * 4 * (2 if draws else 1)
+                   + sectors * 32)
+        bounds[shape] = (n_bytes / HBM_BYTES_PER_S * 1e3, n_bytes, sectors)
+    log(f"occ-sample on {gpu_line()}: the fused --fast sampler, [{OCC_RAYS} rays, {occ.bins} "
+        f"bins, {T} samples] in the trained {occ.grid_size}^3 volume "
+        f"({100 * float(occ3.mean()):.2f}% occupied); "
+        + "; ".join(
+            f"{shape}: in turns plain, kernel, kernel, plain "
+            f"{' / '.join(f'{t:.4f}' for t in turns[shape])} ms (CUDA events, 20 calls a batch), "
+            f"CUDA-graph replays ms a call: kernel {graph_ms[shape, 'kernel']:.5f}, plain "
+            f"{graph_ms[shape, 'plain']:.5f}; bound {bounds[shape][0]:.5f} ms by bytes "
+            f"({bounds[shape][1] / 1e6:.2f} MB, {bounds[shape][2]} distinct 32-byte sectors)"
+            for shape in turns)
+        + f"; host enqueue a call at the step (200 calls, in turns kernel, plain, plain, kernel "
+        f"{' / '.join(f'{t:.2f}' for t in host_turns)}): kernel {host_us['step', 'kernel']:.2f} "
+        f"us, plain {host_us['step', 'plain']:.2f} us; profiler device us a call at the step: kernel "
+        f"{device_us['step', 'kernel']:.2f}, plain {device_us['step', 'plain']:.2f} in "
+        f"{sum(c for _, c, _ in profiled['step', 'plain']):.0f} kernels")
+    for key in (("step", "kernel"), ("step", "plain")):
+        log(f" profiler, {key[1]} at the step, device us a call by kernel:")
+        for us, count, name in profiled[key]:
+            log(f"  {us:8.2f} us  {count:5.1f}x  {name[:100]}")
+    return {
+        "name": "occ_sample", "route": "cuda", "source": "lidarnerf_tpu_torch/csrc/occ_sample.cu",
+        "replaces": "tools/exp_occ_lookup.py:29", "launches": None, "max_abs_err": err,
+        "ms": ms["step", "kernel"], "plain_ms": ms["step", "plain"], "bound_ms": bounds["step"][0],
+        "bound_by": "bytes", "library_ms": None,
+    }
 
 
 # the cli phase: the port's CLI at full width on the synthetic drive, as a
@@ -3972,7 +4204,7 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from lidarnerf_tpu_torch.ops import (block_hash_cuda, cuda_lib, fused_mlp_cuda,
-                                         occ_lookup_cuda, perm_gather_cuda)
+                                         occ_lookup_cuda, occ_sample_cuda, perm_gather_cuda)
     from lidarnerf_tpu_torch.ops.block_hash import make_block_hash_spec
     from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
 
@@ -3988,9 +4220,9 @@ def main():
     def phase_done(name):  # the script's clock at the end of each group of phases
         log(f"[{time.perf_counter() - t0:.1f} s] {name} done")
 
-    # all nine sources, one nvcc each, started together
+    # all ten sources, one nvcc each, started together
     libs = cuda_lib.build(block_hash_cuda.SOURCES + (fused_mlp_cuda.SOURCE, perm_gather_cuda.SOURCE,
-                                                     occ_lookup_cuda.SOURCE))
+                                                     occ_lookup_cuda.SOURCE, occ_sample_cuda.SOURCE))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         report = lib.with_suffix(".log")
@@ -4045,7 +4277,7 @@ def main():
     trainer, init_sd, paths["training-fast"] = train_fast_phase(ds, default_step_ms)
     paths["serving-fast"] = serve_fast_phase(ds, trainer, init_sd)
     paths["occ-lookup"], p12 = occ_lookup_phase(ds, trainer)
-    kernels.append(p12)
+    kernels += [p12, occ_sample_phase(ds, trainer)]  # its launches: the --fast paths'
     del trainer, init_sd
 
     for variant in ("default", *VARIANT_ENV):

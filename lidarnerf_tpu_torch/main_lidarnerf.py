@@ -172,8 +172,20 @@ def get_arg_parser():
     )
     parser.add_argument("--occ_grid_size", type=int, default=128)
     parser.add_argument("--occ_update_interval", type=int, default=16)
-    parser.add_argument("--occ_floor", type=float, default=0.05)
-    parser.add_argument("--occ_bins", type=int, default=128)
+    parser.add_argument(
+        "--occ_floor",
+        type=float,
+        default=0.05,
+        help="share of the --fast pdf spread uniformly over the bins; on CUDA "
+        "from 2^-29 * occ_bins to 1 (the sampler's kernel keeps its cdf exact)",
+    )
+    parser.add_argument(
+        "--occ_bins",
+        type=int,
+        default=128,
+        help="bins of the --fast pdf along a ray; on CUDA at most 32768 (one "
+        "ray's cdf in the sampler kernel's shared memory)",
+    )
     parser.add_argument(
         "--occ_dilate",
         type=int,

@@ -11,9 +11,10 @@ PDF, so a cold start samples as the stratified sampler does.
 
 Plain PyTorch: the JAX module has no Pallas kernel. The grid refresh runs
 the field through the block-hash forward (kernel B1 on CUDA) at G^3 points
-spread over the whole volume. The bin lookup of `occ_bin_pdf` stays a plain
-index, as the JAX module keeps XLA's take; tools/exp_occ_lookup.py's TPU
-kernel for it (P12) has its counterpart in `ops/occ_lookup.py`.
+spread over the whole volume. The functions here stay plain on both devices
+and are the reference: the renderer samples through `ops/occ_sample.py`,
+whose kernel fuses `volume_bin_pdf` and `occ_z_vals` on CUDA (P12's bin
+lookup, tools/exp_occ_lookup.py, with the sampler around it).
 """
 
 from dataclasses import dataclass
@@ -99,16 +100,33 @@ def occ_bin_pdf(grid, rays_o, rays_d, nears, fars, cfg: OccConfig, bound: float)
     """[N, bins] piecewise-constant sampling PDF along each ray.
 
     A bin counts as occupied when the nearest grid cell of its midpoint is
-    in `occupied_volume`. The lookup is a plain index on both devices (the
-    hand-written P12 kernel, `ops/occ_lookup.py`, computes the same values).
+    in `occupied_volume`.
     """
+    return volume_bin_pdf(occupied_volume(grid, cfg), rays_o, rays_d, nears, fars, cfg, bound)
+
+
+def volume_bin_pdf(occ3, rays_o, rays_d, nears, fars, cfg: OccConfig, bound: float):
+    """`occ_bin_pdf` from the occupied volume occ3 ([G, G, G] 0/1). The lookup
+    is a plain index (P12's kernel, `ops/occ_lookup.py`, computes the same
+    values)."""
     K = cfg.bins
     flat = bin_cells(rays_o, rays_d, nears, fars, cfg, bound)  # [N, K]
-    w = occupied_volume(grid, cfg).reshape(-1)[flat] + 1e-8  # all-empty rays degrade to uniform
+    w = occ3.reshape(-1)[flat] + 1e-8  # all-empty rays degrade to uniform
     # summed in float64 and rounded once, so the sum does not depend on the
     # order a device reduces in (the GPU's and the CPU's pdfs agree bit for bit)
     pdf = w / w.double().sum(dim=-1, keepdim=True).float()
     return (1.0 - cfg.floor) * pdf + cfg.floor / K
+
+
+def occ_draws(N, num_steps: int, perturb: bool, dev, xi=None, generator=None):
+    """(xi, u_row) of `occ_z_vals`: with `perturb` the stratified draws xi
+    [N, num_steps] (drawn from `generator` unless given) and no row; without
+    it no draws and u_row [num_steps], the inclusive linspace."""
+    if perturb:
+        if xi is None:
+            xi = torch.rand((N, num_steps), generator=generator, dtype=torch.float32, device=dev)
+        return xi, None
+    return None, torch.linspace(0.0, 1.0, num_steps, dtype=torch.float32, device=dev)
 
 
 def occ_z_vals(nears, fars, pdf, num_steps: int, perturb: bool, xi=None, generator=None):
@@ -122,13 +140,11 @@ def occ_z_vals(nears, fars, pdf, num_steps: int, perturb: bool, xi=None, generat
     """
     N, K = pdf.shape
     dev = pdf.device
+    xi, u_row = occ_draws(N, num_steps, perturb, dev, xi, generator)
     if perturb:
-        if xi is None:
-            xi = torch.rand((N, num_steps), generator=generator, dtype=torch.float32, device=dev)
         u = (torch.arange(num_steps, dtype=torch.float32, device=dev)[None, :] + xi) / num_steps
     else:
-        u = torch.linspace(0.0, 1.0, num_steps, dtype=torch.float32, device=dev)
-        u = u.expand(N, num_steps).contiguous()
+        u = u_row.expand(N, num_steps).contiguous()
 
     # float32 terms of at least floor / K sum exactly in float64, whatever the
     # order: the cdf is the correctly rounded one on every device

@@ -5,8 +5,8 @@
   (`near_far_from_aabb`, nears at least min_near);
 - num_steps stratified samples, jittered when training, or, with
   `RenderConfig.occ` and an occupancy grid (`--fast`), num_steps samples
-  drawn from the grid's per-ray PDF (models/occupancy.py); xyz clipped to
-  the AABB;
+  drawn from the grid's per-ray PDF (models/occupancy.py; on CUDA one
+  fused kernel, ops/occ_sample.py); xyz clipped to the AABB;
 - one round of inverse-CDF upsampling on the detached coarse weights,
   deterministic at inference, with uniform draws when training;
 - order-free merged compositing of the coarse and fine lists;
@@ -27,7 +27,10 @@ from dataclasses import dataclass
 
 import torch
 
-from lidarnerf_tpu_torch.models.occupancy import OccConfig, occ_bin_pdf, occ_z_vals
+from lidarnerf_tpu_torch.models.occupancy import OccConfig, occupied_volume
+# the module, not its function: ops/occ_sample.py imports models/occupancy.py,
+# so an import of it first reaches this module before it has finished
+from lidarnerf_tpu_torch.ops import occ_sample as occ_sampler
 from lidarnerf_tpu_torch.ops.compositing import merged_composite_weights, composite_weights
 from lidarnerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
 
@@ -111,9 +114,10 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generat
     else:
         nears, fars = near_far_from_aabb(rays_o, rays_d, aabb_min, aabb_max, cfg.min_near)
     if cfg.occ is not None and occ_grid is not None:
-        pdf = occ_bin_pdf(occ_grid, rays_o, rays_d, nears, fars, cfg.occ, cfg.bound)
-        z_vals = occ_z_vals(nears, fars, pdf, cfg.num_steps, perturb=train, xi=noise,
-                            generator=generator)
+        occ3 = occupied_volume(occ_grid, cfg.occ)
+        z_vals = occ_sampler.occ_sample(occ3, rays_o, rays_d, nears, fars, cfg.occ, cfg.bound,
+                                        cfg.num_steps, perturb=train, xi=noise,
+                                        generator=generator)
     else:
         z_vals = stratified_z_vals(nears, fars, cfg.num_steps, perturb=train, noise=noise,
                                    generator=generator)

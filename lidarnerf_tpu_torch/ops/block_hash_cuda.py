@@ -130,10 +130,9 @@ def _launch(name, source, variant, x, other, out, spec, scratch=None):
     """Launch kernel `name` of `source` on the current stream; raise on failure."""
     fn = _kernel(source, name, runs=variant != "default", scratch=scratch is not None)
     extra = () if scratch is None else (scratch.data_ptr(),)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), other.data_ptr(), out.data_ptr(), *extra, x.shape[0],
-                 spec.num_levels, spec.blocks_per_level, *_level_arrays(spec, variant), stream)
+    err = cuda_lib.launch(fn, x.device, x.data_ptr(), other.data_ptr(), out.data_ptr(), *extra,
+                          x.shape[0], spec.num_levels, spec.blocks_per_level,
+                          *_level_arrays(spec, variant))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     device_counts.add(name, x.device)

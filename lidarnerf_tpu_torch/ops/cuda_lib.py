@@ -7,7 +7,8 @@ rebuilt and an unchanged one is reused. Nothing is
 built when this module is imported: `load` builds at first use, and `build`
 compiles several sources at once (one `nvcc` each, all started together).
 The compiler's report (`-Xptxas -v`: registers, spills) is kept beside each
-library in a `.log` file.
+library in a `.log` file. `launch` calls a bound entry point on a device's
+current stream, the one host path of every kernel wrapper.
 """
 
 import ctypes
@@ -16,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -87,3 +90,17 @@ def load(source: str) -> ctypes.CDLL:
     if lib not in _loaded:
         _loaded[lib] = ctypes.CDLL(str(lib))
     return _loaded[lib]
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """fn(*args, stream): a C entry point called with `device` (a CUDA
+    tensor's device) current and its current stream's handle last; returns
+    fn's error code. Enters `torch.cuda.device` only when another device is
+    current, so a launch on the current device (the usual case) costs a
+    `current_device()` and a `current_stream()`, and a launch on another
+    card still lands on that card."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    with torch.cuda.device(index):
+        return fn(*args, torch.cuda.current_stream(index).cuda_stream)

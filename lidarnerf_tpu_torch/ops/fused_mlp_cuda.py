@@ -126,10 +126,8 @@ def fused_mlp_fwd(x: torch.Tensor, weights, final_activation: str = "none") -> t
     L = len(weights)
     ptrs = (ctypes.c_void_p * L)(*[w.data_ptr() for w in weights])
     c_dims = (ctypes.c_int * (L + 1))(*dims)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(x.data_ptr(), out.data_ptr(), Q, ptrs, c_dims, L,
-                        int(dtype == torch.bfloat16), ACTIVATIONS[final_activation], stream)
+    err = cuda_lib.launch(_kernel(), x.device, x.data_ptr(), out.data_ptr(), Q, ptrs, c_dims, L,
+                          int(dtype == torch.bfloat16), ACTIVATIONS[final_activation])
     if err != 0:
         raise RuntimeError(f"fused_mlp launch failed: cudaError {err}")
     device_counts.add("fused_mlp", x.device)

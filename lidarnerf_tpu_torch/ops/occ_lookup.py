@@ -9,8 +9,9 @@ CPU tensor the plain version below. Both follow jnp.take: an index in
 kernel needs a multiple of 4096 indices (its grid of chunks); that is a
 precondition of its launch, not part of the function, and here any count R
 works, R = 0 included. No gradient: the occupancy is not differentiated.
-The `--fast` sampler itself (models/occupancy.py) still indexes in plain
-PyTorch on both devices.
+On the model paths the `--fast` sampler does this lookup inside its own
+fused kernel (`ops/occ_sample.py`); this entry serves the port's lookup
+tool (`tools/exp_occ_lookup.py`).
 """
 
 import torch

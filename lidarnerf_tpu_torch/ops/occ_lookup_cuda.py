@@ -69,10 +69,8 @@ def occ_lookup(idx: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
         return torch.empty_like(idx, dtype=torch.float32)
     fn = _kernel()
     out = torch.empty_like(idx, dtype=torch.float32)  # contiguous, as idx is
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(idx.data_ptr(), grid.data_ptr(), out.data_ptr(), idx.numel(), grid.numel(),
-                 stream)
+    err = cuda_lib.launch(fn, idx.device, idx.data_ptr(), grid.data_ptr(), out.data_ptr(),
+                          idx.numel(), grid.numel())
     if err != 0:
         raise RuntimeError(f"occ_lookup launch failed: cudaError {err}")
     device_counts.add("occ_lookup", idx.device)

@@ -68,10 +68,8 @@ def _launch(name, src, inv_order, transpose):
     out = torch.empty_like(src)
     if N == 0 or S == 0 or C == 0:
         return out, False
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(src.data_ptr(), inv_order.data_ptr(), out.data_ptr(), N, S, C,
-                        int(transpose), stream)
+    err = cuda_lib.launch(_kernel(), src.device, src.data_ptr(), inv_order.data_ptr(),
+                          out.data_ptr(), N, S, C, int(transpose))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     device_counts.add(name, src.device)

@@ -22,6 +22,8 @@ from lidarnerf_tpu_torch.ops import (
     fused_mlp_cuda,
     occ_lookup,
     occ_lookup_cuda,
+    occ_sample,
+    occ_sample_cuda,
     perm_gather,
     perm_gather_cuda,
     sampling,
@@ -688,6 +690,158 @@ def test_occ_lookup_wrapper_limits(require_cuda):
     with pytest.raises(ValueError, match="CUDA tensors on one device"):
         occ_lookup_cuda.occ_lookup(idx, grid.cpu())
     assert occ_lookup_cuda.launches == before
+
+
+# --- the fused --fast sampler (csrc/occ_sample.cu) ---
+
+SAMPLE_CASES = ["perturb-dilate0", "perturb-dilate1", "det-dilate1", "ragged", "empty", "full",
+                "aabb", "bins33", "one-ray", "shared-origin", "bins2048", "bins16384", "floor-min"]
+SAMPLE_BINS = {"bins33": 33, "bins2048": 2048, "bins16384": 16384}
+
+
+def _sample_case(case):
+    """(occ3, o, d, nears, fars, OccConfig, perturb, num_steps) on the card at
+    the --fast step's shape (4096 LiDAR rays, 128 bins, 192 samples, a 128^3
+    volume holding a shell), or a case's change to it: no perturb, no
+    dilation, 4093 rays, an empty or a full volume, RGB rays with the slab
+    test's nears and fars, 33 bins and 37 samples, one ray, one origin
+    expanded over the rays (a training batch's), 2048 bins (5 rays a block),
+    16384 bins on 512 rays (one ray a block past 48 KB of shared memory),
+    the least floor the kernel takes (2^-29 * 128)."""
+    from lidarnerf_tpu_torch.models.occupancy import OccConfig, occupied_volume
+    from lidarnerf_tpu_torch.models.renderer import near_far_from_aabb
+
+    rs = np.random.RandomState(3)
+    G, N = 128, {"ragged": 4093, "one-ray": 1, "bins16384": 512}.get(case, 4096)
+    cfg = OccConfig(grid_size=G, bins=SAMPLE_BINS.get(case, 128),
+                    dilate=0 if case == "perturb-dilate0" else 1,
+                    floor=occ_sample_cuda.MIN_FLOOR_K * 128 if case == "floor-min" else 0.05)
+    c = (np.arange(G) + 0.5) / G * 2.0 - 1.0
+    r = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2)
+    grid = np.where((r > 0.3) & (r < 0.5), 50.0, 0.0).astype(np.float32)
+    grid = {"empty": np.zeros_like(grid), "full": np.full_like(grid, 50.0)}.get(case, grid)
+    occ3 = occupied_volume(torch.from_numpy(grid).cuda(), cfg)
+    d = rs.normal(size=(N, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = rs.uniform(-0.05, 0.05, (N, 3)).astype(np.float32)
+    o, d = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    if case == "shared-origin":
+        o = o[:1].expand(N, 3)
+    if case == "aabb":
+        o = torch.from_numpy(rs.uniform(-0.9, 0.9, (N, 3)).astype(np.float32)).cuda()
+        box = torch.ones(3, device="cuda")
+        nears, fars = near_far_from_aabb(o, d, -box, box, 0.05)
+    else:
+        nears = torch.full((N, 1), 0.0108, device="cuda")
+        fars = torch.full((N, 1), 0.0108 * 81.0, device="cuda")
+    perturb = case not in ("det-dilate1", "aabb", "full")
+    return occ3, o, d, nears, fars, cfg, perturb, 37 if case == "bins33" else 192
+
+
+@pytest.mark.parametrize("case", SAMPLE_CASES)
+def test_occ_sample_kernel_is_bit_exact(require_cuda, case):
+    """The kernel's depths and pdf equal the plain composition's on the card
+    bit for bit, with the same draws; one launch a call."""
+    occ3, o, d, nears, fars, cfg, perturb, T = _sample_case(case)
+    N = o.shape[0]
+    xi = torch.rand((N, T), generator=torch.Generator("cuda").manual_seed(5),
+                    device="cuda") if perturb else None
+    before = occ_sample_cuda.launches
+    z, pdf = occ_sample.occ_sample(occ3, o, d, nears, fars, cfg, 1.0, T, perturb, xi=xi,
+                                   want_pdf=True)
+    torch.cuda.synchronize()
+    assert occ_sample_cuda.launches == before + 1
+    z_ref, pdf_ref = occ_sample.occ_sample_plain(occ3, o, d, nears, fars, cfg, 1.0, T, perturb,
+                                                 xi=xi, want_pdf=True)
+    assert z.shape == (N, T) and pdf.shape == (N, cfg.bins)
+    assert torch.equal(_bits(pdf), _bits(pdf_ref)) and torch.equal(_bits(z), _bits(z_ref))
+    assert torch.isfinite(z).all() and (z[:, 1:] >= z[:, :-1]).all()
+    # the same depths without the pdf
+    assert torch.equal(_bits(occ_sample.occ_sample(occ3, o, d, nears, fars, cfg, 1.0, T, perturb,
+                                                   xi=xi)), _bits(z))
+
+
+def test_occ_sample_in_a_cuda_graph(require_cuda):
+    """The kernel captured in a CUDA graph with its draw replays bit-equal
+    to the eager call from the same generator state."""
+    occ3, o, d, nears, fars, cfg, _, T = _sample_case("perturb-dilate1")
+    gen = torch.Generator("cuda")
+    sample = lambda: occ_sample.occ_sample(occ3, o, d, nears, fars, cfg, 1.0, T, True,  # noqa: E731
+                                           generator=gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sample()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = sample()
+    gen.manual_seed(9)
+    graph.replay()
+    torch.cuda.synchronize()
+    gen.manual_seed(9)
+    eager = sample()
+    assert torch.equal(_bits(out), _bits(eager))
+
+
+def test_occ_sample_wrapper_limits(require_cuda):
+    occ3, o, d, nears, fars, cfg, _, T = _sample_case("perturb-dilate1")
+    N = o.shape[0]
+    xi = torch.rand((N, T), device="cuda")
+    call = lambda **kw: occ_sample_cuda.occ_sample(  # noqa: E731
+        **{"occ3": occ3, "rays_o": o, "rays_d": d, "nears": nears, "fars": fars, "bins": 128,
+           "num_steps": T, "bound": 1.0, "floor": 0.05, "xi": xi, **kw})
+    before = occ_sample_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors on one device"):
+        call(rays_o=o.cpu())
+    with pytest.raises(ValueError, match="rays_d must be a contiguous float32"):
+        call(rays_d=d.double())
+    with pytest.raises(ValueError, match="not contiguous"):
+        call(xi=torch.rand((T, N), device="cuda").t())
+    with pytest.raises(ValueError, match="rays_o must be a contiguous float32"):
+        call(rays_o=torch.rand((N, 6), device="cuda")[:, :3])
+    with pytest.raises(ValueError, match="not contiguous"):
+        call(rays_o=o[:1].expand(N, 3))  # the entry copies a batch's one origin
+    with pytest.raises(ValueError, match="floor"):
+        call(floor=0.0)
+    with pytest.raises(ValueError, match="floor"):
+        call(floor=occ_sample_cuda.MIN_FLOOR_K * 64)
+    with pytest.raises(ValueError, match="bins"):
+        call(bins=occ_sample_cuda.MAX_BINS + 1)
+    with pytest.raises(ValueError, match="samples"):
+        call(num_steps=0, xi=xi[:, :0])
+    with pytest.raises(ValueError, match="exactly one"):
+        call(u_row=torch.linspace(0, 1, T, device="cuda"))
+    z, pdf = call(rays_o=o[:0], rays_d=d[:0], nears=nears[:0], fars=fars[:0], xi=xi[:0],
+                  want_pdf=True)
+    assert z.shape == (0, T) and pdf.shape == (0, 128) and z.is_cuda
+    assert occ_sample_cuda.launches == before
+
+
+def test_fast_step_launches_occ_sample_once_and_equals_the_plain_sampler(
+        require_cuda, tmp_path, monkeypatch):
+    """A --fast epoch with the step eager: the kernel launches once a step,
+    and the losses, weights, EMA, Adam state, generator and grid equal those
+    of the same epoch with the plain sampler, bit for bit."""
+    from types import SimpleNamespace
+
+    from lidarnerf_tpu_torch.models import renderer
+
+    opt, ds = _graph_case("fast", tmp_path, monkeypatch)
+    runs, launched = [], []
+    for plain in (False, True):
+        with monkeypatch.context() as m:
+            if plain:
+                m.setattr(renderer, "occ_sampler",
+                          SimpleNamespace(occ_sample=occ_sample.occ_sample_plain))
+            t = _graph_trainer(opt, 0)
+            before = occ_sample_cuda.launches
+            t.train(ds, None, max_epochs=1)
+            launched.append(occ_sample_cuda.launches - before)
+            runs.append(t)
+    assert launched == [len(ds), 0]
+    _same_state(*runs)
 
 
 def test_sort_merge_z_on_cuda_runs_b6_and_matches_the_cpu(require_cuda, monkeypatch):

@@ -14,6 +14,7 @@ from lidarnerf_tpu_torch.ops import (
     device_counts,
     fused_mlp_cuda,
     occ_lookup_cuda,
+    occ_sample_cuda,
     perm_gather_cuda,
 )
 
@@ -34,7 +35,8 @@ def counting():
 
 def test_one_slot_per_kernel_wrapper():
     names = {**block_hash_cuda.launch_counts(), **fused_mlp_cuda.launch_counts(),
-             **perm_gather_cuda.launch_counts(), **occ_lookup_cuda.launch_counts()}
+             **perm_gather_cuda.launch_counts(), **occ_lookup_cuda.launch_counts(),
+             **occ_sample_cuda.launch_counts()}
     assert set(device_counts.KERNELS) == set(names)
     assert len(device_counts.KERNELS) == len(names)
 
