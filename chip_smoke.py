@@ -102,7 +102,19 @@ panos):
     the captured data-parallel epoch against one GPU, the ranks' weights
     bit-identical, two runs bit-equal, the table row-sharded over `model`,
     the orbax-format checkpoint, ms/step with and without the group (B1,
-    B2). On a machine with one GPU the group is a world of one.
+    B2). On a machine with one GPU the group is a world of one;
+  - bench, bench-render, graft-entry: the JAX system's root drivers as the
+    port has them (`python -m lidarnerf_tpu_torch.bench`, `...tools.bench_render`,
+    `...graft_entry`), in this process: the training benchmark's JSON line
+    against the training-graph phase's captured step, its losses bit-equal
+    to the same steps eager; the pano benchmark's line, its 8192-ray-chunk
+    pano against 4096-ray chunks; the flagship's training render and the
+    sharded dry run over every GPU (B1, B2);
+  - protocol: `data_synth_drive/` written by `make_synth_drive` with
+    ab_run's scale and offset, then `ab_run --arms fast_dil1` and a
+    `full_run` cut to 100 epochs with the reference's eval cadence, one
+    SIGKILL between its checkpoints and `--best_eval`, and `protocol_report`:
+    the CLI in subprocesses, whose launches this process does not count.
 It checks that each path went through its kernels and that its output is
 right, and profiles one render chunk and one training step per variant.
 B1 and B2 are also checked on adversarial point sets (one cell, runs
@@ -131,6 +143,8 @@ import numpy as np
 import torch
 
 SEED = 0
+ROOT = Path(__file__).resolve().parent
+PYCACHE = ROOT / "lidarnerf_tpu_torch" / "_build" / "pycache"
 H, W = 66, 1030
 INTRINSICS = (2.0, 26.9)
 FULL = SimpleNamespace(
@@ -1246,6 +1260,7 @@ def variant_train_phase(ds, variant, default_epoch_loss):
 # the training-graph phase: each training path eager (--fuse_epoch 0) and
 # captured (1) from one seeded state, epochs in turns
 GRAPH_EPOCHS = 4  # 1-2 capture the patch-1 and [2, 8] graphs; 3-4 are timed in turns
+GRAPH_MS = {}  # training_graph_phase's name -> the captured step's ms/step in the timed epochs
 VARIANT_GRAPH_FRAMES = 20  # the seg and win runs' epoch length (the default's is the drive's 60)
 
 
@@ -1452,6 +1467,7 @@ def training_graph_phase(name, make_trainer, ds, per_step, refresh_every=None,
             f"ms/step ({busy['plain'][0] - busy['graph'][0]:+.3f}), span {busy['plain'][1]:.3f} "
             f"vs {busy['graph'][1]:.3f}, {busy['plain'][2]} vs {busy['graph'][2]} kernels, idle "
             f"{idle['plain']:.1f}% vs {idle['graph']:.1f}%; its wrapper launches {counts['plain']}")
+    GRAPH_MS[name] = warm["graph"]
     if differ:
         raise AssertionError(f"training-graph {name}: the captured run differs from the eager "
                              f"one: {differ}")
@@ -4199,10 +4215,368 @@ def parallel_phase():
     return r0["launches"]
 
 
+# ---------------------------------------------------------------- the root drivers
+
+BENCH_MS_RTOL = 0.15  # bench's ms/step against the training-graph phase's captured step
+
+
+def bench_phase(graph_ms):
+    """The training benchmark (`python -m lidarnerf_tpu_torch.bench`) in this
+    process: its JSON line, its ms/step within BENCH_MS_RTOL of the captured
+    default step (`graph_ms`, the training-graph phase's), B1 and B2 twice a
+    step on the card (replays included) and at the wrappers for each graph's
+    warm-up and capture; then the losses of all its steps (two eager warm-ups,
+    then the two captured steps replayed in alternation) bit-equal to the same
+    steps run eagerly. Returns the wrapper counts of the benchmark's run."""
+    import gc
+
+    from lidarnerf_tpu_torch import bench
+    from lidarnerf_tpu_torch.ops import device_counts
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    with device_launches() as device:
+        result, losses = bench.main()
+    counts = launch_counts()
+    steps = bench.WARMUP + bench.TIMED
+    per_step = {"block_hash_fwd": 2, "block_hash_bwd": 2}
+    only_launches(device, training_launches(per_step, steps))
+    only_launches(counts, training_launches(per_step, 2 * len(bench.PATCHES)))
+    if set(result) != {"metric", "value", "unit", "vs_baseline"} or \
+            result["metric"] != "composited_ray_samples_per_sec_per_chip":
+        raise AssertionError(f"bench: unexpected JSON line {result}")
+    ms = 1e3 * bench.NUM_RAYS * (bench.NUM_STEPS + bench.UPSAMPLE) / result["value"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = bench.Bench(capture=False)
+    with device_counts.paused():
+        eager_losses = torch.cat([eager.run(bench.WARMUP), eager.run(bench.TIMED)])
+    equal = bit_equal(losses, eager_losses)
+    log(f"bench on {gpu_line()}: {json.dumps(result)}; {ms:.2f} ms/step ({bench.TIMED} timed "
+        f"steps, flat and [2, 8]-patch replays alternating, ended by a host read) against the "
+        f"training-graph phase's captured default step {graph_ms:.2f} ms/step "
+        f"({ms / graph_ms - 1:+.1%}); launches on the card {device} ({steps} steps), at the "
+        f"wrappers {counts}; the {steps} losses bit-equal to the same steps run eagerly: "
+        f"{equal} (first {losses[:4].tolist()}, last {losses[-1].item()})")
+    if not equal:
+        raise AssertionError(f"bench: the captured steps' losses {losses.tolist()} differ from "
+                             f"the eager steps' {eager_losses.tolist()}")
+    if abs(ms / graph_ms - 1) > BENCH_MS_RTOL:
+        raise AssertionError(f"bench: {ms:.2f} ms/step is not within {BENCH_MS_RTOL:.0%} of the "
+                             f"captured step's {graph_ms:.2f}")
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bench_render_phase():
+    """The serving benchmark (`python -m lidarnerf_tpu_torch.tools.bench_render`)
+    in this process: its JSON line, B1 twice a chunk (9 chunks of 8192 rays a
+    pano, 1 + 5 panos) on the card and at the wrappers, then its pano against
+    a 4096-ray-chunk pano of the same weights (the CLI's default chunk), bit
+    for bit: every operation of the render is per ray, and the MLPs' rows are
+    independent products whose sums over 32 or 64 inputs run alike at both
+    chunk sizes (bit-equal in every run so far). Returns the wrapper counts
+    of the benchmark's run."""
+    from lidarnerf_tpu_torch.models.renderer import render_rays_staged
+    from lidarnerf_tpu_torch.ops import device_counts
+    from lidarnerf_tpu_torch.tools import bench_render
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with device_launches() as device:
+        result = bench_render.main()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    chunks = -(-bench_render.H * bench_render.W // bench_render.CHUNK)
+    expected = {"block_hash_fwd": 2 * chunks * (1 + bench_render.FRAMES)}
+    only_launches(device, expected)
+    only_launches(counts, expected)
+    if set(result) != {"metric", "value", "unit", "vs_baseline", "samples_per_sec"} or \
+            result["metric"] != "pano_fps":
+        raise AssertionError(f"bench-render: unexpected JSON line {result}")
+    model, cfg, ro, rd = bench_render.setup()
+    with device_counts.paused():
+        big = render_rays_staged(model, ro, rd, cfg, chunk=bench_render.CHUNK)
+        small = render_rays_staged(model, ro, rd, cfg, chunk=FULL.max_ray_batch)
+    diffs = {k: float((big[k] - small[k]).abs().max()) for k in big}
+    equal = all(bit_equal(big[k], small[k]) for k in big)
+    finite = all(bool(torch.isfinite(v).all()) for v in big.values())
+    log(f"bench-render on {gpu_line()}: {json.dumps(result)}; {1e3 / result['value']:.1f} ms a "
+        f"pano ({chunks} chunks of {bench_render.CHUNK} rays); peak allocated "
+        f"{peak / 2**30:.2f} GiB; launches on the card {device}, at the wrappers {counts}; its "
+        f"pano against {FULL.max_ray_batch}-ray chunks of the same weights: bit-equal {equal}, "
+        f"largest differences {diffs}; finite {finite}")
+    if not finite:
+        raise AssertionError("bench-render: the pano is not finite")
+    if not equal:
+        raise AssertionError(f"bench-render: the {bench_render.CHUNK}-ray-chunk pano differs "
+                             f"from the {FULL.max_ray_batch}-ray-chunk one: {diffs}")
+    del model, big, small
+    torch.cuda.empty_cache()
+    return counts
+
+
+def graft_entry_phase():
+    """The driver entry (`python -m lidarnerf_tpu_torch.graft_entry`): `entry()`'s
+    render on the card (two B1 launches; the JAX entry's shapes, finite;
+    repeatable from the generator's state), timed, then `dryrun_multichip`
+    over every GPU: one NCCL process a GPU, started there, whose launches this
+    process does not count. Returns the wrapper counts of the render."""
+    from lidarnerf_tpu_torch import graft_entry
+    from lidarnerf_tpu_torch.ops import device_counts
+
+    reset_counts()
+    with device_launches() as device:
+        fn, args = graft_entry.entry()
+        state = args[3].get_state()
+        out = fn(*args)
+    counts = launch_counts()
+    only_launches(device, {"block_hash_fwd": 2})
+    only_launches(counts, {"block_hash_fwd": 2})
+    shapes = [tuple(o.shape) for o in out]
+    finite = all(bool(torch.isfinite(o).all()) for o in out)
+    args[3].set_state(state)
+    with device_counts.paused():
+        again = fn(*args)
+        ms = cuda_ms(lambda: fn(*args), reps=5)
+    repeat = all(bit_equal(a, b) for a, b in zip(out, again))
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    loss = graft_entry.dryrun_multichip(world)
+    dry_s = time.perf_counter() - t0
+    log(f"graft-entry on {gpu_line()}: entry OK: {shapes}, finite {finite}, the same draws "
+        f"again bit-equal {repeat}; {ms:.2f} ms a render of 1024 rays x (768 + 64) samples; "
+        f"launches on the card {device}, at the wrappers {counts}; dryrun_multichip({world}): "
+        f"loss {loss:.4f} in {dry_s:.1f} s with start-up (its process's launches not counted)")
+    if shapes != [(1024,), (1024, 2), (1024,)] or not finite or not repeat:
+        raise AssertionError(f"graft-entry: shapes {shapes}, finite {finite}, repeat {repeat}")
+    return counts
+
+
+PROTOCOL_ARM = "fast_dil1"
+PROTOCOL_EPOCHS = 100  # of the 16-frame drive: 1,600 iterations of 30,000
+PROTOCOL_EVAL = 50  # the reference's val cadence (epochs)
+PROTOCOL_CKPT = 50  # full_run's --ckpt_interval: checkpoints at epochs 50 and 100
+# The kill's aim, midway between the checkpoints at 50 and 100 (~5 s either
+# way), placed from ab_run's start-up and epochs. Both CLIs start from the
+# bytecode that cli_warmup() put in PYCACHE: without it the first CLI run
+# compiles the CLI's modules and starts ~14 s (~70 epochs) later than the next
+PROTOCOL_KILL_EPOCH = 75
+# the CLI on the CPU at a tiny size: imports every module a CLI run imports, so
+# that their bytecode is in PYCACHE before the protocol phase's CLI runs
+CLI_WARMUP = """
+import os, shutil, tempfile
+from lidarnerf_tpu_torch import main_lidarnerf as cli
+from lidarnerf_tpu_torch.tools import make_synth_drive as drive
+drive.H, drive.W = 8, 32
+data = tempfile.mkdtemp(prefix="lidarnerf_cli_warmup_")
+try:
+    drive.main(data, 2, 1)
+    cli.main(["--config", "configs/kitti360_1908.txt", "--path", data, "--workspace",
+              os.path.join(data, "ws"), "--iters", "2", "--num_steps", "16", "--upsample_steps",
+              "4", "--num_rays_lidar", "128", "--desired_resolution", "64", "--log2_hashmap_size",
+              "10", "--max_ray_batch", "512", "--mesh_resolution", "8", "--scale", "0.05",
+              "--offset", "0", "0", "0", "--fast", "--occ_grid_size", "16"])
+finally:
+    shutil.rmtree(data, ignore_errors=True)
+"""
+PROTOCOL_RATE_RANGE = (0.7, 1.1)  # the log's rays/s over the captured --fast step's
+
+
+def cli_warmup():
+    """Start CLI_WARMUP in a process of its own (one CPU thread), to run while
+    the GPU phases before the protocol phase do; returns the Popen."""
+    import tempfile
+
+    env = {**os.environ, "LIDARNERF_PLATFORM": "cpu", "OMP_NUM_THREADS": "1"}
+    err = tempfile.TemporaryFile(mode="w+")  # not a pipe: nothing waits to drain it
+    proc = subprocess.Popen([sys.executable, "-c", CLI_WARMUP], cwd=ROOT, env=env,
+                            stdout=subprocess.DEVNULL, stderr=err)
+    proc.err = err
+    return proc
+
+
+def protocol_drive():
+    """`data_synth_drive/` at the repository's root (ab_run.BASE's --path),
+    written by the port's make_synth_drive if absent; its printed scale and
+    offset must be BASE's. Returns the printed constants."""
+    import io
+
+    from lidarnerf_tpu_torch.tools import ab_run, make_synth_drive
+
+    out = ab_run.REPO / "data_synth_drive"
+    base = ab_run.BASE
+    want = {"scale": float(base[base.index("--scale") + 1]),
+            "offset": [float(x) for x in base[base.index("--offset") + 1:][:3]]}
+    if (out / "transforms_1908_train.json").exists():
+        consts = json.loads((out / "scene_constants.json").read_text())
+        log(f"protocol: {out} exists; its constants {consts}")
+    else:
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            make_synth_drive.main(str(out))
+        lines = dict(line.split(" = ", 1) for line in text.getvalue().splitlines() if " = " in line)
+        consts = {"scale": float(lines["scale"]), "offset": json.loads(lines["offset"])}
+        log(f"protocol: make_synth_drive wrote {out} in {time.perf_counter() - t0:.1f} s and "
+            f"printed {text.getvalue().strip()!r}")
+    # BASE rounds the y offset (2.4e-8 here) to 0.0
+    if consts["scale"] != want["scale"] or not np.allclose(consts["offset"], want["offset"],
+                                                          rtol=0, atol=1e-6):
+        raise AssertionError(f"protocol: the drive's constants {consts} are not BASE's {want}")
+    return consts
+
+
+def replayed_losses(log_text):
+    """{epoch: (loss before the kill, loss after the resume)} of the epochs that
+    the first resume trained again, from the log's `Finished Epoch` lines."""
+    import re
+
+    before, after, loaded = {}, {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"load at epoch (\d+)", line)
+        if m and loaded is None:
+            loaded = int(m.group(1))
+        m = re.match(r"==> Finished Epoch (\d+)\. loss=(\S+)", line)
+        if m:
+            (before if loaded is None else after)[int(m.group(1))] = m.group(2)
+    return loaded, {e: (before[e], after.get(e)) for e in before if loaded is not None
+                    and e > loaded}
+
+
+def watched(fn, log_path):
+    """fn() in a thread while this one notes when each `Finished Epoch` line
+    reaches `log_path` (a trainer's workspace log). Returns (fn's result, its
+    wall-clock s, {epoch: s from the start to its first line})."""
+    import re
+    import threading
+
+    out = {}
+    run = threading.Thread(target=lambda: out.update(result=fn()))
+    t0 = time.perf_counter()
+    run.start()
+    seen = {}
+    while run.is_alive():
+        if log_path.exists():
+            for e in re.findall(r"Finished Epoch (\d+)\.", log_path.read_text()):
+                seen.setdefault(int(e), time.perf_counter() - t0)
+        time.sleep(0.02)
+    run.join()
+    return out.get("result"), time.perf_counter() - t0, seen
+
+
+def watched_ab_run():
+    """`ab_run --arms PROTOCOL_ARM` at its default 320 iterations, watched.
+    Returns (its results, its wall-clock s, {epoch: s}, the s of its
+    test-split evaluation)."""
+    import re
+    import shutil
+    import tempfile
+
+    from lidarnerf_tpu_torch.tools import ab_run
+
+    ws = Path(tempfile.gettempdir(), f"ab_{PROTOCOL_ARM}")
+    shutil.rmtree(ws, ignore_errors=True)
+    ab, wall, seen = watched(lambda: ab_run.main(["--arms", PROTOCOL_ARM]),
+                             ws / "log_lidar_nerf.txt")
+    text = (ws / "log_lidar_nerf.txt").read_text() if (ws / "log_lidar_nerf.txt").exists() else ""
+    evals = [float(x) for x in re.findall(r"Evaluate epoch \d+ Finished \((\d+\.\d+)s", text)]
+    shutil.rmtree(ws, ignore_errors=True)
+    return ab or {}, wall, seen, evals[-1] if evals else 0.0
+
+
+def protocol_phase(fast_ms, warmup):
+    """The protocol drivers through the port's CLI, each CLI run a subprocess
+    of its own (their kernels launch there, so this process counts none):
+    `ab_run --arms fast_dil1` at its default 320 iterations, then `full_run
+    --arm fast_dil1` cut to PROTOCOL_EPOCHS epochs with the reference's eval
+    cadence and `--best_eval`, SIGKILLed once between its two checkpoints
+    (the kill placed from ab_run's measured start-up and epoch time), then
+    `protocol_report` on its workspace. `fast_ms` is the training-graph
+    phase's captured --fast ms/step; `warmup` the cli_warmup() process, which
+    must have ended well."""
+    import shutil
+    import tempfile
+
+    from lidarnerf_tpu_torch.tools import full_run, protocol_report
+
+    t0 = time.perf_counter()
+    warmup.wait(timeout=600)
+    warmup.err.seek(0)
+    err = warmup.err.read()
+    warmup.err.close()
+    if warmup.returncode != 0:
+        raise AssertionError(f"protocol: the CLI's warm-up on the CPU failed:\n{err[-3000:]}")
+    log(f"protocol: waited {time.perf_counter() - t0:.1f} s for the CLI's warm-up on the CPU")
+    consts = protocol_drive()
+    ab, ab_s, seen, eval_s = watched_ab_run()
+    if PROTOCOL_ARM not in ab or ab[PROTOCOL_ARM]["test"] is None or 20 not in seen:
+        raise AssertionError(f"protocol: ab_run's arm failed or has no test meters: {ab}")
+    arm = ab[PROTOCOL_ARM]
+    epoch_s = 16 * 4096 / arm["rays_per_s"]
+    # start-up and epoch 1 as in ab_run, then the epochs, the eval at 50 and its checkpoint
+    kill_s = seen[1] + (PROTOCOL_KILL_EPOCH - 1) * epoch_s + eval_s + 0.5
+    ws = tempfile.mkdtemp(prefix="lidarnerf_full_run_")
+    try:
+        rc, run_s, seen_f = watched(lambda: full_run.main(
+            ["--arm", PROTOCOL_ARM, "--iters", str(16 * PROTOCOL_EPOCHS), "--eval_interval",
+             str(PROTOCOL_EVAL), "--best_eval", "--kill_at", "0.5", "--expected_train_s",
+             str(2 * kill_s), "--workspace", ws]), Path(ws, "log_lidar_nerf.txt"))
+        result = json.loads(Path(ws, "full_run_result.json").read_text()) if rc == 0 else None
+        log_text = Path(ws, "log_lidar_nerf.txt").read_text()
+        log("protocol: protocol_report of the run's workspace:")
+        protocol_report.main(ws)
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+    if rc != 0:
+        raise AssertionError(f"protocol: full_run exited {rc}")
+    loaded, replayed = replayed_losses(log_text)
+    kills = [s for s in result["segments"] if s["killed"]]
+    rate = result["rays_per_s"] / (4096 / (fast_ms * 1e-3))
+    meters = {k: result[k] for k in ("val", "test", "test_best")}
+    log(f"protocol on {gpu_line()}: the drive's constants {consts}; ab_run {PROTOCOL_ARM} "
+        f"(320 iterations): {ab_s:.1f} s (epoch 1 logged at {seen[1]:.1f} s, epochs 2-20 "
+        f"{(seen[20] - seen[1]) / 19:.3f} s apart with a checkpoint each, its test evaluation "
+        f"{eval_s:.1f} s), {json.dumps(arm)}; a full_run epoch taken as {epoch_s:.3f} s; "
+        f"full_run ({PROTOCOL_EPOCHS} epochs, the kill aimed at epoch {PROTOCOL_KILL_EPOCH}, "
+        f"{kill_s:.1f} s in; its epoch 1 logged at {seen_f.get(1, float('nan')):.1f} s, epochs "
+        f"logged before the kill {max((e for e, t in seen_f.items() if t < kill_s), default=0)}): "
+        f"{run_s:.1f} s, segments {result['segments']}, resume points "
+        f"{result['resume_points']}, rays/s {result['rays_per_s']} ({rate:.2f} x the captured "
+        f"--fast step's {4096 / (fast_ms * 1e-3):.0f} at {fast_ms:.2f} ms/step), non-finite "
+        f"lines {result['nonfinite_log_lines']}, {result['n_evals']} evals; the resume loaded "
+        f"epoch {loaded}, {len(replayed)} epochs trained again with the same logged losses: "
+        f"{all(a == b for a, b in replayed.values())}; meters {json.dumps(meters)}")
+    problems = []
+    if len(kills) != 1 or kills[0]["why"] != "kill_point" or len(result["segments"]) != 2:
+        problems.append(f"one kill expected: {result['segments']}")
+    if loaded is None or loaded < PROTOCOL_CKPT:
+        problems.append(f"the resume loaded epoch {loaded}, not a checkpoint at >= {PROTOCOL_CKPT}")
+    if not replayed or any(a != b for a, b in replayed.values()):
+        problems.append(f"replayed epochs' losses: {replayed}")
+    if result["nonfinite_log_lines"]:
+        problems.append(f"{result['nonfinite_log_lines']} non-finite lines")
+    for k, m in meters.items():
+        if m is None or not all(np.isfinite(v) for v in m.values()):
+            problems.append(f"{k} meters {m}")
+    if not PROTOCOL_RATE_RANGE[0] <= rate <= PROTOCOL_RATE_RANGE[1]:
+        problems.append(f"rays/s {rate:.2f} x the captured --fast step's")
+    if problems:
+        raise AssertionError("protocol: " + "; ".join(problems))
+    return {}
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # the processes started below (the parallel ranks, the CLI runs) keep the
+    # bytecode they compile under the checkout's build directory, so that each
+    # after the first skips compiling torch's Python sources again
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     from lidarnerf_tpu_torch.ops import (block_hash_cuda, cuda_lib, fused_mlp_cuda,
                                          occ_lookup_cuda, occ_sample_cuda, perm_gather_cuda)
     from lidarnerf_tpu_torch.ops.block_hash import make_block_hash_spec
@@ -4326,6 +4700,18 @@ def main():
     torch.cuda.empty_cache()
     paths["parallel"] = parallel_phase()
     phase_done("parallel")
+
+    # the root drivers: the two benchmarks and the driver entry in this process,
+    # then the protocol tools, whose CLI runs are subprocesses
+    torch.cuda.empty_cache()
+    warmup = cli_warmup()  # the protocol phase's CLI modules, compiled meanwhile
+    paths["bench"] = bench_phase(GRAPH_MS["default"])
+    paths["bench-render"] = bench_render_phase()
+    paths["graft-entry"] = graft_entry_phase()
+    phase_done("bench, bench-render and graft-entry")
+    torch.cuda.empty_cache()
+    paths["protocol"] = protocol_phase(GRAPH_MS["--fast"], warmup)
+    phase_done("protocol")
 
     for k in kernels:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in paths.values())

@@ -1,5 +1,6 @@
 """Guards of the lidarnerf_tpu_torch package: no JAX, no silent CPU, no CUDA fallback."""
 
+import json
 import os
 import pickle
 import re
@@ -44,18 +45,26 @@ for name in names:
     importlib.import_module(name)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lidarnerf_tpu")]
-print(len(names), bad)
+print(json.dumps({"names": names, "bad": bad}))
 """
+_IMPORT_ALL = "import json\n" + _IMPORT_ALL
+
+# the root drivers' counterparts (bench.py, __graft_entry__.py, tools/bench_render.py,
+# tools/ab_run.py, tools/full_run.py, tools/protocol_report.py)
+DRIVERS = ["lidarnerf_tpu_torch.bench", "lidarnerf_tpu_torch.graft_entry",
+           "lidarnerf_tpu_torch.tools.bench_render", "lidarnerf_tpu_torch.tools.ab_run",
+           "lidarnerf_tpu_torch.tools.full_run", "lidarnerf_tpu_torch.tools.protocol_report"]
 
 
 def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run(
+    out = json.loads(subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120, check=True,
-    ).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 15  # every module of the package was imported
-    assert out[1].strip() == "[]"
+    ).stdout.strip().splitlines()[-1])
+    assert len(out["names"]) >= 15  # every module of the package was imported
+    assert set(DRIVERS) <= set(out["names"])  # the drivers among them
+    assert out["bad"] == []
 
 
 def _tiny_opt():
