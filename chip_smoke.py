@@ -42,6 +42,11 @@ panos):
     step and each chunk samples through the fused sampler (`occ_sample`),
     and the pano equals the plain sampler's bit for bit, timed in turns
     with it (as the captured --fast step is in the training-graph phase);
+  - drift (between them; ROADMAP.md C10): at training-fast's trained state,
+    the Chamfer meter on frame 0 against float64, B2's table gradient of
+    one batch against its float64 sum with the trainer's Adam moments, and
+    two recaptured epochs' replays drawing afresh
+    (`tools/torch_c10_bisect.py`, loaded from its file);
   - occ-lookup: the occupancy bin lookup (P12) through the port's tool
     (`python -m lidarnerf_tpu_torch.tools.exp_occ_lookup`: 524,288 uniform
     cells of a seeded 128^3 grid) and on the --fast step's real bin cells
@@ -1854,6 +1859,89 @@ def train_fast_phase(ds, default_ms):
         raise AssertionError("training-fast lowered the loss by less than 25%")
     profile_train_step(ds, trainer)
     return trainer, init_sd, launches
+
+
+DRIFT_ADAM_RTOL = 1e-3  # Adam's update of the small table entries: B2's vs the float64 sum's
+
+
+def load_c10_tool():
+    """tools/torch_c10_bisect.py, loaded from its file (nothing added to sys.path)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_c10_bisect", ROOT / "tools" / "torch_c10_bisect.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def drift_meter(ds):
+    """The port's Chamfer meter on the card against scipy's float64 nearest
+    neighbours: frame 0's cloud against itself and a 2 cm perturbation."""
+    from scipy.spatial import cKDTree
+
+    from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar
+    from lidarnerf_tpu_torch.ops.chamfer import chamfer_and_fscore, fscore
+
+    img = np.asarray(ds.images_lidar[0])
+    gt = pano_to_lidar(img[..., 2] * img[..., 0] / ds.scale, ds.intrinsics_lidar).astype(np.float32)
+    out = {}
+    for noise in (0.0, 0.02):
+        pred = gt + np.random.RandomState(SEED + 19).normal(scale=noise, size=gt.shape).astype(
+            np.float32)
+        d = [cKDTree(b.astype(np.float64)).query(a.astype(np.float64))[0] ** 2
+             for a, b in ((pred, gt), (gt, pred))]
+        out[noise] = {
+            "float64": (float(d[0].mean() + d[1].mean()),
+                        float(fscore(d[0][None], d[1][None], 0.05)[0][0])),
+            "port": chamfer_and_fscore(pred, gt, 0.05, device="cuda")}
+    return out, len(gt)
+
+
+def drift_phase(ds, trainer):
+    """C10 (ROADMAP.md: the 30k --fast run's val Chamfer and F leaving the
+    JAX runs' band), on the card, at the trained --fast state of
+    training-fast (180 steps on the drive), through the bisect's own
+    measurements (`tools/torch_c10_bisect.py`): the suspects the bisect
+    cleared stay cleared. The port's meter against float64 on frame 0's
+    cloud (Chamfer within 1e-4, F within 1e-3, a perfect prediction's F
+    1.0); (c) B2's fixed-point floor: on one batch of frame 0, the step's
+    table gradient from B2 against its float64 sum: no sign flips above
+    1e-12 and Adam's update over the entries below 1e-6 of the peak within
+    DRIFT_ADAM_RTOL of the float64 sum's; (a) two recaptured --fast epochs'
+    replays draw distinct pixel and jitter rows. Leaves the trainer's state
+    as it was."""
+    c10 = load_c10_tool()
+    t0 = time.perf_counter()
+    problems = []
+    meter, n_points = drift_meter(ds)
+    for noise, m in meter.items():
+        (c64, f64), (cp, fp) = m["float64"], m["port"]
+        if abs(cp - c64) > 1e-4 or abs(fp - f64) > 1e-3 or (noise == 0.0 and fp != 1.0):
+            problems.append(f"the meter at {noise} m noise: {m}")
+    grad = c10.measure_table_grad(trainer, ds)
+    b2, ref = (grad[f"adam_update_norm_below_1e-6_peak_{k}"] for k in ("b2", "ref64"))
+    adam_off = abs(b2 - ref) / max(ref, 1e-30)
+    if grad["b2"]["sign_differs_above_1e-12"] or adam_off > DRIFT_ADAM_RTOL:
+        problems.append(f"B2's table gradient: {grad}")
+    replays = c10.measure_replay_draws(trainer, ds)
+    if not (replays["steps"] == replays["distinct_pixel_rows"] == replays["distinct_jitter_rows"]
+            == 2 * len(ds)):
+        problems.append(f"replays: {replays}")
+    zeroed = {k: v for k, v in grad["b2_zeroed_by_decade"].items() if v}
+    log(f"drift (C10) on {gpu_line()}: the Chamfer meter on frame 0's {n_points} points, "
+        f"(Chamfer, F@0.05) float64 / the port's meter: "
+        + "; ".join(f"{k} m noise {tuple(round(v, 6) for v in m['float64'])} / "
+                    f"{tuple(round(v, 6) for v in m['port'])}" for k, m in meter.items())
+        + f"; B2's table gradient vs its float64 sum ({grad['calls']}): "
+        f"{grad['b2']['zero_where_ref_nonzero']} of {grad['ref_nonzero']} nonzero entries 0 in "
+        f"B2 (by decade {zeroed}), {grad['b2']['sign_differs']} sign flips "
+        f"({grad['b2']['sign_differs_above_1e-12']} above 1e-12), Adam's update over the "
+        f"{grad['below_1e-6_peak']} entries below 1e-6 of the peak: norm {b2:.7g} with B2's, "
+        f"{ref:.7g} with the float64 sum ({adam_off:.2e} apart); replays of two recaptured "
+        f"--fast epochs: {replays} ({time.perf_counter() - t0:.1f} s)")
+    if problems:
+        raise AssertionError("drift: " + "; ".join(problems))
 
 
 def serve_fast_phase(ds, trainer, init_sd):
@@ -4649,6 +4737,7 @@ def main():
 
     # --fast: occupancy-prior sampling, training then serving
     trainer, init_sd, paths["training-fast"] = train_fast_phase(ds, default_step_ms)
+    drift_phase(ds, trainer)
     paths["serving-fast"] = serve_fast_phase(ds, trainer, init_sd)
     paths["occ-lookup"], p12 = occ_lookup_phase(ds, trainer)
     kernels += [p12, occ_sample_phase(ds, trainer)]  # its launches: the --fast paths'

@@ -311,6 +311,22 @@ def attach_dims(opt, dataset):
     opt.intrinsics_lidar = dataset.intrinsics_lidar
 
 
+def build_trainer(opt, model, dataset, device, train=True, mute=False):
+    """The CLI's Trainer over `dataset`'s intrinsics: with the eval and
+    checkpoint intervals when `train`, else the --test / --test_eval one."""
+    metrics = [
+        MAEMeter(intensity_inv_scale=opt.intensity_inv_scale),
+        RMSEMeter(),
+        DepthMeter(scale=opt.scale),
+        PointsMeter(scale=opt.scale, intrinsics=dataset.intrinsics_lidar, device=device),
+    ] if opt.enable_lidar else []
+    intervals = dict(eval_interval=opt.eval_interval,
+                     ckpt_interval=opt.ckpt_interval) if train else {}
+    return Trainer("lidar_nerf", opt, model, device=device, mute=mute,
+                   workspace=opt.workspace, depth_metrics=metrics, ema_decay=0.95,
+                   use_checkpoint=opt.ckpt, ckpt_format=opt.ckpt_format, **intervals)
+
+
 def main(argv=None):
     """Run the CLI on `argv` (default: sys.argv[1:]); returns the Trainer."""
     parser = get_arg_parser()
@@ -335,28 +351,10 @@ def main(argv=None):
     model = build_model(opt)
     print(opt)
 
-    def make_metrics(dataset):
-        return [
-            MAEMeter(intensity_inv_scale=opt.intensity_inv_scale),
-            RMSEMeter(),
-            DepthMeter(scale=opt.scale),
-            PointsMeter(scale=opt.scale, intrinsics=dataset.intrinsics_lidar, device=device),
-        ]
-
     if opt.test or opt.test_eval:
         test_dataset = build_dataset(opt, "test", device)
         attach_dims(opt, test_dataset)
-        trainer = Trainer(
-            "lidar_nerf",
-            opt,
-            model,
-            device=device,
-            workspace=opt.workspace,
-            depth_metrics=make_metrics(test_dataset) if opt.enable_lidar else [],
-            use_checkpoint=opt.ckpt,
-            ema_decay=0.95,
-            ckpt_format=opt.ckpt_format,
-        )
+        trainer = build_trainer(opt, model, test_dataset, device, train=False)
         if test_dataset.images_lidar is not None and opt.test_eval:
             trainer.evaluate(test_dataset)
         trainer.test(test_dataset, write_video=False)
@@ -364,19 +362,7 @@ def main(argv=None):
     else:
         train_dataset = build_dataset(opt, "train", device)
         attach_dims(opt, train_dataset)
-        trainer = Trainer(
-            "lidar_nerf",
-            opt,
-            model,
-            device=device,
-            workspace=opt.workspace,
-            depth_metrics=make_metrics(train_dataset) if opt.enable_lidar else [],
-            ema_decay=0.95,
-            use_checkpoint=opt.ckpt,
-            eval_interval=opt.eval_interval,
-            ckpt_interval=opt.ckpt_interval,
-            ckpt_format=opt.ckpt_format,
-        )
+        trainer = build_trainer(opt, model, train_dataset, device)
         valid_dataset = build_dataset(opt, "val", device)
 
         max_epoch = int(np.ceil(opt.iters / len(train_dataset)))
