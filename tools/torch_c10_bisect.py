@@ -22,7 +22,19 @@ package on or off:
   emulated, diagnostic only); `tpu_matmul_cast`: an earlier emulation that
   rounds each gradient after its product instead (diagnostic only);
 - `tf32`: every float32 matmul of the step with TF32 inputs (10 significant
-  bits; the meter keeps float32), diagnostic only.
+  bits; the meter keeps float32), diagnostic only;
+- `tpu_rays`: the rotation of the pixel directions by the pose, the one
+  float32 product of the JAX package's LiDAR ray generation
+  (`lidarnerf_tpu/dataset/base.py::rays_from_indices`, `dirs @
+  pose[:3, :3].T`, which its `get_lidar_rays` maps over the poses), as a
+  TPU computes it at default precision: both operands rounded to bfloat16,
+  exact products, float32 sums (`tpu_rotate`), for the training step and
+  every rendered pano alike; no gradient flows through the directions
+  (emulated, diagnostic only);
+- `tpu_all`: `tpu_rays` and `tpu_matmul` together: every float32 product
+  of the JAX package's `--fast` training and evaluation path that a TPU
+  rounds to one bfloat16 pass at default precision, as far as the port can
+  emulate it (the meter's is the second meter below).
 
 Every evaluation's meters go to the JSON at --out with every epoch's loss,
 the wall time and the card's name and power limit; and for each pano it
@@ -79,6 +91,7 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from lidarnerf_tpu_torch import main_lidarnerf as cli  # noqa: E402
+from lidarnerf_tpu_torch.dataset import base  # noqa: E402
 from lidarnerf_tpu_torch.dataset.base import rays_from_indices, sample_ray_indices  # noqa: E402
 from lidarnerf_tpu_torch.dataset.convert import pano_to_lidar  # noqa: E402
 from lidarnerf_tpu_torch.models import network, occupancy  # noqa: E402
@@ -88,7 +101,9 @@ from lidarnerf_tpu_torch.ops import block_hash  # noqa: E402
 from lidarnerf_tpu_torch.ops.chamfer import _fp32_matmul, chamfer_and_fscore, fscore  # noqa: E402
 from lidarnerf_tpu_torch.tools import ab_run, full_run  # noqa: E402
 
-ARMS = ("port", "eager", "plain_bwd", "tpu_matmul", "tpu_matmul_cast", "tf32")
+ARMS = ("port", "eager", "plain_bwd", "tpu_matmul", "tpu_matmul_cast", "tf32", "tpu_rays",
+        "tpu_all")
+TPU_ROTATIONS = [0]  # calls of `tpu_rays_from_indices` (each capture counts once)
 
 
 def gpu_line():
@@ -147,13 +162,37 @@ def tpu_matmul_cast_forward(self, x):
     return h
 
 
+def tpu_rotate(dirs, rot):
+    """dirs [N, 3] @ rot[3, 3].T as a TPU computes a float32 product at
+    default precision: both operands rounded to bfloat16 (round to nearest
+    even), the products exact (8 x 8 significant bits fit float32's 24) and
+    summed in float32 in index order. No gradient flows."""
+    d16, r16 = dirs.detach().bfloat16().float(), rot.detach().bfloat16().float()
+    return d16[:, :1] * r16[:, 0] + d16[:, 1:2] * r16[:, 1] + d16[:, 2:] * r16[:, 2]
+
+
+def tpu_rays_from_indices(pose, inds, H, W, intrinsics):
+    """`dataset/base.py::rays_from_indices` with its rotation at a TPU's
+    default precision (`tpu_rotate`)."""
+    TPU_ROTATIONS[0] += 1
+    i = (inds % W).float()
+    j = torch.div(inds, W, rounding_mode="floor").float()
+    rays_d = tpu_rotate(base._pixel_dirs(i, j, intrinsics, H, W), pose[:3, :3])
+    return pose[:3, 3].expand_as(rays_d), rays_d
+
+
 def apply_arm(arm):
-    """Switch the arm's one difference on (process-wide)."""
+    """Switch the arm's differences on (process-wide), before the trainer
+    is built, so that every captured step records them."""
     from lidarnerf_tpu_torch.ops import block_hash_cuda
 
+    if arm in ("tpu_rays", "tpu_all"):
+        # train_step imported the name by value; get_lidar_rays (the
+        # trainer's and PanoRenderer's panos) looks it up in base
+        base.rays_from_indices = train_step.rays_from_indices = tpu_rays_from_indices
     if arm == "plain_bwd":
         block_hash_cuda.BWD["default"] = block_hash.encode_bwd_plain
-    elif arm == "tpu_matmul":
+    elif arm in ("tpu_matmul", "tpu_all"):
         network.MLP.forward = tpu_matmul_forward
     elif arm == "tpu_matmul_cast":
         network.MLP.forward = tpu_matmul_cast_forward
@@ -480,7 +519,7 @@ def main(argv=None):
     evals = [{"epoch": e["epoch"], **{k: np.asarray(v).tolist() for k, v in e["meters"].items()}}
              for e in trainer.run_log if e["event"] == "eval"]
     res = {"arm": args.arm, "seed": args.seed, "stop_epoch": args.stop_epoch, "gpu": gpu_line(),
-           "wall_s": wall, "epoch_loss": trainer.stats["loss"],
+           "wall_s": wall, "tpu_rotations": TPU_ROTATIONS[0], "epoch_loss": trainer.stats["loss"],
            "skipped": int(sum(trainer.stats["skipped"])), "evals": evals, "panos": panos,
            "meters": eval_meters(panos)}
     if args.measure:
