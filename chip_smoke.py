@@ -42,6 +42,8 @@ panos):
     step and each chunk samples through the fused sampler (`occ_sample`),
     and the pano equals the plain sampler's bit for bit, timed in turns
     with it (as the captured --fast step is in the training-graph phase);
+    then, at --occ_floor 0, a captured 16-step epoch from the trained state
+    and the pano, each equal to the plain sampler's run bit for bit;
   - drift (between them; ROADMAP.md C10): at training-fast's trained state,
     the Chamfer meter on frame 0 against float64, B2's table gradient of
     one batch against its float64 sum with the trainer's Adam moments, and
@@ -55,9 +57,10 @@ panos):
   - occ-sample: the fused --fast sampler on the trained grid at the
     training step's and the serving chunk's rays and on edge cases (no
     dilation, ragged, empty and full volumes, slab nears and fars, 33 bins,
-    one ray), bit-equal to its plain version in depths and pdf, timed in
-    turns with it, by CUDA-graph replays and the profiler (the plain sampler
-    op by op), its host enqueue, its bound;
+    one ray, 1 to 65536 bins, floors 0 to 1), bit-equal to its plain
+    version in depths and pdf, timed in turns with it, by CUDA-graph
+    replays and the profiler (the plain sampler op by op), its host
+    enqueue, its bound;
   - cli: the CLI (`python -m lidarnerf_tpu_torch.main_lidarnerf`) with
     configs/kitti360_1908.txt -L on the drive: train -> evaluate -> test ->
     mesh, `--test_eval`, a resume, the device Chamfer;
@@ -1796,10 +1799,68 @@ def perm_gather_phase(params, ds):
     return launches, [entries["fwd"], entries["bwd"]]
 
 
+FLOOR0_FRAMES = 16  # the captured --occ_floor 0 epoch: 16 steps, one grid refresh
+
+
+def train_floor0_phase(ds, trained):
+    """--fast at --occ_floor 0 (where the pdf's empty bins carry 1e-8 of an
+    occupied bin's mass): a captured FLOOR0_FRAMES-step epoch at full width
+    from the `trained` trainer's weights and grid (a fresh optimizer), with
+    the fused sampler and again with the plain sampler (`plain_sampler`);
+    the fused run launches one occ_sample a step on the card, and the two
+    end in the same state bit for bit (losses, weights, EMA, Adam,
+    generator, grid). Returns the fused run's wrapper counts."""
+    from lidarnerf_tpu_torch.models.occupancy import occupied_volume
+
+    view = first_frames(ds, FLOOR0_FRAMES)
+    make = trainer_maker(view, **{**FAST, "occ_floor": 0.0})
+    b1b2 = {"block_hash_fwd": 2, "block_hash_bwd": 2}
+    runs, counts, secs = {}, {}, {}
+    for mode in ("kernel", "plain"):
+        runs[mode] = make(1)
+        runs[mode].model.load_state_dict(trained.model.state_dict())
+        runs[mode].occ_grid.copy_(trained.occ_grid)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with device_launches() as device:
+            with plain_sampler() if mode == "plain" else contextlib.nullcontext():
+                runs[mode].train(view, None, max_epochs=1)  # ends on the host (loss fetch)
+        secs[mode] = time.perf_counter() - t0
+        counts[mode] = launch_counts()
+        check_graphed_launches(f"training-fast at floor 0, {mode} sampler", counts[mode], device,
+                               runs[mode], {**b1b2, "occ_sample": 1} if mode == "kernel" else b1b2,
+                               {"block_hash_fwd": 1})
+    trainer = runs["kernel"]
+    occ = trainer.render_cfg.occ
+    losses = trainer.stats["step_loss"]
+    if occ.floor != 0.0 or trainer.global_step != FLOOR0_FRAMES:
+        raise AssertionError(f"training-fast at floor 0: floor {occ.floor}, "
+                             f"{trainer.global_step} steps")
+    if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
+        raise AssertionError("training-fast at floor 0: a loss was non-finite or a step skipped")
+    differ = same_training_state(trainer, runs["plain"])
+    share = float(occupied_volume(trainer.occ_grid, replace(occ, dilate=0)).mean())
+    dilated = float(occupied_volume(trainer.occ_grid, occ).mean())
+    log(f"training-fast at --occ_floor 0 on {gpu_line()}: {FLOOR0_FRAMES} captured steps from the "
+        f"trained weights and grid (grid {100 * share:.2f}% occupied, {100 * dilated:.2f}% "
+        f"dilated, after its refresh), "
+        f"{1e3 * secs['kernel'] / FLOOR0_FRAMES:.2f} ms/step with the capture, the plain "
+        f"sampler's run {1e3 * secs['plain'] / FLOOR0_FRAMES:.2f}; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses[:4])}, ...; launches at the wrappers "
+        f"{counts['kernel']}; the state equal to the plain sampler's bit for bit: {not differ}"
+        + (f"; differ: {differ}" if differ else ""))
+    if differ:
+        raise AssertionError(f"training-fast at floor 0: the fused sampler's run differs from "
+                             f"the plain sampler's: {differ}")
+    return counts["kernel"]
+
+
 def train_fast_phase(ds, default_ms):
     """The training-fast path: Trainer with occupancy-prior sampling (--fast)
-    at full width, the training path's three epochs. Returns (trainer,
-    initial state_dict, launch counts)."""
+    at full width, the training path's three epochs; then a captured epoch
+    at --occ_floor 0 (train_floor0_phase). Returns (trainer, initial
+    state_dict, launch counts of both)."""
     from lidarnerf_tpu_torch.models.occupancy import occupied_volume, update_occ_grid
     from lidarnerf_tpu_torch.nerf.trainer import Trainer
     from lidarnerf_tpu_torch.ops import block_hash_cuda
@@ -1858,7 +1919,8 @@ def train_fast_phase(ds, default_ms):
     if not last <= 0.75 * first:
         raise AssertionError("training-fast lowered the loss by less than 25%")
     profile_train_step(ds, trainer)
-    return trainer, init_sd, launches
+    floor0 = train_floor0_phase(ds, trainer)
+    return trainer, init_sd, {k: launches[k] + floor0.get(k, 0) for k in launches}
 
 
 DRIFT_ADAM_RTOL = 1e-3  # Adam's update of the small table entries: B2's vs the float64 sum's
@@ -1948,7 +2010,9 @@ def serve_fast_phase(ds, trainer, init_sd):
     """The serving-fast path: training frame 0 through PanoRenderer with the
     --fast weights and grid; its depth error must beat the initial weights'
     (on a zero grid, their state before any refresh). The default-sampling
-    render of the same weights is logged beside it. Returns launch counts."""
+    render of the same weights is logged beside it. Then the same pano at
+    --occ_floor 0, bit-equal to the plain sampler's. Returns launch counts
+    (both panos')."""
     from lidarnerf_tpu_torch.models.occupancy import init_occ_grid
     from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
     from lidarnerf_tpu_torch.utils.params import params_to_jax
@@ -2012,7 +2076,31 @@ def serve_fast_phase(ds, trainer, init_sd):
         + ", ".join(f"{k} {v:.5f}" for k, v in maes.items()) + f"; launches {launches}")
     if not maes["fast"] < maes["initial"]:
         raise AssertionError("serving-fast: the trained field renders frame 0 no better")
-    return launches
+
+    # --occ_floor 0: the same weights and grid, the empty bins at 1e-8 of an occupied one
+    floor0 = PanoRenderer(train_opt(ds, **{**FAST, "occ_floor": 0.0}), trained,
+                          occ_grid=trainer.occ_grid)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    pano0 = floor0.render_frame(*frame)
+    floor0_ms = (time.perf_counter() - t0) * 1e3
+    launches0 = launch_counts()
+    only_launches(launches0, {"block_hash_fwd": 2 * chunks, "occ_sample": chunks})
+    with plain_sampler():
+        same0 = all(np.array_equal(a, b) for a, b in zip(pano0, floor0.render_frame(*frame)))
+    if floor0.cfg.occ.floor != 0.0 or not all(
+            a.shape == (ds.H_lidar, ds.W_lidar) and np.isfinite(a).all() for a in pano0):
+        raise AssertionError("serving-fast at floor 0: not a finite pano at floor 0")
+    mae0 = float(np.abs(pano0[2] - gt[..., 2])[hit].mean())
+    log(f"serving-fast at --occ_floor 0 on {gpu_line()}: frame 0 ({ds.H_lidar}x{ds.W_lidar}) from "
+        f"the same weights and grid, {floor0_ms:.1f} ms (the first render at this floor); depth "
+        f"MAE {mae0:.5f} (floor {occ.floor}: {maes['fast']:.5f}); launches {launches0}; the pano "
+        f"bit-equal to the plain sampler's: {same0}")
+    if not same0:
+        raise AssertionError("serving-fast at floor 0: the fused sampler's pano differs from the "
+                             "plain sampler's")
+    return {k: launches[k] + launches0.get(k, 0) for k in launches}
 
 
 OCC_RAYS = 4096  # the --fast step's rays: x 128 bins = 524,288 lookups
@@ -2169,16 +2257,18 @@ def occ_sample_phase(ds, trainer):
     192 samples, perturbed by the step's draws) and at the serving chunk's
     (frame 0's first 4096 pano rays, no perturb), and on the CPU tests'
     edge cases: no dilation, 4093 rays, an empty and a full volume, the
-    slab test's nears and fars, 33 bins and 37 samples, one ray, and the
-    kernel's limits: 2048 bins (5 rays a block), 16384 bins on 512 rays
-    (one ray a block, past 48 KB of shared memory), the least floor it takes
-    (2^-29 * 128). Each bit-equal to `occ_sample_plain` in z and the pdf,
-    one launch a call. Then at both shapes: plain, kernel, kernel, plain by
-    CUDA events; the device time a call without the host by CUDA-graph
-    replays and by the profiler (the plain sampler op by op); the host
-    enqueue a call; the bound by bytes (one origin when the rays share it,
-    distinct 32-byte sectors of the volume, as occ-lookup counts them).
-    Returns the `kernels` entry."""
+    slab test's nears and fars, 33 bins and 37 samples, one ray, one bin,
+    2048 bins (5 rays a block), 16384 bins on 512 rays (one ray a block,
+    past 48 KB of shared memory), 32769 and 65536 bins on 512 rays (the
+    cdfs in the workspace), floors 0, 1e-12, 2^-29 * 128 (the least at
+    which the cdf is exact) and 1. Each bit-equal to `occ_sample_plain` in
+    z and the pdf, one launch a call. Then at the step's, the serving
+    chunk's, the step's at floor 0 and the 65536-bin shapes: plain, kernel,
+    kernel, plain by CUDA events; the device time a call without the host by
+    CUDA-graph replays; at the step the profiler (the plain sampler op by
+    op) and the host enqueue a call; the bound by bytes (one origin when the
+    rays share it, distinct 32-byte sectors of the volume, as occ-lookup
+    counts them). Returns the `kernels` entry."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2220,8 +2310,16 @@ def occ_sample_phase(ds, trainer):
         "2048 bins": (occ3, o, d, nears, fars, replace(occ, bins=2048), True, T, xi),
         "16384 bins, 512 rays": (occ3, o[:512], d[:512], nears[:512], fars[:512],
                                  replace(occ, bins=16384), True, T, xi[:512]),
-        "least floor": (occ3, o, d, nears, fars,
-                        replace(occ, floor=occ_sample_cuda.MIN_FLOOR_K * occ.bins), True, T, xi),
+        "1 bin": (occ3, o, d, nears, fars, replace(occ, bins=1), True, T, xi),
+        **{f"{k} bins, 512 rays": (occ3, o[:512], d[:512], nears[:512], fars[:512],
+                                   replace(occ, bins=k), True, T, xi[:512])
+           for k in (occ_sample_cuda.SMEM_BINS + 1, 65536)},
+        # the least floor at which every cdf entry is exact, 2^-29 x bins
+        "floor 2^-29 x 128": (occ3, o, d, nears, fars, replace(occ, floor=2.0**-29 * occ.bins),
+                              True, T, xi),
+        "floor 0": (occ3, o, d, nears, fars, replace(occ, floor=0.0), True, T, xi),
+        "floor 1e-12": (occ3, o, d, nears, fars, replace(occ, floor=1e-12), True, T, xi),
+        "floor 1": (occ3, o, d, nears, fars, replace(occ, floor=1.0), False, T, None),
     }
 
     def call(fn, case, want_pdf=True):
@@ -2246,13 +2344,16 @@ def occ_sample_phase(ds, trainer):
     if not all(checks.values()):
         raise AssertionError(f"occ-sample: the kernel is not bit-exact: {checks}")
 
-    # timing at the step's and the serving chunk's shapes, the main path's calls (no pdf)
+    # timing at the main path's shapes and calls (no pdf), at floor 0 and at
+    # 65536 bins (the plain sampler's [512, 65536] tensors: fewer calls)
+    timed = {"step": 20, "serving chunk": 20, "floor 0": 20, "65536 bins, 512 rays": 3}
     fns = {(shape, route): (lambda fn=fn, shape=shape: call(fn, shape, want_pdf=False))
-           for shape in ("step", "serving chunk")
+           for shape in timed
            for route, fn in (("kernel", occ_sample), ("plain", occ_sample_plain))}
     turns, ms = {}, {}
-    for shape in ("step", "serving chunk"):
-        turns[shape] = [cuda_ms(fns[shape, r], reps=20) for r in ("plain", "kernel", "kernel", "plain")]
+    for shape, reps in timed.items():
+        turns[shape] = [cuda_ms(fns[shape, r], reps=reps, batches=5 if reps > 3 else 3)
+                        for r in ("plain", "kernel", "kernel", "plain")]
         ms[shape, "plain"] = (turns[shape][0] + turns[shape][3]) / 2
         ms[shape, "kernel"] = (turns[shape][1] + turns[shape][2]) / 2
     # the host's enqueue time a call at the step, 200 calls in turns (the
@@ -2268,7 +2369,8 @@ def occ_sample_phase(ds, trainer):
             torch.cuda.synchronize()
     host_us = {("step", "kernel"): (host_turns[0] + host_turns[3]) / 2,
                ("step", "plain"): (host_turns[1] + host_turns[2]) / 2}
-    graph_ms = {key: exp_occ_lookup.device_ms(fn) for key, fn in fns.items()}
+    graph_ms = {key: exp_occ_lookup.device_ms(fn, batch=100 if timed[key[0]] > 3 else 10)
+                for key, fn in fns.items()}
     profiled = {}
     with device_counts.paused():
         for key in (("step", "kernel"), ("step", "plain")):
@@ -2286,20 +2388,21 @@ def occ_sample_phase(ds, trainer):
     device_us = {k: sum(us for us, _, _ in v) for k, v in profiled.items()}
 
     bounds = {}
-    for shape, (ro, rd, draws) in {"step": (o, d, True), "serving chunk": (so, sd, False)}.items():
-        sectors = torch.unique(bin_cells(ro, rd, nears, fars, occ, bound) >> 3).numel()
+    for shape in timed:
+        _, ro, rd, n_, f_, c, draws, _, _ = cases[shape]
+        rays = ro.shape[0]
+        sectors = torch.unique(bin_cells(ro, rd, n_, f_, c, bound) >> 3).numel()
         # a training batch's rays share one origin (row stride 0): 12 B for all of them
-        origin = 12 if ro.stride(0) == 0 else 12 * OCC_RAYS
-        n_bytes = (origin + OCC_RAYS * 20 + OCC_RAYS * T * 4 * (2 if draws else 1)
-                   + sectors * 32)
+        origin = 12 if ro.stride(0) == 0 else 12 * rays
+        n_bytes = (origin + rays * 20 + rays * T * 4 * (2 if draws else 1) + sectors * 32)
         bounds[shape] = (n_bytes / HBM_BYTES_PER_S * 1e3, n_bytes, sectors)
     log(f"occ-sample on {gpu_line()}: the fused --fast sampler, [{OCC_RAYS} rays, {occ.bins} "
-        f"bins, {T} samples] in the trained {occ.grid_size}^3 volume "
+        f"bins, {T} samples, floor {occ.floor}] in the trained {occ.grid_size}^3 volume "
         f"({100 * float(occ3.mean()):.2f}% occupied); "
         + "; ".join(
             f"{shape}: in turns plain, kernel, kernel, plain "
-            f"{' / '.join(f'{t:.4f}' for t in turns[shape])} ms (CUDA events, 20 calls a batch), "
-            f"CUDA-graph replays ms a call: kernel {graph_ms[shape, 'kernel']:.5f}, plain "
+            f"{' / '.join(f'{t:.4f}' for t in turns[shape])} ms (CUDA events, {timed[shape]} "
+            f"calls a batch), CUDA-graph replays ms a call: kernel {graph_ms[shape, 'kernel']:.5f}, plain "
             f"{graph_ms[shape, 'plain']:.5f}; bound {bounds[shape][0]:.5f} ms by bytes "
             f"({bounds[shape][1] / 1e6:.2f} MB, {bounds[shape][2]} distinct 32-byte sectors)"
             for shape in turns)

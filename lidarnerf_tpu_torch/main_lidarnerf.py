@@ -176,15 +176,13 @@ def get_arg_parser():
         "--occ_floor",
         type=float,
         default=0.05,
-        help="share of the --fast pdf spread uniformly over the bins; on CUDA "
-        "from 2^-29 * occ_bins to 1 (the sampler's kernel keeps its cdf exact)",
+        help="share of the --fast pdf spread uniformly over the bins, from 0 to 1",
     )
     parser.add_argument(
         "--occ_bins",
         type=int,
         default=128,
-        help="bins of the --fast pdf along a ray; on CUDA at most 32768 (one "
-        "ray's cdf in the sampler kernel's shared memory)",
+        help="bins of the --fast pdf along a ray",
     )
     parser.add_argument(
         "--occ_dilate",

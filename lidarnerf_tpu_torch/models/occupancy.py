@@ -22,6 +22,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+W_EMPTY = torch.tensor(1e-8, dtype=torch.float32).item()  # an empty bin's weight, 1e-8f, as a double
+
 
 @dataclass(frozen=True)
 class OccConfig:
@@ -112,9 +114,12 @@ def volume_bin_pdf(occ3, rays_o, rays_d, nears, fars, cfg: OccConfig, bound: flo
     K = cfg.bins
     flat = bin_cells(rays_o, rays_d, nears, fars, cfg, bound)  # [N, K]
     w = occ3.reshape(-1)[flat] + 1e-8  # all-empty rays degrade to uniform
-    # summed in float64 and rounded once, so the sum does not depend on the
-    # order a device reduces in (the GPU's and the CPU's pdfs agree bit for bit)
-    pdf = w / w.double().sum(dim=-1, keepdim=True).float()
+    # each weight is 1 or 1e-8f, so the float64 sum is taken from the count of
+    # occupied bins, c + (K - c) * 1e-8f: exact products, one add, rounded
+    # once; no order enters, so every device gives the same float32 (equal to
+    # the float32 of the exact sum, tests/test_torch_occ_sample.py)
+    c = (w == 1.0).sum(dim=-1, keepdim=True).double()
+    pdf = w / (c + (K - c) * W_EMPTY).float()
     return (1.0 - cfg.floor) * pdf + cfg.floor / K
 
 
@@ -127,6 +132,27 @@ def occ_draws(N, num_steps: int, perturb: bool, dev, xi=None, generator=None):
             xi = torch.rand((N, num_steps), generator=generator, dtype=torch.float32, device=dev)
         return xi, None
     return None, torch.linspace(0.0, 1.0, num_steps, dtype=torch.float32, device=dev)
+
+
+def occ_cdf(pdf):
+    """[N, K+1] float32: 0, then the cdf after each bin, of a pdf [N, K] whose
+    rows hold two values at most (`volume_bin_pdf`'s: p_hi on occupied bins,
+    p_lo on empty ones).
+
+    The cdf after bin k is n p_hi + (k + 1 - n) p_lo, n the bins up to k that
+    hold p_hi, in float64: exact products, one add, then rounded to float32.
+    No order of adds enters, so every device and the kernel
+    (`csrc/occ_sample.cu`) give the same bits at any floor. From a floor of
+    2^-29 x bins every entry lies on the 2^-52 grid, the sum is exact, and
+    this is the float64 cumsum rounded once. Below it (floor 0) the float32
+    cdf has plateaus where the JAX package's float32 cumsum has others.
+    """
+    K = pdf.shape[-1]
+    p_hi = pdf.amax(dim=-1, keepdim=True)
+    n = torch.cumsum(pdf == p_hi, dim=-1)  # int64; rows of one value: all p_hi
+    k = torch.arange(1, K + 1, device=pdf.device)
+    cdf = (n.double() * p_hi.double() + (k - n).double() * pdf.amin(dim=-1, keepdim=True).double())
+    return torch.cat([torch.zeros_like(pdf[:, :1]), cdf.float()], dim=-1)
 
 
 def occ_z_vals(nears, fars, pdf, num_steps: int, perturb: bool, xi=None, generator=None):
@@ -146,13 +172,10 @@ def occ_z_vals(nears, fars, pdf, num_steps: int, perturb: bool, xi=None, generat
     else:
         u = u_row.expand(N, num_steps).contiguous()
 
-    # float32 terms of at least floor / K sum exactly in float64, whatever the
-    # order: the cdf is the correctly rounded one on every device
-    cdf = torch.cumsum(pdf.double(), dim=-1).float()
-    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)  # [N, K+1]
-    # the floor keeps every pdf entry positive, so cdf rises strictly and the
-    # bin below u is the count of cdf[1:] <= u (clipped), the one above the
-    # next: the same entries the JAX package's masked max/min select
+    cdf = occ_cdf(pdf)  # [N, K+1]
+    # the cdf never falls, so the bin below u is the count of cdf[1:] <= u
+    # (clipped), the one above the next: the same entries the JAX package's
+    # masked max/min select
     below = torch.clamp(torch.searchsorted(cdf[:, 1:].contiguous(), u, right=True), max=K - 1)
     cdf_b = torch.gather(cdf, 1, below)
     cdf_a = torch.gather(cdf, 1, below + 1)

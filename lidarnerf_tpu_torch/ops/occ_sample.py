@@ -35,8 +35,8 @@ def occ_sample(occ3, rays_o, rays_d, nears, fars, cfg, bound: float, num_steps: 
     fars [N, 1], `cfg` the OccConfig (bins, floor). With `perturb`, xi
     [N, num_steps] uniform [0, 1) (drawn from `generator` unless given),
     else the inclusive linspace. Returns z [N, num_steps], or (z, pdf
-    [N, bins]) with `want_pdf`. The kernel takes 1 to MAX_BINS bins and a
-    floor of at least 2^-29 * bins (`ops/occ_sample_cuda.py`).
+    [N, bins]) with `want_pdf`. Both routes take any floor in [0, 1] and
+    any bin count (the kernel up to `occ_sample_cuda.MAX_BINS`).
     """
     if not (dispatch.uses_kernel(occ3) or dispatch.uses_kernel(rays_o)):
         return occ_sample_plain(occ3, rays_o, rays_d, nears, fars, cfg, bound, num_steps,

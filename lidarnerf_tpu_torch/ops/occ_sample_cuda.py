@@ -15,10 +15,10 @@ import torch
 from lidarnerf_tpu_torch.ops import cuda_lib, device_counts
 
 SOURCE = "occ_sample.cu"
-MAX_BINS = 32768  # csrc/occ_sample.cu MAX_BINS: one ray's cdf in shared memory
-# csrc/occ_sample.cu MIN_FLOOR_K: the least floor / bins that keeps the
-# float64 cdf exact in any order, so bit-equal to torch's cumsum
-MIN_FLOOR_K = 2.0**-29
+# csrc/occ_sample.cu SMEM_BINS: up to here one ray's cdf lives in shared
+# memory; past it in a workspace of [N, bins + 1] floats that the wrapper allocates
+SMEM_BINS = 32768
+MAX_BINS = 2**31 - 256  # csrc/occ_sample.cu MAX_BINS: the kernel indexes bins by int
 
 launches = 0  # occ_sample
 _fn = None  # the bound C entry point, loaded (and built) at first launch
@@ -49,6 +49,7 @@ def _kernel():
             ctypes.c_void_p,  # u_row [T] f32 or null
             ctypes.c_void_p,  # z [N, T] f32
             ctypes.c_void_p,  # pdf [N, K] f32 or null
+            ctypes.c_void_p,  # work [N, K + 1] f32 past SMEM_BINS, else null
             ctypes.c_longlong,  # N
             ctypes.c_int,  # K
             ctypes.c_int,  # T
@@ -75,14 +76,14 @@ def occ_sample(occ3, rays_o, rays_d, nears, fars, bins: int, num_steps: int, bou
     occ3 [G, G, G] holds 0s and 1s (`occupied_volume`); rays_o, rays_d [N, 3],
     nears, fars [N, 1]; with perturb, xi [N, num_steps] (the stratified
     draws), else u_row [num_steps] (torch.linspace(0, 1, num_steps)): exactly
-    one of the two. All float32, contiguous, on one CUDA device. 1 to
-    MAX_BINS bins, and floor / bins at least MIN_FLOOR_K (at most 1): a
-    smaller floor lets the cdf's float64 adds round, and torch's cumsum
-    adds in another order, so the two could differ in a bit. The scalars
-    reach the kernel as float32, rounded from the Python doubles as torch
-    rounds a scalar operand, and 1 / bins, 1 / num_steps as torch's CUDA
-    division by a Python int takes them. Launches on the current stream;
-    allocates the outputs only.
+    one of the two. All float32, contiguous, on one CUDA device. Any floor
+    in [0, 1] and 1 to MAX_BINS bins: the sum and the cdf are taken from
+    counts of occupied bins in one fixed sequence of float64 roundings, the
+    plain version's (`models/occupancy.py::occ_cdf`). The scalars reach the
+    kernel as float32, rounded from the Python doubles as torch rounds a
+    scalar operand, and 1 / bins, 1 / num_steps as torch's CUDA division by
+    a Python int takes them. Launches on the current stream; allocates the
+    outputs and, past SMEM_BINS bins, the workspace of the rays' cdfs.
     """
     global launches
     device = occ3.device
@@ -98,9 +99,8 @@ def occ_sample(occ3, rays_o, rays_d, nears, fars, bins: int, num_steps: int, bou
         _check(name, t, shape, device)
     if not 1 <= bins <= MAX_BINS:
         raise ValueError(f"occ_sample takes 1 to {MAX_BINS} bins, got {bins}")
-    if not MIN_FLOOR_K * bins <= floor <= 1.0:
-        raise ValueError(f"occ_sample takes a floor from 2^-29 * bins = {MIN_FLOOR_K * bins:.3g} "
-                         f"to 1 at {bins} bins, got {floor}")
+    if not 0.0 <= floor <= 1.0:
+        raise ValueError(f"occ_sample takes a floor from 0 to 1, got {floor}")
     if not 1 <= num_steps < 2**31:
         raise ValueError(f"occ_sample takes 1 to 2^31 - 1 samples, got {num_steps}")
     if N >= 2**31:
@@ -117,10 +117,14 @@ def occ_sample(occ3, rays_o, rays_d, nears, fars, bins: int, num_steps: int, bou
     fn = _kernel()
     z = torch.empty((N, num_steps), dtype=torch.float32, device=device)
     pdf = torch.empty((N, bins), dtype=torch.float32, device=device) if want_pdf else None
+    work = (torch.empty((N, bins + 1), dtype=torch.float32, device=device)
+            if bins > SMEM_BINS else None)
     err = cuda_lib.launch(
-        fn, device, occ3.data_ptr(), G, rays_o.data_ptr(), rays_d.data_ptr(), nears.data_ptr(), fars.data_ptr(), None if xi is None else xi.data_ptr(),
+        fn, device, occ3.data_ptr(), G, rays_o.data_ptr(), rays_d.data_ptr(), nears.data_ptr(),
+        fars.data_ptr(), None if xi is None else xi.data_ptr(),
         None if u_row is None else u_row.data_ptr(), z.data_ptr(),
-        None if pdf is None else pdf.data_ptr(), N, bins, num_steps,
+        None if pdf is None else pdf.data_ptr(), None if work is None else work.data_ptr(),
+        N, bins, num_steps,
         bound, G / (2.0 * bound), 1.0 - floor, floor / bins, 1e-12, 1.0 / bins, 1.0 / num_steps)
     if err != 0:
         raise RuntimeError(f"occ_sample launch failed: cudaError {err}")

@@ -39,10 +39,10 @@ def inputs():
     return grid, idx
 
 
-def device_ms(fn, replays=5):
-    """Device ms of one fn() call: `BATCH` calls captured back to back in a
+def device_ms(fn, replays=5, batch=BATCH):
+    """Device ms of one fn() call: `batch` calls captured back to back in a
     CUDA graph, the median over `replays` replays between two CUDA events,
-    over `BATCH`. The count on the card is paused: the graph holds the
+    over `batch`. The count on the card is paused: the graph holds the
     kernels alone."""
     with device_counts.paused():
         side = torch.cuda.Stream()
@@ -52,7 +52,7 @@ def device_ms(fn, replays=5):
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            for _ in range(BATCH):
+            for _ in range(batch):
                 fn()
         graph.replay()
         times = []
@@ -62,7 +62,7 @@ def device_ms(fn, replays=5):
             graph.replay()
             b.record()
             b.synchronize()
-            times.append(a.elapsed_time(b) / BATCH)
+            times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
 
 

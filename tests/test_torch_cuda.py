@@ -695,8 +695,12 @@ def test_occ_lookup_wrapper_limits(require_cuda):
 # --- the fused --fast sampler (csrc/occ_sample.cu) ---
 
 SAMPLE_CASES = ["perturb-dilate0", "perturb-dilate1", "det-dilate1", "ragged", "empty", "full",
-                "aabb", "bins33", "one-ray", "shared-origin", "bins2048", "bins16384", "floor-min"]
-SAMPLE_BINS = {"bins33": 33, "bins2048": 2048, "bins16384": 16384}
+                "aabb", "bins33", "one-ray", "shared-origin", "bins2048", "bins16384", "floor-min",
+                "floor0", "floor1", "bins32769", "bins65536"]
+SAMPLE_BINS = {"bins33": 33, "bins2048": 2048, "bins16384": 16384, "bins32769": 32769,
+               "bins65536": 65536}
+# the least floor at which every cdf entry is exact (2^-29 x bins), and the ends of [0, 1]
+SAMPLE_FLOORS = {"floor-min": 2.0**-29 * 128, "floor0": 0.0, "floor1": 1.0}
 
 
 def _sample_case(case):
@@ -707,15 +711,18 @@ def _sample_case(case):
     test's nears and fars, 33 bins and 37 samples, one ray, one origin
     expanded over the rays (a training batch's), 2048 bins (5 rays a block),
     16384 bins on 512 rays (one ray a block past 48 KB of shared memory),
-    the least floor the kernel takes (2^-29 * 128)."""
+    32769 and 65536 bins on 512 rays (the cdfs in the workspace), the least
+    floor at which the cdf is exact (2^-29 * 128), floors 0 and 1."""
     from lidarnerf_tpu_torch.models.occupancy import OccConfig, occupied_volume
     from lidarnerf_tpu_torch.models.renderer import near_far_from_aabb
 
     rs = np.random.RandomState(3)
-    G, N = 128, {"ragged": 4093, "one-ray": 1, "bins16384": 512}.get(case, 4096)
+    G = 128
+    N = {"ragged": 4093, "one-ray": 1, "bins16384": 512, "bins32769": 512,
+         "bins65536": 512}.get(case, 4096)
     cfg = OccConfig(grid_size=G, bins=SAMPLE_BINS.get(case, 128),
                     dilate=0 if case == "perturb-dilate0" else 1,
-                    floor=occ_sample_cuda.MIN_FLOOR_K * 128 if case == "floor-min" else 0.05)
+                    floor=SAMPLE_FLOORS.get(case, 0.05))
     c = (np.arange(G) + 0.5) / G * 2.0 - 1.0
     r = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2)
     grid = np.where((r > 0.3) & (r < 0.5), 50.0, 0.0).astype(np.float32)
@@ -804,9 +811,11 @@ def test_occ_sample_wrapper_limits(require_cuda):
     with pytest.raises(ValueError, match="not contiguous"):
         call(rays_o=o[:1].expand(N, 3))  # the entry copies a batch's one origin
     with pytest.raises(ValueError, match="floor"):
-        call(floor=0.0)
+        call(floor=-5e-324)
     with pytest.raises(ValueError, match="floor"):
-        call(floor=occ_sample_cuda.MIN_FLOOR_K * 64)
+        call(floor=1.001)
+    with pytest.raises(ValueError, match="bins"):
+        call(bins=0)
     with pytest.raises(ValueError, match="bins"):
         call(bins=occ_sample_cuda.MAX_BINS + 1)
     with pytest.raises(ValueError, match="samples"):
@@ -817,6 +826,12 @@ def test_occ_sample_wrapper_limits(require_cuda):
                   want_pdf=True)
     assert z.shape == (0, T) and pdf.shape == (0, 128) and z.is_cuda
     assert occ_sample_cuda.launches == before
+    # floor 0 and bins past shared memory launch
+    for kw in (dict(floor=0.0), dict(floor=1.0), dict(bins=occ_sample_cuda.SMEM_BINS + 1)):
+        z, _ = call(rays_o=o[:8], rays_d=d[:8], nears=nears[:8], fars=fars[:8], xi=xi[:8], **kw)
+        torch.cuda.synchronize()
+        assert z.shape == (8, T) and torch.isfinite(z).all()
+    assert occ_sample_cuda.launches == before + 3
 
 
 def test_fast_step_launches_occ_sample_once_and_equals_the_plain_sampler(
