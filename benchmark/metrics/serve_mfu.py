@@ -1,0 +1,11 @@
+"""The served panos' matmul operations (the sigma net and the LiDAR head on
+every sample of every pixel, forward only) over the traced window's time,
+against the H100's 989 TFLOP/s in bf16."""
+
+from benchmark.bounds import BF16_FLOPS
+
+
+def read(ctx):
+    if ctx.kind != "serve" or not ctx.work.get("model_flops"):
+        return None
+    return 100.0 * ctx.work["model_flops"] / ctx.window_s / BF16_FLOPS
