@@ -33,6 +33,7 @@ from lidarnerf_tpu_torch.models.occupancy import OccConfig, occupied_volume
 from lidarnerf_tpu_torch.ops import occ_sample as occ_sampler
 from lidarnerf_tpu_torch.ops.compositing import merged_composite_weights, composite_weights
 from lidarnerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
+from lidarnerf_tpu_torch.utils.tracing import count, span
 
 
 @dataclass(frozen=True)
@@ -99,71 +100,82 @@ def render_rays(network, rays_o, rays_d, cfg: RenderConfig, train=False, generat
         dict(depth [N], image [N, 2] = (raydrop, intensity) or [N, 3] RGB,
         weights_sum [N])
     """
+    # the stages' spans (utils/tracing.py) cover the whole render: sample
+    # (depths), field (the network's queries), composite (weights and sums;
+    # the colour queries inside it are field)
     N = rays_o.shape[0]
     dev = rays_o.device
-    rays_o = rays_o.float()
-    rays_d = rays_d.float()
-    aabb_min = torch.full((3,), -cfg.bound, dtype=torch.float32, device=dev)
-    aabb_max = torch.full((3,), cfg.bound, dtype=torch.float32, device=dev)
+    with span("render.sample"):
+        rays_o = rays_o.float()
+        rays_d = rays_d.float()
+        aabb_min = torch.full((3,), -cfg.bound, dtype=torch.float32, device=dev)
+        aabb_max = torch.full((3,), cfg.bound, dtype=torch.float32, device=dev)
 
-    lidar = cfg.cal_lidar_color
-    if lidar:
-        nears = torch.full((N, 1), cfg.min_near_lidar, dtype=torch.float32, device=dev)
-        fars = torch.full((N, 1), cfg.min_near_lidar * cfg.far_mult, dtype=torch.float32,
-                          device=dev)
-    else:
-        nears, fars = near_far_from_aabb(rays_o, rays_d, aabb_min, aabb_max, cfg.min_near)
-    if cfg.occ is not None and occ_grid is not None:
-        occ3 = occupied_volume(occ_grid, cfg.occ)
-        z_vals = occ_sampler.occ_sample(occ3, rays_o, rays_d, nears, fars, cfg.occ, cfg.bound,
-                                        cfg.num_steps, perturb=train, xi=noise,
-                                        generator=generator)
-    else:
-        z_vals = stratified_z_vals(nears, fars, cfg.num_steps, perturb=train, noise=noise,
-                                   generator=generator)
-    sample_dist = (fars - nears) / cfg.num_steps  # [N, 1]
+        lidar = cfg.cal_lidar_color
+        if lidar:
+            nears = torch.full((N, 1), cfg.min_near_lidar, dtype=torch.float32, device=dev)
+            fars = torch.full((N, 1), cfg.min_near_lidar * cfg.far_mult, dtype=torch.float32,
+                              device=dev)
+        else:
+            nears, fars = near_far_from_aabb(rays_o, rays_d, aabb_min, aabb_max, cfg.min_near)
+        if cfg.occ is not None and occ_grid is not None:
+            occ3 = occupied_volume(occ_grid, cfg.occ)
+            z_vals = occ_sampler.occ_sample(occ3, rays_o, rays_d, nears, fars, cfg.occ, cfg.bound,
+                                            cfg.num_steps, perturb=train, xi=noise,
+                                            generator=generator)
+        else:
+            z_vals = stratified_z_vals(nears, fars, cfg.num_steps, perturb=train, noise=noise,
+                                       generator=generator)
+        sample_dist = (fars - nears) / cfg.num_steps  # [N, 1]
 
     def query_density(z):
         xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
         xyz = torch.clamp(xyz, aabb_min, aabb_max)
         return network.density(xyz)
 
-    sigmas, geo_feats = query_density(z_vals)  # [N, T], [N, T, G]
-    d_enc = network.encode_dir(rays_d, lidar)  # [N, E], once per ray
+    with span("render.field"):
+        sigmas, geo_feats = query_density(z_vals)  # [N, T], [N, T, G]
+        d_enc = network.encode_dir(rays_d, lidar)  # [N, E], once per ray
 
     def colors(geo, weights):
-        d_enc_b = d_enc[:, None, :].expand(*geo.shape[:-1], d_enc.shape[-1])
-        rgbs = network.color_from_enc(d_enc_b, geo, lidar)  # [N, S, 2 or 3]
+        with span("render.field"):
+            d_enc_b = d_enc[:, None, :].expand(*geo.shape[:-1], d_enc.shape[-1])
+            rgbs = network.color_from_enc(d_enc_b, geo, lidar)  # [N, S, 2 or 3]
         return torch.where((weights > cfg.weight_mask_thresh)[..., None], rgbs, 0.0)
 
     if cfg.upsample_steps > 0:
-        w_coarse = composite_weights(sigmas.detach(), z_vals, sample_dist, cfg.density_scale)
-        z_mid = z_vals[..., :-1] + 0.5 * (z_vals[..., 1:] - z_vals[..., :-1])  # [N, T-1]
-        new_z = sample_pdf(z_mid, w_coarse[:, 1:-1], cfg.upsample_steps, det=not train, u=u,
-                           generator=generator)
-        new_z = torch.sort(new_z.detach(), dim=-1).values
-        new_sigmas, new_geo = query_density(new_z)
+        with span("render.sample"):
+            w_coarse = composite_weights(sigmas.detach(), z_vals, sample_dist, cfg.density_scale)
+            z_mid = z_vals[..., :-1] + 0.5 * (z_vals[..., 1:] - z_vals[..., :-1])  # [N, T-1]
+            new_z = sample_pdf(z_mid, w_coarse[:, 1:-1], cfg.upsample_steps, det=not train, u=u,
+                               generator=generator)
+            new_z = torch.sort(new_z.detach(), dim=-1).values
+        with span("render.field"):
+            new_sigmas, new_geo = query_density(new_z)
 
-        weights, new_weights = merged_composite_weights(
-            z_vals, sigmas, new_z, new_sigmas, sample_dist, cfg.density_scale
-        )
-        weights_sum = weights.sum(-1) + new_weights.sum(-1)
-        depth = (weights * z_vals).sum(-1) + (new_weights * new_z).sum(-1)
-        image = (weights[..., None] * colors(geo_feats, weights)).sum(-2) + (
-            new_weights[..., None] * colors(new_geo, new_weights)
-        ).sum(-2)
+        with span("render.composite"):
+            weights, new_weights = merged_composite_weights(
+                z_vals, sigmas, new_z, new_sigmas, sample_dist, cfg.density_scale
+            )
+            weights_sum = weights.sum(-1) + new_weights.sum(-1)
+            depth = (weights * z_vals).sum(-1) + (new_weights * new_z).sum(-1)
+            image = (weights[..., None] * colors(geo_feats, weights)).sum(-2) + (
+                new_weights[..., None] * colors(new_geo, new_weights)
+            ).sum(-2)
     else:
-        weights = composite_weights(sigmas, z_vals, sample_dist, cfg.density_scale)
-        weights_sum = weights.sum(-1)
-        depth = (weights * z_vals).sum(-1)
-        image = (weights[..., None] * colors(geo_feats, weights)).sum(-2)
+        with span("render.composite"):
+            weights = composite_weights(sigmas, z_vals, sample_dist, cfg.density_scale)
+            weights_sum = weights.sum(-1)
+            depth = (weights * z_vals).sum(-1)
+            image = (weights[..., None] * colors(geo_feats, weights)).sum(-2)
 
     if not lidar:
-        if cfg.bg_radius > 0:
-            bg_color = network.background(sph_from_ray(rays_o, rays_d, cfg.bg_radius), rays_d)
-        else:
-            bg_color = 1.0  # white
-        image = image + (1.0 - weights_sum)[..., None] * bg_color
+        with span("render.composite"):
+            if cfg.bg_radius > 0:
+                bg_color = network.background(sph_from_ray(rays_o, rays_d, cfg.bg_radius), rays_d)
+            else:
+                bg_color = 1.0  # white
+            image = image + (1.0 - weights_sum)[..., None] * bg_color
 
     return {"depth": depth, "image": image, "weights_sum": weights_sum}
 
@@ -179,10 +191,15 @@ def render_rays_staged(network, rays_o, rays_d, cfg: RenderConfig, chunk: int = 
     """
     N = rays_o.shape[0]
     pad = (-N) % chunk
-    ro = torch.cat([rays_o, rays_o.new_zeros((pad, 3))])
-    rd = torch.cat([rays_d, rays_d.new_ones((pad, 3))])
-    outs = [
-        render_rays(network, ro[i : i + chunk], rd[i : i + chunk], cfg, occ_grid=occ_grid)
-        for i in range(0, N + pad, chunk)
-    ]
-    return {k: torch.cat([o[k] for o in outs])[:N] for k in ("depth", "image", "weights_sum")}
+    with span("pano.gather"):
+        ro = torch.cat([rays_o, rays_o.new_zeros((pad, 3))])
+        rd = torch.cat([rays_d, rays_d.new_ones((pad, 3))])
+    outs = []
+    for i in range(0, N + pad, chunk):
+        with span("pano.chunk"):
+            outs.append(render_rays(network, ro[i : i + chunk], rd[i : i + chunk], cfg,
+                                    occ_grid=occ_grid))
+    count("pano.rays_rendered", N + pad)
+    count("pano.rays_padded", pad)
+    with span("pano.gather"):
+        return {k: torch.cat([o[k] for o in outs])[:N] for k in ("depth", "image", "weights_sum")}

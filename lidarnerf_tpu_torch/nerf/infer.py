@@ -24,6 +24,7 @@ from lidarnerf_tpu_torch.models.network import NeRFNetwork
 from lidarnerf_tpu_torch.models.occupancy import occ_config_from_opt
 from lidarnerf_tpu_torch.models.renderer import RenderConfig, render_rays_staged
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
+from lidarnerf_tpu_torch.utils import tracing
 from lidarnerf_tpu_torch.utils.params import params_from_jax
 
 
@@ -82,14 +83,19 @@ class PanoRenderer:
 
         pose: [4, 4] lidar2world (numpy or tensor).
         """
-        pose = torch.as_tensor(np.asarray(pose, dtype=np.float32), device=self.device)
-        rays = get_lidar_rays(pose[None], intrinsics, H, W, N=-1)
-        out = render_rays_staged(
-            self.network, rays["rays_o"][0], rays["rays_d"][0], self.cfg,
-            chunk=self.opt.max_ray_batch, occ_grid=self.occ_grid,
-        )
-        # one host copy of the whole pano: (raydrop, intensity, depth)
-        pano = torch.cat([out["image"], out["depth"][:, None]], -1).reshape(H, W, 3).cpu().numpy()
+        with tracing.span("pano.frame"):
+            with tracing.span("pano.rays"):
+                pose = torch.as_tensor(np.asarray(pose, dtype=np.float32), device=self.device)
+                rays = get_lidar_rays(pose[None], intrinsics, H, W, N=-1)
+            out = render_rays_staged(
+                self.network, rays["rays_o"][0], rays["rays_d"][0], self.cfg,
+                chunk=self.opt.max_ray_batch, occ_grid=self.occ_grid,
+            )
+            # one host copy of the whole pano: (raydrop, intensity, depth)
+            with tracing.span("pano.gather"):
+                pano = torch.cat([out["image"], out["depth"][:, None]], -1).reshape(H, W, 3)
+            with tracing.span("pano.to_host"):
+                pano = pano.cpu().numpy()
         return pano[..., 0], pano[..., 1], pano[..., 2]
 
     def test_frames(self, poses, H, W, intrinsics):

@@ -34,6 +34,7 @@ from lidarnerf_tpu_torch.ops import losses as L
 from lidarnerf_tpu_torch.ops.block_hash import block_hash_seam_loss, kernel_variant, sync_hashed_seams
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
 from lidarnerf_tpu_torch.parallel import sharding
+from lidarnerf_tpu_torch.utils import tracing
 
 
 @dataclass(frozen=True)
@@ -535,17 +536,18 @@ class _CapturedStep:
         self.pos.add_(1)
 
     def _capture(self, args):
-        side, cur = self.pool.stream, torch.cuda.current_stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):  # the warm-up: a real step
-            self._one_step(*args)
-        cur.wait_stream(side)
-        generator = args[4]
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:  # each replay draws afresh from it
-            graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, pool=self.pool.handle, stream=side):
-            self._one_step(*args)
+        with tracing.span("train.capture"):
+            side, cur = self.pool.stream, torch.cuda.current_stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):  # the warm-up: a real step
+                self._one_step(*args)
+            cur.wait_stream(side)
+            generator = args[4]
+            graph = torch.cuda.CUDAGraph()
+            if generator is not None:  # each replay draws afresh from it
+                graph.register_generator_state(generator)
+            with torch.cuda.graph(graph, pool=self.pool.handle, stream=side):
+                self._one_step(*args)
         self.graph = graph
 
     def epoch(self, poses, images, valid_idx, valid_counts, order, generator, occ_grid,
@@ -553,25 +555,28 @@ class _CapturedStep:
         """K = len(order) steps; before_step(i) runs eagerly before step i.
         Returns the metrics [4, K] on the device."""
         K, dev = len(order), poses.device
-        key = (K, generator) + tuple(None if t is None else (t.data_ptr(), tuple(t.shape))
-                                     for t in (poses, images, valid_idx, valid_counts, occ_grid))
-        if key != self.key:
-            self.graph, self.key = None, key
-            self.order = torch.zeros(K, dtype=torch.long, device=dev)
-            self.pos = torch.zeros(1, dtype=torch.long, device=dev)
-            self.metrics = torch.zeros((len(METRICS), K), dtype=torch.float32, device=dev)
-        self.order.copy_(torch.as_tensor(np.asarray(order), dtype=torch.long))
-        self.pos.zero_()
-        args = (poses, images, valid_idx, valid_counts, generator, occ_grid)
-        first = 0
-        if self.graph is None:
-            before_step(0)
-            self._capture(args)
-            first = 1
-        for i in range(first, K):
-            before_step(i)
-            self.graph.replay()
-        return self.metrics.clone()
+        with tracing.span("train.epoch"):
+            key = (K, generator) + tuple(
+                None if t is None else (t.data_ptr(), tuple(t.shape))
+                for t in (poses, images, valid_idx, valid_counts, occ_grid))
+            if key != self.key:
+                self.graph, self.key = None, key
+                self.order = torch.zeros(K, dtype=torch.long, device=dev)
+                self.pos = torch.zeros(1, dtype=torch.long, device=dev)
+                self.metrics = torch.zeros((len(METRICS), K), dtype=torch.float32, device=dev)
+            self.order.copy_(torch.as_tensor(np.asarray(order), dtype=torch.long))
+            self.pos.zero_()
+            args = (poses, images, valid_idx, valid_counts, generator, occ_grid)
+            first = 0
+            if self.graph is None:
+                before_step(0)
+                self._capture(args)
+                first = 1
+            for i in range(first, K):
+                before_step(i)
+                with tracing.span("train.replay"):
+                    self.graph.replay()
+            return self.metrics.clone()
 
 
 def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_size=1,
@@ -625,10 +630,12 @@ def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
     def before_step(global_step, occ_grid, generator, d=None):
         d = d or {}
         if occ is not None and occ_grid is not None and global_step % occ.update_interval == 0:
-            occ_grid.copy_(update_occ_grid(model, occ_grid, occ, render_cfg.bound,
-                                           generator=generator, jitter=d.get("occ_jitter")))
+            with tracing.span("occ.refresh"):
+                occ_grid.copy_(update_occ_grid(model, occ_grid, occ, render_cfg.bound,
+                                               generator=generator, jitter=d.get("occ_jitter")))
         if seam_sync > 0 and global_step % SEAM_SYNC_EVERY == 0:
-            sync_model_seams(model, seam_sync, generator, d.get("seam_sync"))
+            with tracing.span("train.seam_sync"):
+                sync_model_seams(model, seam_sync, generator, d.get("seam_sync"))
 
     def epoch_fn(poses, images, valid_idx, valid_counts, order, step0=0, generator=None,
                  occ_grid=None, draws=None):
@@ -642,13 +649,14 @@ def make_epoch_step(model, cfg: TrainConfig, render_cfg: RenderConfig, patch_siz
                                       occ_grid, lambda i: before_step(step0 + i, occ_grid,
                                                                       generator))
             return dict(zip(METRICS, m))
-        ms = []
-        for i, frame in enumerate(order):
-            d = draws[i] if draws is not None else None
-            before_step(step0 + i, occ_grid, generator, d)
-            ms.append(step(poses, images, valid_idx, valid_counts, int(frame), draws=d,
-                           generator=generator, occ_grid=occ_grid))
-        return {k: torch.stack([m[k] for m in ms]) for k in METRICS}
+        with tracing.span("train.epoch"):
+            ms = []
+            for i, frame in enumerate(order):
+                d = draws[i] if draws is not None else None
+                before_step(step0 + i, occ_grid, generator, d)
+                ms.append(step(poses, images, valid_idx, valid_counts, int(frame), draws=d,
+                               generator=generator, occ_grid=occ_grid))
+            return {k: torch.stack([m[k] for m in ms]) for k in METRICS}
 
     epoch_fn.step = step
     epoch_fn.graphs = graphs
@@ -680,6 +688,7 @@ def ema_update(ema_params, params, decay, num_updates):
     ema_params, params: dicts of tensors with the same keys. Returns ema_params.
     """
     d = min(decay, (1.0 + num_updates) / (10.0 + num_updates))
-    for k, e in ema_params.items():
-        e.mul_(d).add_(params[k], alpha=1.0 - d)
+    with tracing.span("train.ema"):
+        for k, e in ema_params.items():
+            e.mul_(d).add_(params[k], alpha=1.0 - d)
     return ema_params

@@ -7,7 +7,9 @@ and keeps the JAX trainer's workspace (:183-217): `log_{name}.txt`,
 by the Chamfer result, which stores the EMA weights as the model),
 `validation/`, `results/`, `meshes/`, the tensorboardX run when that package
 is installed, and under `opt.profile` a torch.profiler trace of the first
-epoch in `profile/`.
+epoch in `profile/`, which carries the program's spans (`utils/tracing.py`:
+`train.epoch`, `train.capture`, `train.replay`, `occ.refresh`,
+`train.seam_sync`, `train.metrics_fetch`, `train.ema`, the render's stages).
 
 `train` runs epochs under the per-epoch patch-size schedule, with a full
 checkpoint every `ckpt_interval` epochs and an evaluation every
@@ -74,7 +76,7 @@ from lidarnerf_tpu_torch.nerf.train_step import (
 from lidarnerf_tpu_torch.ops import losses as L
 from lidarnerf_tpu_torch.ops.dispatch import resolve_device
 from lidarnerf_tpu_torch.parallel import sharding
-from lidarnerf_tpu_torch.utils import checkpoint_io
+from lidarnerf_tpu_torch.utils import checkpoint_io, tracing
 from lidarnerf_tpu_torch.utils.geometry import filter_bbox_dataset
 from lidarnerf_tpu_torch.utils.image_io import COLORMAP_BONE, COLORMAP_HSV, apply_color_map, imwrite
 from lidarnerf_tpu_torch.utils.params import (
@@ -448,7 +450,8 @@ class Trainer:
         # multiple of the update interval, step 0 first (trainer.py:480-491)
         ms = epoch_fn(poses, images, vi, vc, order, self.global_step, generator=self.generator,
                       occ_grid=self.occ_grid)
-        fetched = torch.stack([ms[k] for k in METRICS]).cpu().numpy()  # the epoch's one fetch
+        with tracing.span("train.metrics_fetch"):  # the epoch's one fetch
+            fetched = torch.stack([ms[k] for k in METRICS]).cpu().numpy()
         losses = [float(x) for x in fetched[METRICS.index("loss")]]
         skips = [float(x) for x in fetched[METRICS.index("skipped_nonfinite")]]
         self.local_step = len(order)

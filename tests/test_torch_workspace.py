@@ -10,6 +10,7 @@ bit for bit. Between the packages, renders agree within the render parity
 tolerance of tests/test_torch_render.py (rtol 1e-4, atol 1e-5).
 """
 
+import json
 import os
 import pickle
 import sys
@@ -345,9 +346,16 @@ def test_foreign_objects_are_refused(data, tmp_path):
 
 def test_profile_traces_the_first_epoch(data, tmp_path):
     """--profile: a torch.profiler trace of the first epoch in workspace/profile
-    (the JAX trainer's jax.profiler trace), and only of the first."""
+    (the JAX trainer's jax.profiler trace), and only of the first. The trace
+    carries the program's spans: the epoch, its steps' render stages and the
+    epoch's one metrics fetch."""
     opt = _opt(data, "--profile")
     t = _trainer(opt, tmp_path)
     t.train(_dataset(data, "train"), None, max_epochs=2)
     assert os.listdir(tmp_path / "profile") == ["lidar_nerf_ep0001.json"]
-    assert (tmp_path / "profile" / "lidar_nerf_ep0001.json").stat().st_size > 0
+    path = tmp_path / "profile" / "lidar_nerf_ep0001.json"
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"}
+    assert {"train.epoch", "train.metrics_fetch", "train.ema", "render.sample",
+            "render.field", "render.composite"} <= names
