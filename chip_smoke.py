@@ -197,6 +197,16 @@ BWD_RTOL, BWD_ATOL = 1e-5, 1e-7
 # differences in the trig into its input at ~1e-4
 TRAIN_REF_LOSS_RTOL = 1e-4
 TRAIN_REF_GRAD_TOL = {"lidar_color_net": 5e-3, "default": 1e-3}
+# the merged-composite kernel pair vs its plain version on the card: the
+# weights at the tolerance the plain version holds to the JAX package (the
+# same deltas, x and libm; the transmittance summed in float64 against the
+# plain version's float32); the density gradients at COMPOSITE_GRAD_RTOL of
+# each plus COMPOSITE_GRAD_SCALE of the bound on each term of
+# dL/dsigma = (g e^-x T + l'(x) R) delta ds, max|g| max(delta) ds (T, e^-x,
+# |l'| <= 1 and R sums g w over weights that sum to at most 1): the terms'
+# float32 rounding scales with it, and they may cancel far below it
+COMPOSITE_RTOL, COMPOSITE_ATOL = 1e-5, 1e-7
+COMPOSITE_GRAD_RTOL, COMPOSITE_GRAD_SCALE = 1e-4, 1e-5
 # fp32 GPU vs fp32 CPU render of the same rays: the log-transmittance is an
 # exclusive cumsum of 768 terms of up to ~35 in size, taken in another order
 # on each device, which moves the weights by up to ~1e-3 relative
@@ -225,12 +235,12 @@ def set_variant(variant):
 
 def launch_counts():
     """{kernel name: launches so far} of every kernel wrapper of the port."""
-    from lidarnerf_tpu_torch.ops import (block_hash_cuda, fused_mlp_cuda, occ_lookup_cuda,
-                                         occ_sample_cuda, perm_gather_cuda)
+    from lidarnerf_tpu_torch.ops import (block_hash_cuda, fused_mlp_cuda, merged_composite_cuda,
+                                         occ_lookup_cuda, occ_sample_cuda, perm_gather_cuda)
 
     return {**block_hash_cuda.launch_counts(), **fused_mlp_cuda.launch_counts(),
             **perm_gather_cuda.launch_counts(), **occ_lookup_cuda.launch_counts(),
-            **occ_sample_cuda.launch_counts()}
+            **occ_sample_cuda.launch_counts(), **merged_composite_cuda.launch_counts()}
 
 
 def reset_counts():
@@ -238,20 +248,28 @@ def reset_counts():
     (device_launches), so that the graphs captured from here on count their
     replays."""
     from lidarnerf_tpu_torch.ops import (block_hash_cuda, device_counts, fused_mlp_cuda,
-                                         occ_lookup_cuda, occ_sample_cuda, perm_gather_cuda)
+                                         merged_composite_cuda, occ_lookup_cuda, occ_sample_cuda,
+                                         perm_gather_cuda)
 
     for module in (block_hash_cuda, fused_mlp_cuda, perm_gather_cuda, occ_lookup_cuda,
-                   occ_sample_cuda):
+                   occ_sample_cuda, merged_composite_cuda):
         module.reset_counts()
     device_counts.enable("cuda")
 
 
+# every render with upsampling runs these: a phase checks them where it names them
+COMPOSITE = ("merged_composite_fwd", "merged_composite_bwd")
+
+
 def only_launches(counts, expected):
     """Raise unless `counts` (launch_counts()) holds exactly `expected`
-    launches and none of any other kernel."""
-    want = {name: expected.get(name, 0) for name in counts}
-    if counts != want:
-        raise AssertionError(f"launches {counts}, expected {want}")
+    launches and none of any other kernel; the merged-composite kernels
+    only where `expected` names them."""
+    want = {name: expected.get(name, 0) for name in counts
+            if name in expected or name not in COMPOSITE}
+    got = {name: counts[name] for name in want}
+    if got != want:
+        raise AssertionError(f"launches {got}, expected {want}")
 
 
 # torch.profiler's trace loses the records of kernels that it receives after
@@ -730,7 +748,8 @@ def slice_phase(renderer):
     chunks = -(-H * W // FULL.max_ray_batch)
     for frame in frames:
         check_pano(frame, near, far)
-    only_launches(launches, {"block_hash_fwd": 2 * chunks * N_PANOS})
+    only_launches(launches, {"block_hash_fwd": 2 * chunks * N_PANOS,
+                             "merged_composite_fwd": chunks * N_PANOS, "merged_composite_bwd": 0})
     rays = H * W
     log(f"slice on {gpu_line()}: {N_PANOS} panos of {H}x{W} rays, {FULL.num_steps}+{FULL.upsample_steps} "
         f"samples, chunk {FULL.max_ray_batch}: ms/pano {', '.join(f'{t:.1f}' for t in times)}; "
@@ -875,7 +894,8 @@ def train_slice_phase(ds):
     if not last <= 0.75 * first:
         raise AssertionError("training lowered the loss by less than 25%")
     graphs = check_graphed_launches("train", launches, device, trainer,
-                                    {"block_hash_fwd": 2, "block_hash_bwd": 2})
+                                    {"block_hash_fwd": 2, "block_hash_bwd": 2,
+                                     "merged_composite_fwd": 1, "merged_composite_bwd": 1})
     n, samples = opt.num_rays_lidar, opt.num_steps + opt.upsample_steps
     per_step = [1e3 * t / len(ds) for t in epoch_s]
     warm = per_step[-1]  # epoch 3: patch 1, warm
@@ -1799,6 +1819,118 @@ def perm_gather_phase(params, ds):
     return launches, [entries["fwd"], entries["bwd"]]
 
 
+def merged_composite_phase(params, ds):
+    """The merged-composite kernel pair (`csrc/merged_composite.cu`, through
+    ops/compositing.py::merged_composite_weights) on a training chunk's
+    samples at 768 + 64 and at the --fast 192 + 64: the weights against the
+    plain version on the card (COMPOSITE_RTOL / COMPOSITE_ATOL), the density
+    gradients of a random cotangent against the plain version's autograd
+    (COMPOSITE_GRAD_*), each direction twice bit for bit, one launch a
+    direction a call. Then the device time of a call by CUDA-graph replays
+    that cycle over three copies of the chunk (past the 50 MB L2): each
+    direction, and the plain version's forward and forward + backward; the
+    bound by bytes. Returns (launch counts, the two `kernels` entries)."""
+    from lidarnerf_tpu_torch.ops import merged_composite_cuda as mcc
+    from lidarnerf_tpu_torch.ops.compositing import (merged_composite_weights,
+                                                      merged_composite_weights_plain)
+    from lidarnerf_tpu_torch.tools.exp_occ_lookup import device_ms
+
+    dev = torch.device("cuda")
+    net = full_network(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    chunks = {}
+    for T in (FULL.num_steps, FAST["num_steps"]):
+        zc, zf, sc, sf, _, _ = training_samples(net, ds, T, gen)
+        dist = torch.full((zc.shape[0], 1), ds.scale * 80.0 / T, device=dev)
+        cots = (torch.randn(sc.shape, generator=gen, device=dev),
+                torch.randn(sf.shape, generator=gen, device=dev))
+        chunks[T] = (zc, sc.float().contiguous(), zf, sf.float().contiguous(), dist, cots)
+    del net
+    torch.cuda.synchronize()
+    reset_counts()
+    runs = {}
+    for T, (zc, sc, zf, sf, dist, cots) in chunks.items():
+        outs = []
+        for _ in range(2):
+            leaves = [t.detach().clone().requires_grad_() for t in (sc, sf)]
+            w = merged_composite_weights(zc, leaves[0], zf, leaves[1], dist)
+            torch.autograd.backward(w, cots)
+            outs.append((*[t.detach() for t in w], *[t.grad for t in leaves]))
+        runs[T] = outs
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    only_launches(launches, {"merged_composite_fwd": 2 * len(chunks),
+                             "merged_composite_bwd": 2 * len(chunks)})
+
+    entries = {}
+    for T, (zc, sc, zf, sf, dist, cots) in chunks.items():
+        leaves = [t.detach().clone().requires_grad_() for t in (sc, sf)]
+        ref = merged_composite_weights_plain(zc, leaves[0], zf, leaves[1], dist)
+        torch.autograd.backward(ref, cots)
+        ref = (*[t.detach() for t in ref], *[t.grad for t in leaves])
+        (wA, wB, dA, dB), again = runs[T]
+        merged = torch.sort(torch.cat([zc, zf], 1), 1).values
+        delta = max(float((merged[:, 1:] - merged[:, :-1]).max()), float(dist.max()))
+        scale = max(float(cots[0].abs().max()), float(cots[1].abs().max())) * delta
+        werr = max(float(((k - p).abs() - COMPOSITE_RTOL * p.abs()).max())
+                   for k, p in zip((wA, wB), ref[:2]))
+        gerr = max(float(((k - p).abs() - COMPOSITE_GRAD_RTOL * p.abs()).max())
+                   for k, p in zip((dA, dB), ref[2:]))
+        checks = {
+            "weights == plain": werr <= COMPOSITE_ATOL,
+            "gradients == plain autograd": gerr <= COMPOSITE_GRAD_SCALE * scale,
+            "twice bit for bit": all(bit_equal(a, b) for a, b in zip(runs[T][0], again)),
+            "finite": all(bool(torch.isfinite(t).all()) for t in runs[T][0]),
+        }
+        # the device time a call, cycling over three copies of the chunk
+        copies = [[t.clone() for t in (zc, sc, zf, sf, dist, *cots)] for _ in range(3)]
+
+        def cycled(fn):
+            turn = iter(range(10**9))
+            return lambda: fn(*copies[next(turn) % 3])
+
+        def plain_both(z1, s1, z2, s2, d, g1, g2):
+            leaves = [s1.detach().requires_grad_(), s2.detach().requires_grad_()]
+            w = merged_composite_weights_plain(z1, leaves[0], z2, leaves[1], d)
+            return torch.autograd.grad(w, leaves, (g1, g2))
+
+        fns = {
+            "fwd": cycled(lambda z1, s1, z2, s2, d, g1, g2: mcc.merged_composite_fwd(
+                z1, s1, z2, s2, d, 1.0)),
+            "bwd": cycled(lambda z1, s1, z2, s2, d, g1, g2: mcc.merged_composite_bwd(
+                z1, s1, z2, s2, d, 1.0, g1, g2)),
+            "plain fwd": cycled(lambda z1, s1, z2, s2, d, g1, g2: merged_composite_weights_plain(
+                z1, s1, z2, s2, d)),
+            "plain fwd + bwd": cycled(plain_both),
+        }
+        ms = {k: device_ms(fn, batch=30 if k in ("fwd", "bwd") else 3) for k, fn in fns.items()}
+        N, S = zc.shape[0], T + zf.shape[1]
+        bytes_moved = {"fwd": N * S * 12 + N * 4, "bwd": N * S * 16 + N * 4}
+        bound = {d: b / HBM_BYTES_PER_S * 1e3 for d, b in bytes_moved.items()}
+        log(f"merged-composite [{N} rays, {T} + {S - T} samples]: {checks}; weights "
+            f"max(|k - p| - {COMPOSITE_RTOL} |p|) {werr:.3e} (atol {COMPOSITE_ATOL}), gradients "
+            f"max(|k - p| - {COMPOSITE_GRAD_RTOL} |p|) {gerr:.3e} (max|g| max(delta) {scale:.3e}); "
+            f"device ms a call (CUDA-graph replays over 3 copies): forward {ms['fwd']:.5f} "
+            f"(bound {bound['fwd']:.5f} by bytes, {bytes_moved['fwd'] / 1e6:.1f} MB), backward "
+            f"{ms['bwd']:.5f} (bound {bound['bwd']:.5f}, {bytes_moved['bwd'] / 1e6:.1f} MB); plain "
+            f"forward {ms['plain fwd']:.4f}, forward + backward {ms['plain fwd + bwd']:.4f}")
+        if not all(checks.values()):
+            raise AssertionError(f"merged-composite at {T} + {S - T}: {checks}")
+        if T == FULL.num_steps:
+            for d in ("fwd", "bwd"):
+                entries[d] = {
+                    "name": f"merged_composite_{d}", "route": "cuda",
+                    "source": "lidarnerf_tpu_torch/csrc/merged_composite.cu",
+                    "replaces": None,  # the JAX package's merged_composite_weights is XLA
+                    "launches": None, "max_abs_err": werr if d == "fwd" else gerr,
+                    "ms": ms[d], "bound_ms": bound[d], "bound_by": "bytes",
+                    "plain_ms": ms["plain fwd"] if d == "fwd"
+                    else ms["plain fwd + bwd"] - ms["plain fwd"],
+                    "library_ms": None,  # no single PyTorch call computes it
+                }
+    return launches, [entries["fwd"], entries["bwd"]]
+
+
 FLOOR0_FRAMES = 16  # the captured --occ_floor 0 epoch: 16 steps, one grid refresh
 
 
@@ -1887,7 +2019,8 @@ def train_fast_phase(ds, default_ms):
     if not np.isfinite(losses).all() or any(trainer.stats["skipped"]):
         raise AssertionError("training-fast: a loss was non-finite or a step was skipped")
     check_graphed_launches("training-fast", launches, device, trainer,
-                           {"block_hash_fwd": 2, "block_hash_bwd": 2, "occ_sample": 1},
+                           {"block_hash_fwd": 2, "block_hash_bwd": 2, "occ_sample": 1,
+                            "merged_composite_fwd": 1, "merged_composite_bwd": 1},
                            {"block_hash_fwd": refreshes})
     if not trainer.occ_grid.any():
         raise AssertionError("training-fast: the occupancy grid is all zero after its refreshes")
@@ -2051,7 +2184,8 @@ def serve_fast_phase(ds, trainer, init_sd):
             and intensity.max() <= 1 and 0 <= depth.min() and depth.max() <= far):
         raise AssertionError("serving-fast: a pano lies outside its range")
     chunks = -(-ds.H_lidar * ds.W_lidar // FULL.max_ray_batch)
-    only_launches(launches, {"block_hash_fwd": 2 * chunks, "occ_sample": chunks})
+    only_launches(launches, {"block_hash_fwd": 2 * chunks, "occ_sample": chunks,
+                             "merged_composite_fwd": chunks, "merged_composite_bwd": 0})
     if not same:
         raise AssertionError("serving-fast: the fused sampler's pano differs from the plain "
                              "sampler's")
@@ -2086,7 +2220,8 @@ def serve_fast_phase(ds, trainer, init_sd):
     pano0 = floor0.render_frame(*frame)
     floor0_ms = (time.perf_counter() - t0) * 1e3
     launches0 = launch_counts()
-    only_launches(launches0, {"block_hash_fwd": 2 * chunks, "occ_sample": chunks})
+    only_launches(launches0, {"block_hash_fwd": 2 * chunks, "occ_sample": chunks,
+                              "merged_composite_fwd": chunks, "merged_composite_bwd": 0})
     with plain_sampler():
         same0 = all(np.array_equal(a, b) for a, b in zip(pano0, floor0.render_frame(*frame)))
     if floor0.cfg.occ.floor != 0.0 or not all(
@@ -4769,7 +4904,8 @@ def main():
     os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     from lidarnerf_tpu_torch.ops import (block_hash_cuda, cuda_lib, fused_mlp_cuda,
-                                         occ_lookup_cuda, occ_sample_cuda, perm_gather_cuda)
+                                         merged_composite_cuda, occ_lookup_cuda, occ_sample_cuda,
+                                         perm_gather_cuda)
     from lidarnerf_tpu_torch.ops.block_hash import make_block_hash_spec
     from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
 
@@ -4785,9 +4921,10 @@ def main():
     def phase_done(name):  # the script's clock at the end of each group of phases
         log(f"[{time.perf_counter() - t0:.1f} s] {name} done")
 
-    # all ten sources, one nvcc each, started together
+    # all eleven sources, one nvcc each, started together
     libs = cuda_lib.build(block_hash_cuda.SOURCES + (fused_mlp_cuda.SOURCE, perm_gather_cuda.SOURCE,
-                                                     occ_lookup_cuda.SOURCE, occ_sample_cuda.SOURCE))
+                                                     occ_lookup_cuda.SOURCE, occ_sample_cuda.SOURCE,
+                                                     merged_composite_cuda.SOURCE))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         report = lib.with_suffix(".log")
@@ -4819,7 +4956,8 @@ def main():
     # the entry points of B5 and B6 at the model's shapes
     paths["fused-mlp"], b5 = fused_mlp_phase(params, ds)
     paths["sort-merge"], b6 = perm_gather_phase(params, ds)
-    kernels += [b5, *b6]
+    paths["merged-composite"], composite = merged_composite_phase(params, ds)
+    kernels += [b5, *b6, *composite]
     torch.cuda.empty_cache()
     phase_done("fused-mlp and sort-merge")
 

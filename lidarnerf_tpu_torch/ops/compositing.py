@@ -3,9 +3,15 @@
 Transmittance is a log-space exclusive cumsum of logaddexp(-x, log 1e-15),
 x = delta * sigma: the same value as the reference's cumprod(1 - alpha + 1e-15),
 with gradients bounded in (-1, 0] where a step saturates.
+
+`merged_composite_weights` follows ops/dispatch.py: a CUDA tensor takes the
+kernel pair of ops/merged_composite_cuda.py (csrc/merged_composite.cu), a
+CPU tensor the order-free plain version `merged_composite_weights_plain`.
 """
 
 import torch
+
+from lidarnerf_tpu_torch.ops import dispatch
 
 # log(1e-15): the transmittance floor, matching the reference's "+ 1e-15"
 _LOG_EPS = -34.538776394910684
@@ -37,7 +43,7 @@ def composite_weights(sigmas, z_vals, sample_dist, density_scale=1.0):
     return alphas * torch.exp(exclusive_cumsum(_log_trans(x)))
 
 
-def merged_composite_weights(zA, sigA, zB, sigB, sample_dist, density_scale=1.0):
+def merged_composite_weights_plain(zA, sigA, zB, sigB, sample_dist, density_scale=1.0):
     """Compositing weights for the merge of two per-ray sorted sample lists,
     without materialising the merged order.
 
@@ -83,3 +89,40 @@ def merged_composite_weights(zA, sigA, zB, sigB, sample_dist, density_scale=1.0)
     wA = aA * torch.exp(exclusive_cumsum(lA) + crossB_at_A)
     wB = aB * torch.exp(exclusive_cumsum(lB) + crossA_at_B)
     return wA, wB
+
+
+class _MergedComposite(torch.autograd.Function):
+    """The kernel pair, differentiable in sigA and sigB; the backward
+    recomputes the forward from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, zA, sigA, zB, sigB, sample_dist, density_scale):
+        from lidarnerf_tpu_torch.ops import merged_composite_cuda
+
+        ctx.save_for_backward(zA, sigA, zB, sigB, sample_dist)
+        ctx.density_scale = density_scale
+        return merged_composite_cuda.merged_composite_fwd(zA, sigA, zB, sigB, sample_dist,
+                                                          density_scale)
+
+    @staticmethod
+    def backward(ctx, gA, gB):
+        from lidarnerf_tpu_torch.ops import merged_composite_cuda
+
+        dA, dB = merged_composite_cuda.merged_composite_bwd(
+            *ctx.saved_tensors, ctx.density_scale, gA.contiguous(), gB.contiguous())
+        return None, dA, None, dB, None, None
+
+
+def merged_composite_weights(zA, sigA, zB, sigB, sample_dist, density_scale=1.0):
+    """merged_composite_weights_plain's (wA [N, TA], wB [N, TB]).
+
+    On CUDA tensors the kernel pair computes them, with gradients for sigA
+    and sigB only: zA, zB and sample_dist must not require grad (the
+    renderer's depths are constants of the step). On CPU tensors the plain
+    version, differentiable in every input.
+    """
+    if dispatch.uses_kernel(sigA):
+        return _MergedComposite.apply(zA.contiguous(), sigA.contiguous(), zB.contiguous(),
+                                      sigB.contiguous(), sample_dist.contiguous(),
+                                      float(density_scale))
+    return merged_composite_weights_plain(zA, sigA, zB, sigB, sample_dist, density_scale)

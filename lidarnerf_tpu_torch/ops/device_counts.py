@@ -21,7 +21,8 @@ import torch
 
 KERNELS = ("block_hash_fwd", "block_hash_bwd", "block_hash_seg_fwd", "block_hash_seg_bwd",
            "block_hash_win_fwd", "block_hash_win_bwd", "fused_mlp", "perm_gather_fwd",
-           "perm_gather_bwd", "occ_lookup", "occ_sample")
+           "perm_gather_bwd", "occ_lookup", "occ_sample", "merged_composite_fwd",
+           "merged_composite_bwd")
 _INDEX = {name: i for i, name in enumerate(KERNELS)}
 
 _slots = {}  # torch.device -> int64 [len(KERNELS)] on it, kept for the process's life

@@ -17,9 +17,11 @@ import torch
 from lidarnerf_tpu_torch.ops import (
     block_hash,
     block_hash_cuda,
+    compositing,
     cuda_lib,
     fused_mlp,
     fused_mlp_cuda,
+    merged_composite_cuda,
     occ_lookup,
     occ_lookup_cuda,
     occ_sample,
@@ -857,6 +859,177 @@ def test_fast_step_launches_occ_sample_once_and_equals_the_plain_sampler(
             runs.append(t)
     assert launched == [len(ds), 0]
     _same_state(*runs)
+
+
+# --- merged compositing (csrc/merged_composite.cu) ---
+
+# the weights at the tolerance the plain version holds to the JAX package
+# (the same deltas, x and libm on the card; the transmittance summed in
+# float64 against the plain version's float32 cumsum and masked sums); the
+# density gradients at 1e-4 of each and _grad_atol
+COMPOSITE_CASES = ["768+64", "192+64", "37+5", "1+1", "equal-depths", "no-ties", "scale2.5",
+                   "4093-rays"]
+
+
+def _composite_case(case):
+    """(zA, sigA, zB, sigB, sample_dist, density_scale, gA, gB) on the card:
+    TA + TB sorted depths over [near, 81 near] with ties across and within
+    the lists (the fine list repeats coarse depths 5 and 6), a saturated
+    step (sigma 1e6) and random cotangents; or a case's change: the fine
+    list drawn from the coarse depths (equal depths across the lists), no
+    tie, density_scale 2.5, 4093 rays (a ragged last block)."""
+    TA, TB = {"192+64": (192, 64), "37+5": (37, 5), "1+1": (1, 1)}.get(case, (768, 64))
+    N = 4093 if case == "4093-rays" else 512
+    rs = np.random.RandomState(len(case))
+    near = 0.0108
+    zA = np.sort(rs.uniform(near, 81 * near, (N, TA)), axis=1).astype(np.float32)
+    zB = np.sort(rs.uniform(near, 81 * near, (N, TB)), axis=1).astype(np.float32)
+    if case == "equal-depths":
+        zB = np.sort(zA[:, rs.choice(TA, TB, replace=False)], axis=1)
+    elif case != "no-ties" and TA > 6 and TB > 3:
+        zB[:, 1] = zB[:, 2] = zA[:, 5]
+        zB[:, 3] = zA[:, 6]
+        zB = np.sort(zB, axis=1)
+    sigA = rs.exponential(30.0, (N, TA)).astype(np.float32)
+    sigB = rs.exponential(30.0, (N, TB)).astype(np.float32)
+    sigA[:, TA // 2] = 1e6
+    dist = np.full((N, 1), 80 * near / TA, np.float32)
+    gA, gB = (rs.normal(size=s.shape).astype(np.float32) for s in (sigA, sigB))
+    cuda = [torch.from_numpy(a).cuda() for a in (zA, sigA, zB, sigB, dist, gA, gB)]
+    return (*cuda[:5], 2.5 if case == "scale2.5" else 1.0, *cuda[5:])
+
+
+def _grad_atol(zA, zB, dist, ds, gA, gB):
+    """1e-5 of the bound on each term of dL/dsigma = (g e^-x T + l'(x) R) delta
+    ds: g e^-x T and l'(x) R are each at most max|g| in size (T, e^-x and
+    |l'| are at most 1, and R sums g w over weights that sum to at most 1),
+    so their float32 rounding scales with max|g| max(delta) ds, not with the
+    gradient, to which they may cancel (as under g = 1, the opacity's)."""
+    z = torch.sort(torch.cat([zA, zB], 1), 1).values
+    delta = max(float((z[:, 1:] - z[:, :-1]).max()), float(dist.max()))
+    return 1e-5 * max(float(gA.abs().max()), float(gB.abs().max())) * delta * ds
+
+
+def _composite(fn, zA, sigA, zB, sigB, dist, ds, gA, gB):
+    """fn's weights and the density gradients of sum(gA wA) + sum(gB wB)."""
+    leaves = [sigA.clone().requires_grad_(), sigB.clone().requires_grad_()]
+    w = fn(zA, leaves[0], zB, leaves[1], dist, ds)
+    torch.autograd.backward(w, [gA, gB])
+    return [t.detach() for t in w] + [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("case", COMPOSITE_CASES)
+def test_merged_composite_kernel_matches_plain(require_cuda, case):
+    """Forward and backward against the plain version on the card (its
+    autograd for the gradients), twice bit for bit, one launch a direction."""
+    args = _composite_case(case)
+    before = merged_composite_cuda.launch_counts()
+    runs = [_composite(compositing.merged_composite_weights, *args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert merged_composite_cuda.launch_counts() == {
+        k: n + 2 for k, n in before.items()}
+    wA, wB, dA, dB = runs[0]
+    rA, rB, pA, pB = _composite(compositing.merged_composite_weights_plain, *args)
+    torch.testing.assert_close(wA, rA, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(wB, rB, rtol=1e-5, atol=1e-7)
+    atol = _grad_atol(args[0], args[2], args[4], args[5], args[6], args[7])
+    torch.testing.assert_close(dA, pA, rtol=1e-4, atol=atol)
+    torch.testing.assert_close(dB, pB, rtol=1e-4, atol=atol)
+    assert all(torch.isfinite(t).all() for t in runs[0])
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(*runs))
+
+
+def test_merged_composite_in_a_cuda_graph(require_cuda):
+    """Both directions captured in one CUDA graph replay bit-equal to the
+    eager calls, on inputs written between capture and replay."""
+    zA, sigA, zB, sigB, dist, ds, gA, gB = _composite_case("768+64")
+    inputs = [t.clone() for t in (zA, sigA, zB, sigB, dist, gA, gB)]
+
+    def both():
+        z1, s1, z2, s2, d, g1, g2 = inputs
+        return (*merged_composite_cuda.merged_composite_fwd(z1, s1, z2, s2, d, ds),
+                *merged_composite_cuda.merged_composite_bwd(z1, s1, z2, s2, d, ds, g1, g2))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = both()
+    for t in (inputs[1], inputs[3], inputs[5], inputs[6]):
+        t.mul_(0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = both()
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(out, eager))
+
+
+def test_merged_composite_wrapper_limits(require_cuda):
+    zA, sigA, zB, sigB, dist, ds, gA, gB = _composite_case("192+64")
+    before = merged_composite_cuda.launch_counts()
+    fwd = merged_composite_cuda.merged_composite_fwd
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fwd(zA.cpu(), sigA.cpu(), zB.cpu(), sigB.cpu(), dist.cpu(), ds)
+    with pytest.raises(ValueError, match="on one device"):
+        fwd(zA, sigA, zB, sigB.cpu(), dist, ds)
+    with pytest.raises(ValueError, match="not contiguous"):
+        fwd(zA, sigA.t().contiguous().t(), zB, sigB, dist, ds)
+    with pytest.raises(ValueError, match="no gradient for zB"):
+        compositing.merged_composite_weights(zA, sigA, zB.requires_grad_(), sigB, dist, ds)
+    zB.requires_grad_(False)
+    big = torch.zeros((2, merged_composite_cuda.MAX_SAMPLES), device="cuda")
+    with pytest.raises(ValueError, match="TA \\+ TB"):
+        fwd(big, big, big[:, :1].contiguous(), big[:, :1].contiguous(), big[:, :1].contiguous(), ds)
+    wA, wB = fwd(zA[:0], sigA[:0], zB[:0], sigB[:0], dist[:0], ds)
+    assert wA.shape == (0, 192) and wB.shape == (0, 64) and wA.is_cuda
+    assert merged_composite_cuda.launch_counts() == before
+    # the most samples a ray: one ray a block in 192 KB of shared memory (backward)
+    z = torch.sort(torch.rand((3, merged_composite_cuda.MAX_SAMPLES - 1), device="cuda"), 1).values
+    s = torch.rand_like(z) * 50.0
+    zf, sf = z[:, :1].contiguous(), s[:, :1].contiguous()
+    d = torch.full((3, 1), 1e-4, device="cuda")
+    g, gf = torch.ones_like(z), torch.ones_like(zf)  # the opacity's gradient: terms cancel
+    w = _composite(compositing.merged_composite_weights, z, s, zf, sf, d, 1.0, g, gf)
+    ref = _composite(compositing.merged_composite_weights_plain, z, s, zf, sf, d, 1.0, g, gf)
+    torch.testing.assert_close(w[0], ref[0], rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(w[2], ref[2], rtol=1e-4, atol=_grad_atol(z, zf, d, 1.0, g, gf))
+    assert merged_composite_cuda.launch_counts() == {k: n + 1 for k, n in before.items()}
+
+
+def test_training_and_serving_run_the_merged_composite_kernel(require_cuda, tmp_path,
+                                                               monkeypatch):
+    """A default epoch, eager and captured: one forward and one backward
+    launch a step on the card, replays included, and at the wrappers only
+    the eager steps and each graph's warm-up and capture; then a served
+    pano: one forward a chunk and no backward."""
+    from lidarnerf_tpu_torch.nerf.infer import PanoRenderer
+    from lidarnerf_tpu_torch.ops import device_counts
+    from lidarnerf_tpu_torch.utils.params import params_to_jax
+
+    opt, ds = _graph_case("default", tmp_path, monkeypatch)
+    names = list(merged_composite_cuda.launch_counts())
+    for fuse in (0, 1):
+        t = _graph_trainer(opt, fuse)
+        merged_composite_cuda.reset_counts()
+        device_counts.enable("cuda")
+        torch.cuda.synchronize()
+        device_counts.reset()
+        t.train(ds, None, max_epochs=1)
+        torch.cuda.synchronize()
+        on_card = {k: device_counts.counts()[k] for k in names}
+        graphs = sum(len(f.graphs) for f in t._epoch_fns.values())
+        assert graphs == fuse
+        assert on_card == dict.fromkeys(names, len(ds))
+        assert merged_composite_cuda.launch_counts() == dict.fromkeys(
+            names, len(ds) if fuse == 0 else 2)
+    renderer = PanoRenderer(opt, params_to_jax(t.model.state_dict()))
+    merged_composite_cuda.reset_counts()
+    renderer.render_frame(ds.poses_lidar[0], ds.H_lidar, ds.W_lidar, ds.intrinsics_lidar)
+    chunks = -(-ds.H_lidar * ds.W_lidar // opt.max_ray_batch)
+    assert merged_composite_cuda.launch_counts() == {"merged_composite_fwd": chunks,
+                                                     "merged_composite_bwd": 0}
 
 
 def test_sort_merge_z_on_cuda_runs_b6_and_matches_the_cpu(require_cuda, monkeypatch):

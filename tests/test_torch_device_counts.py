@@ -13,6 +13,7 @@ from lidarnerf_tpu_torch.ops import (
     block_hash_cuda,
     device_counts,
     fused_mlp_cuda,
+    merged_composite_cuda,
     occ_lookup_cuda,
     occ_sample_cuda,
     perm_gather_cuda,
@@ -36,7 +37,7 @@ def counting():
 def test_one_slot_per_kernel_wrapper():
     names = {**block_hash_cuda.launch_counts(), **fused_mlp_cuda.launch_counts(),
              **perm_gather_cuda.launch_counts(), **occ_lookup_cuda.launch_counts(),
-             **occ_sample_cuda.launch_counts()}
+             **occ_sample_cuda.launch_counts(), **merged_composite_cuda.launch_counts()}
     assert set(device_counts.KERNELS) == set(names)
     assert len(device_counts.KERNELS) == len(names)
 
